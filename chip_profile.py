@@ -1,0 +1,121 @@
+"""Where the time of a PTEQ decode goes, on one NVIDIA GPU.
+
+    python3 chip_profile.py
+
+Runs the port's PTEQ at the main path's shape (toric d=5, Nc=5, B=2048,
+p=0.15, max_steps=24000, window=600, iters=2, energy_chunk=12) and prints:
+
+1. the card, as nvidia-smi names it with its power limit;
+2. syndromes/s of three decodes in a row (host clock, ended by a device
+   synchronise);
+3. one decode under torch.profiler: host wall time, device busy time (the
+   union of the device's kernel and copy intervals), busy share = busy /
+   wall, and device time by kernel name;
+4. one window of the kernel at B=2048 for each syndromes-per-block choice;
+5. one window of the kernel for batches from 64 to 8192 at the default
+   syndromes per block.
+
+Window times are CUDA-event means over 5 launches after one warm-up.
+Needs a CUDA device; imports no jax.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import mcmc_qec_tpu_torch.ops.ladder_window as lw
+from chip_smoke import PROD, PROD_BRANCH, _time_ms, phase_device
+from mcmc_qec_tpu_torch.decoders import PTEQ, PTEQConfig
+from mcmc_qec_tpu_torch.mcmc.ladder import beta_ladder_depolarizing, init_ladder
+from mcmc_qec_tpu_torch.models import get_spec
+from mcmc_qec_tpu_torch.models.noise import sample_depolarizing
+
+B_MAIN, NC, P = 2048, 5, 0.15
+
+
+def decode(spec, states):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = PTEQ(spec, states, P, PTEQConfig(max_steps=24000, **PROD), seed=7,
+               device="cuda")
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def busy_ms(events) -> float:
+    """Length of the union of the device events' intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def profile_decode(spec, states) -> None:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, dt = decode(spec, states)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_ms(dev)
+    print(f"profiled decode: wall {dt * 1e3:.1f} ms, device busy {busy:.1f} ms, "
+          f"busy share {busy / (dt * 1e3):.3f}", flush=True)
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name][1] += 1
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {ms:10.3f} ms x {n:4d}  {name[:90]}", flush=True)
+
+
+def window_ms(spec, B, seed=5) -> float:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    states = sample_depolarizing(gen, spec, P, (B,), device="cuda")
+    ls = init_ladder(spec, states, NC)
+    eq = torch.zeros((B, spec.n_classes), dtype=torch.int32, device="cuda")
+    sb = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    betas = torch.as_tensor(beta_ladder_depolarizing(P, NC), dtype=torch.float32,
+                            device="cuda")
+    kern = lw.make_ladder_window(spec, NC, PROD["window"], PROD["iters"], 0.5, 2,
+                                 PROD["energy_chunk"], **PROD_BRANCH)
+    args = (ls.state, ls.flag, ls.tops0, eq, sb, 3, betas, np.ones(3, np.float32))
+    kern(*args)
+    return _time_ms(lambda: kern(*args), 5)
+
+
+def main() -> int:
+    phase_device()
+    spec = get_spec("toric", 5)
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+    states = sample_depolarizing(gen, spec, P, (B_MAIN,), device="cuda")
+    for rep in range(3):
+        res, dt = decode(spec, states)
+        print(f"PTEQ rep {rep}: {B_MAIN / dt:.1f} syn/s ({dt * 1e3:.1f} ms), "
+              f"converged {res.converged.mean():.3f}, buckets "
+              f"{list(res.buckets)}", flush=True)
+    profile_decode(spec, states)
+
+    default_spb = lw._syndromes_per_block
+    try:
+        for spb in (1, 2, 4, 8, 16, 32):
+            lw._syndromes_per_block = lambda B, Nc, device, spb=spb: spb
+            print(f"B={B_MAIN} spb={spb:2d}: {window_ms(spec, B_MAIN):.3f} "
+                  f"ms/window", flush=True)
+    finally:
+        lw._syndromes_per_block = default_spb
+    for B in (64, 128, 256, 512, 1024, 2048, 4096, 8192):
+        spb = default_spb(B, NC, torch.device("cuda"))
+        print(f"B={B:5d} default spb={spb:2d}: {window_ms(spec, B):.3f} "
+              f"ms/window", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

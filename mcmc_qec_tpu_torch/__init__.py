@@ -1,0 +1,13 @@
+"""mcmc_qec_tpu_torch: the PyTorch and CUDA port of mcmc_qec_tpu.
+
+Same layout and module names as the JAX package, which stays the reference
+every part of the port is tested against (tests/test_torch_*.py).  Ported so
+far: the code families, the depolarizing PTEQ decoder (``decoders.PTEQ``)
+and its fused parallel-tempering window, whose CUDA kernel
+(``csrc/ladder_window.cu``) is built with nvcc at first use on a CUDA
+device.  Importing this package imports neither jax nor triton.
+"""
+
+from . import models
+
+__version__ = "0.1.0"

@@ -1,0 +1,53 @@
+"""Carry state across from the JAX package.
+
+This system has no learned weights: its parameters are the code tables, the
+beta ladder (numpy in both packages) and the ladder state.  These helpers
+let both packages compute on identical inputs; none of them imports jax.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .mcmc.ladder import LadderState
+from .models.base import CodeSpec, LogicalDraw
+
+
+def spec_from_jax(jax_spec) -> CodeSpec:
+    """Port ``CodeSpec`` with the fields of an ``mcmc_qec_tpu`` one, read by
+    attribute (numpy arrays are copied)."""
+    fields = {}
+    for f in dataclasses.fields(CodeSpec):
+        v = getattr(jax_spec, f.name)
+        if f.name == "logical_draws":
+            v = tuple(
+                LogicalDraw(
+                    x_masks=np.array(d.x_masks),
+                    z_masks=np.array(d.z_masks),
+                    op_lut=np.array(d.op_lut),
+                )
+                for d in v
+            )
+        elif isinstance(v, np.ndarray):
+            v = v.copy()
+        fields[f.name] = v
+    return CodeSpec(**fields)
+
+
+def ladder_state_from_numpy(state, flag, tops0, device) -> LadderState:
+    """LadderState on ``device`` from numpy (B, Nc, nq) u8 states, (B, Nc)
+    flags and (B,) tops0."""
+    return LadderState(
+        state=torch.as_tensor(np.asarray(state, np.uint8), device=device),
+        flag=torch.as_tensor(np.asarray(flag, np.int32), device=device),
+        tops0=torch.as_tensor(np.asarray(tops0, np.int32), device=device),
+    )
+
+
+def ladder_state_to_numpy(ls: LadderState) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(state, flag, tops0) numpy arrays of a LadderState."""
+    return tuple(t.detach().cpu().numpy() for t in ls)
