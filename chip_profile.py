@@ -1,19 +1,25 @@
-"""Where the time of a PTEQ decode goes, on one NVIDIA GPU.
+"""Where the time of a PTEQ decode and of an STDC decode goes, on one
+NVIDIA GPU.
 
     python3 chip_profile.py
 
-Runs the port's PTEQ at the main path's shape (toric d=5, Nc=5, B=2048,
-p=0.15, max_steps=24000, window=600, iters=2, energy_chunk=12) and prints:
+Runs the port's PTEQ at its main path's shape (toric d=5, Nc=5, B=2048,
+p=0.15, max_steps=24000, window=600, iters=2, energy_chunk=12) and its STDC
+at the shape of the repo's ``stdc_decoder_syndromes_per_sec_d5`` key (toric
+d=5, B=1024, p=0.1, p_sampling=0.25, droplets=4, steps=450), and prints:
 
 1. the card, as nvidia-smi names it with its power limit;
-2. syndromes/s of three decodes in a row (host clock, ended by a device
-   synchronise);
-3. one decode under torch.profiler: host wall time, device busy time (the
-   union of the device's kernel and copy intervals), busy share = busy /
-   wall, and device time by kernel name;
+2. syndromes/s of three PTEQ decodes in a row (host clock, ended by a
+   device synchronise);
+3. one PTEQ decode under torch.profiler: host wall time, device busy time
+   (the union of the device's kernel and copy intervals), busy share =
+   busy / wall, and device time by kernel name;
 4. one window of the kernel at B=2048 for each syndromes-per-block choice;
 5. one window of the kernel for batches from 64 to 8192 at the default
-   syndromes per block.
+   syndromes per block;
+6. syndromes/s of three STDC decodes in a row, and one STDC decode under
+   torch.profiler (as in 3), split into its sampling loop and its
+   reduction, each span ended by a device synchronise.
 
 Window times are CUDA-event means over 5 launches after one warm-up.
 Needs a CUDA device; imports no jax.
@@ -31,8 +37,16 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import mcmc_qec_tpu_torch.ops.ladder_window as lw
-from chip_smoke import PROD, PROD_BRANCH, _time_ms, phase_device
-from mcmc_qec_tpu_torch.decoders import PTEQ, PTEQConfig
+from chip_smoke import (
+    PROD,
+    PROD_BRANCH,
+    STDC_MAIN,
+    _sync_time,
+    _time_ms,
+    phase_device,
+    stdc_halves,
+)
+from mcmc_qec_tpu_torch.decoders import PTEQ, STDC, PTEQConfig
 from mcmc_qec_tpu_torch.mcmc.ladder import beta_ladder_depolarizing, init_ladder
 from mcmc_qec_tpu_torch.models import get_spec
 from mcmc_qec_tpu_torch.models.noise import sample_depolarizing
@@ -60,19 +74,28 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
-def profile_decode(spec, states) -> None:
+def profile_decode(spec, states, run=None, name="PTEQ") -> None:
+    """One decode (``run(spec, states) -> (result, seconds)``, PTEQ by
+    default) under torch.profiler."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, dt = decode(spec, states)
+        _, dt = (run or decode)(spec, states)
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = busy_ms(dev)
-    print(f"profiled decode: wall {dt * 1e3:.1f} ms, device busy {busy:.1f} ms, "
-          f"busy share {busy / (dt * 1e3):.3f}", flush=True)
+    print(f"profiled {name} decode: wall {dt * 1e3:.1f} ms, device busy "
+          f"{busy:.1f} ms, busy share {busy / (dt * 1e3):.3f}", flush=True)
     by_name = defaultdict(lambda: [0.0, 0])
     for e in dev:
         by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name][1] += 1
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  {ms:10.3f} ms x {n:4d}  {name[:90]}", flush=True)
+
+
+def stdc_decode(spec, states):
+    return _sync_time(lambda: STDC(
+        spec, states, STDC_MAIN["p"], STDC_MAIN["p_sampling"],
+        droplets=STDC_MAIN["droplets"], steps=STDC_MAIN["steps"], seed=3,
+        device="cuda"))
 
 
 def window_ms(spec, B, seed=5) -> float:
@@ -114,6 +137,19 @@ def main() -> int:
         spb = default_spb(B, NC, torch.device("cuda"))
         print(f"B={B:5d} default spb={spb:2d}: {window_ms(spec, B):.3f} "
               f"ms/window", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(2027)
+    states = sample_depolarizing(gen, spec, STDC_MAIN["p"], (STDC_MAIN["B"],),
+                                 device="cuda")
+    for rep in range(3):
+        _, dt = stdc_decode(spec, states)
+        print(f"STDC rep {rep}: {STDC_MAIN['B'] / dt:.1f} syn/s "
+              f"({dt * 1e3:.1f} ms)", flush=True)
+    profile_decode(spec, states, stdc_decode, "STDC")
+    _, t_sample, t_reduce = stdc_halves(spec, states, seed=3)
+    print(f"STDC split: sampling {t_sample * 1e3:.1f} ms, reduction "
+          f"{t_reduce * 1e3:.1f} ms, sampling share "
+          f"{t_sample / (t_sample + t_reduce):.3f}", flush=True)
     return 0
 
 

@@ -2,14 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the ladder-window kernel from mcmc_qec_tpu_torch/csrc with nvcc,
-checks it against its plain PyTorch version on the card, decodes with the
-port's depolarizing PTEQ at production size through the kernel, scores the
-64 cached head-to-head syndromes against the executing reference, and times
-one window of the kernel against one window of the plain version at the main
-path's shape, where their outputs must be equal too.  Each
-phase prints one line; any failed phase exits non-zero.  The line before
-the last is a JSON record of the kernels; the last line is
+Builds both kernels from mcmc_qec_tpu_torch/csrc with nvcc (one process per
+source, started together), then drives each ported path and holds each
+kernel against its plain PyTorch version on the card:
+
+- K2, the PT window (csrc/ladder_window.cu): kernel vs plain version;
+  depolarizing PTEQ at production size through the kernel; the 64 cached
+  head-to-head syndromes against the executing reference; one window timed
+  against one of the plain version at the main path's shape, outputs equal.
+- K1, the colored sweep (csrc/sweep.cu): kernel vs plain version (both
+  acceptance branches, toric d=5 ragged, planar d=3, toric d=13); STDC at
+  the shape of the repo's ``stdc_decoder_syndromes_per_sec_d5`` key through
+  the kernel, with the split between sampling and reduction; STDC and STRC
+  on the 64 cached syndromes against the reference and against PTEQ; one
+  launch timed against the plain version at the main path's shape.
+
+Each phase prints one line; any failed phase exits non-zero.  The line
+before the last is a JSON record of the kernels (launches on the main
+path, largest difference from the plain version, times, and the least time
+the card could take for the same work); the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device; imports no jax.
 """
 
@@ -19,22 +30,33 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from mcmc_qec_tpu_torch.decoders import PTEQ, PTEQConfig
-from mcmc_qec_tpu_torch.mcmc.ladder import beta_ladder_depolarizing, init_ladder
+from mcmc_qec_tpu_torch.decoders import PTEQ, STDC, STRC, PTEQConfig
+from mcmc_qec_tpu_torch.decoders.stdc import _class_seeds, _get_stdc_fn
+from mcmc_qec_tpu_torch.mcmc.ladder import (
+    beta_ladder_depolarizing,
+    betas_depolarizing,
+    betas_xyz,
+    init_ladder,
+)
 from mcmc_qec_tpu_torch.models import get_spec, np_eq_class
 from mcmc_qec_tpu_torch.models.noise import sample_depolarizing
 from mcmc_qec_tpu_torch.ops import _build
+from mcmc_qec_tpu_torch.ops.dense_sweep import _color_tables
 from mcmc_qec_tpu_torch.ops.ladder_window import (
+    _rng_layout,
     ladder_window_counts,
     ladder_window_reference,
     make_ladder_window,
 )
+from mcmc_qec_tpu_torch.ops.sweep import make_sweep, sweep_counts, sweep_reference
 
+KERNELS = ("ladder_window", "sweep")
 ROOT = Path(__file__).resolve().parent
 H2H_CACHE = ROOT / "examples" / "h2h_ref_cache_r5.npz"
 OUT_NAMES = ("state", "flag", "tops0", "eq_count", "since_burn", "energies",
@@ -47,6 +69,31 @@ PROD_BRANCH = dict(top_exact=True, equal_betas=True)
 # (RESULTS.md:589-598) and the recovery floor below JAX 52 / reference 54
 H2H_MAX_TV = 0.173
 H2H_MIN_RECOVERED = 44
+# STDC main path: bench.py:150-173 (key stdc_decoder_syndromes_per_sec_d5)
+STDC_MAIN = dict(B=1024, p=0.1, p_sampling=0.25, droplets=4, steps=450)
+# STDC/STRC on the 64 cached syndromes (head_to_head.py:226-239): mean TV to
+# the reference's distributions (JAX 0.302, RESULTS.md:590-591), recovery
+# (JAX 49, reference 41/40) and TV to the port's own PTEQ (JAX 0.086,
+# RESULTS.md:593)
+H2H_COUNTING = dict(p=0.15, p_sampling=0.25, droplets=2, steps=10000, seed=1)
+H2H_COUNTING_MAX_TV = 0.35
+H2H_COUNTING_MIN_RECOVERED = 44
+H2H_STDC_PTEQ_MAX_TV = 0.15
+
+# The least time the card could take (the larger of the bytes over the
+# memory rate and the operations over their issue rate).  H100 SXM HBM3
+# rate (NVIDIA's data sheet); per-SM issue rates per clock for compute
+# capability 9.0 (CUDA C++ Programming Guide, throughput of native
+# arithmetic instructions): population count 16, 32-bit integer multiply
+# 64.  A 64-bit popcount is two 32-bit POPC instructions in the SASS, and
+# Philox4x32-10 is 10 rounds of two mul.hi and two mul.lo (40 IMAD) per
+# block of four draws.  The precise logf of a proposal that may be rejected
+# depends on the data and is not counted, so the bound is a lower bound.
+HBM_BYTES_PER_S = 3.35e12
+POPC_PER_CLK_SM = 16
+IMAD_PER_CLK_SM = 64
+POPC_PER_64BIT = 2
+IMAD_PER_PHILOX = 40
 
 
 class PhaseFailed(Exception):
@@ -73,13 +120,48 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    built = _build.build("ladder_window")
-    regs = [ln.strip() for ln in built.log.splitlines()
-            if "registers" in ln or "spill" in ln]
-    how = f"{built.seconds:.1f} s" if built.seconds else "reused existing build"
-    print(f"phase 2 build: ladder_window.cu {how} | {' | '.join(regs)}",
-          flush=True)
-    _build.load("ladder_window")
+    """One nvcc per source, all started together."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    for name, b in built.items():
+        regs = [ln.strip() for ln in b.log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        how = f"{b.seconds:.1f} s" if b.seconds else "reused existing build"
+        print(f"phase 2 build: {name}.cu {how} | {' | '.join(regs)}",
+              flush=True)
+        _build.load(name)
+
+
+def _card_rates():
+    """(SM count, highest SM clock in Hz) of device 0."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count, mhz * 1e6
+
+
+def bound_ms(n_bytes: float, popc64: float, philox_blocks: float):
+    """(least ms, "bytes" or "operations") for work that moves ``n_bytes``
+    and issues ``popc64`` 64-bit popcounts and ``philox_blocks`` Philox
+    blocks, from the rates above and this card's SM count and clock."""
+    n_sm, clock = _card_rates()
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(popc64 * POPC_PER_64BIT / (POPC_PER_CLK_SM * n_sm * clock),
+                philox_blocks * IMAD_PER_PHILOX / (IMAD_PER_CLK_SM * n_sm * clock))
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _philox_blocks_per_sweep(spec) -> int:
+    """Philox blocks one chain draws in one sweep (one per four stabilizers
+    of each color)."""
+    return sum(-(-sel.shape[0] // 4) for sel, _, _ in _color_tables(spec))
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.nelement() * t.element_size() for t in tensors)
 
 
 def _ladder_inputs(spec, B, Nc, seed, device):
@@ -213,6 +295,7 @@ def phase_quality() -> None:
     check(tv_a <= H2H_MAX_TV, f"mean TV to ref_pteq_a {tv_a:.4f} > {H2H_MAX_TV}")
     check(recovered >= H2H_MIN_RECOVERED,
           f"recovered {recovered}/64 < {H2H_MIN_RECOVERED}")
+    return d
 
 
 def _time_ms(fn, reps):
@@ -251,11 +334,210 @@ def phase_timing():
         tops_burn=2, energy_chunk=PROD["energy_chunk"])), 1)
     err = compare_outputs("toric d=5 B=2048 W=600 philox", kern_out,
                           plain_out[0], PROD["window"])
+    # the window's work: every proposal of every sweep on every rung, plus
+    # the gate, logical-draw and exchange blocks of each (step, syndrome)
+    W, iters = PROD["window"], PROD["iters"]
+    nw = -(-spec.nq // 64)
+    proposals = B * Nc * W * iters * spec.n_stabs
+    _, _, n_xblocks = _rng_layout(spec, Nc, iters)
+    blocks = (B * Nc * W * iters * _philox_blocks_per_sweep(spec)
+              + B * W * 3 * n_xblocks)
+    bound, bound_by = bound_ms(
+        _nbytes(ls.state, ls.flag, ls.tops0, eq, sb, betas, *kern_out),
+        2 * nw * proposals, blocks)
     print(f"phase 6 one window toric d=5 B={B} Nc={Nc} W=600 iters=2 C=12: "
           f"kernel {ms:.3f} ms, plain version {plain_ms:.1f} ms "
-          f"({plain_ms / ms:.1f}x); all nine outputs equal, max abs err {err}",
-          flush=True)
-    return ms, plain_ms, err
+          f"({plain_ms / ms:.1f}x); all nine outputs equal, max abs err {err}; "
+          f"bound {bound:.4f} ms ({bound_by}; {proposals} proposals, "
+          f"{blocks} Philox blocks)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
+                bound_by=bound_by)
+
+
+
+
+def _random_states(spec, B, seed, device="cuda"):
+    """States with per-chain error rates in [0, 0.6)."""
+    rng = np.random.RandomState(seed)
+    p = rng.uniform(0.0, 0.6, size=(B, 1))
+    s = np.where(rng.uniform(size=(B, spec.nq)) < p,
+                 rng.randint(1, 4, size=(B, spec.nq)), 0)
+    return torch.as_tensor((s * spec.valid_mask).astype(np.uint8), device=device)
+
+
+def compare_sweep(family, d, B, n_sweeps, betas, equal_betas, seed):
+    """K1 vs its plain version on the card, same inputs and Philox draws;
+    all states must be equal.  Returns the largest absolute difference."""
+    spec = get_spec(family, d)
+    states = _random_states(spec, B, seed)
+    b = torch.as_tensor(betas, dtype=torch.float32, device="cuda")
+    kern = make_sweep(spec, n_sweeps, equal_betas)(states, seed, b)
+    plain = sweep_reference(spec, states, seed, b, n_sweeps, equal_betas)
+    torch.cuda.synchronize()
+    tag = f"{family} d={d} B={B} equal_betas={equal_betas} betas={list(betas)}"
+    n_bad = int((kern != plain).sum())
+    check(n_bad == 0, f"{tag}: kernel and plain version differ in {n_bad} entries")
+    check(not torch.equal(kern, states), f"{tag}: the chains never moved")
+    return float((kern.int() - plain.int()).abs().max())
+
+
+def phase_sweep_parity() -> float:
+    with np.errstate(divide="ignore"):
+        inf_y = betas_xyz(0.1, 0.0, 0.1)  # beta_y = inf: NaN rejects
+    cases = [
+        ("toric", 5, 1000, np.full(3, 0.9), True),
+        ("toric", 5, 1000, betas_xyz(0.05, 0.02, 0.1), False),
+        ("toric", 5, 1000, inf_y, False),
+        ("planar", 3, 1000, np.full(3, 0.9), True),
+        ("planar", 3, 1000, betas_xyz(0.05, 0.02, 0.1), False),
+        ("toric", 13, 1000, np.full(3, 0.9), True),
+        ("toric", 13, 1000, betas_xyz(0.05, 0.02, 0.1), False),
+    ]
+    worst = 0.0
+    for i, (family, d, B, betas, eq) in enumerate(cases):
+        worst = max(worst, compare_sweep(family, d, B, 3, betas, eq, seed=40 + i))
+    print(f"phase 7 sweep kernel vs plain on the card: toric d=5 B=1000 "
+          f"(equal, general, general with beta_y=inf), planar d=3 and toric "
+          f"d=13 (equal, general), n_sweeps=3: all states equal, max abs err "
+          f"{worst}", flush=True)
+    return worst
+
+
+def _sync_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def stdc_halves(spec, states, seed):
+    """The STDC main path's two halves, the sampling loop and the
+    reduction (dedup and Z), each timed to a synchronise: (percentages,
+    sampling s, reduction s)."""
+    fn = _get_stdc_fn(spec, STDC_MAIN["droplets"], STDC_MAIN["steps"], True,
+                      "off", equal_betas=True)
+    seeds = _class_seeds(spec, states)
+    bs, be = (torch.as_tensor(betas_depolarizing(STDC_MAIN[k]),
+                              dtype=torch.float32, device="cuda")
+              for k in ("p_sampling", "p"))
+    stream, t_sample = _sync_time(lambda: fn.sample(seeds, seed, bs))
+    (distr, _), t_reduce = _sync_time(lambda: fn.reduce(stream, be))
+    return distr.cpu().numpy(), t_sample, t_reduce
+
+
+def phase_stdc_main_path():
+    """STDC at toric d=5, B=1024 through the sweep kernel (one launch per
+    recording step), then the same decode's two halves timed apart."""
+    spec = get_spec("toric", 5)
+    B, p, ps = STDC_MAIN["B"], STDC_MAIN["p"], STDC_MAIN["p_sampling"]
+    D, steps = STDC_MAIN["droplets"], STDC_MAIN["steps"]
+    gen = torch.Generator(device="cuda").manual_seed(2027)
+    states = sample_depolarizing(gen, spec, p, (B,), device="cuda")
+    truth = np_eq_class(spec, states.cpu().numpy())
+    # warm-up at the same shape and another seed (allocator, sort kernels,
+    # first launches), not counted
+    STDC(spec, states, p, ps, droplets=D, steps=steps, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    sweep_counts.reset()
+    distr, dt = _sync_time(lambda: STDC(spec, states, p, ps, droplets=D,
+                                        steps=steps, seed=3, device="cuda"))
+    launches, plain = sweep_counts.launches, sweep_counts.plain_calls
+    check(launches > 0, "STDC never launched the sweep kernel")
+    check(plain == 0, f"STDC ran the plain sweep {plain} times")
+    K = spec.n_classes
+    check(distr.shape == (B, K), f"distribution {distr.shape}")
+    check(bool(np.isfinite(distr).all()), "non-finite percentages")
+    check(bool((np.abs(distr.sum(axis=1) - 100.0) < 1e-2).all()),
+          "percentages do not sum to 100")
+    recovered = float(np.mean(distr.argmax(axis=1) == truth))
+    d2, t_sample, t_reduce = stdc_halves(spec, states, seed=3)
+    check(bool(np.allclose(d2, distr, atol=1e-4)),
+          "the two halves do not reproduce the decode")
+    props = B * K * D * steps * spec.n_stabs
+    print(f"phase 8 STDC toric d=5 B={B} p={p} p_sampling={ps} droplets={D} "
+          f"steps={steps}: {B / dt:.1f} syn/s ({dt:.3f} s), {props / dt:.4g} "
+          f"proposals/s, sweep launches {launches}, truth recovered "
+          f"{recovered:.3f}; split: sampling {t_sample * 1e3:.1f} ms, "
+          f"reduction {t_reduce * 1e3:.1f} ms (sampling share "
+          f"{t_sample / (t_sample + t_reduce):.3f})", flush=True)
+    return launches
+
+
+def phase_counting_quality(pteq_distr) -> None:
+    spec = get_spec("toric", 5)
+    z = np.load(H2H_CACHE)
+    truth = np_eq_class(spec, z["states"])
+    kw = dict(H2H_COUNTING)
+    p, ps = kw.pop("p"), kw.pop("p_sampling")
+    (stdc, strc), dt = _sync_time(lambda: (
+        STDC(spec, z["warm"], p, ps, device="cuda", **kw),
+        STRC(spec, z["warm"], p, ps, device="cuda", **kw)))
+
+    def tv(a, b):
+        return float(np.mean(0.5 * np.abs(a / 100.0 - b / 100.0).sum(axis=1)))
+
+    parts, fails = [], []
+    for name, d, ref in (("STDC", stdc, z["ref_stdc"]), ("STRC", strc, z["ref_strc"])):
+        t = tv(d, ref)
+        agree = int((d.argmax(axis=1) == ref.argmax(axis=1)).sum())
+        rec = int((d.argmax(axis=1) == truth).sum())
+        parts.append(f"{name}: mean TV to ref {t:.4f} (bar {H2H_COUNTING_MAX_TV}), "
+                     f"argmax agreement {agree}/64, truth recovered {rec}/64 "
+                     f"(bar {H2H_COUNTING_MIN_RECOVERED})")
+        if t > H2H_COUNTING_MAX_TV:
+            fails.append(f"{name} mean TV to ref {t:.4f} > {H2H_COUNTING_MAX_TV}")
+        if rec < H2H_COUNTING_MIN_RECOVERED:
+            fails.append(f"{name} recovered {rec}/64 < {H2H_COUNTING_MIN_RECOVERED}")
+    t_pteq = tv(stdc, pteq_distr * 100.0)
+    agree_pteq = int((stdc.argmax(axis=1) == pteq_distr.argmax(axis=1)).sum())
+    print(f"phase 9 h2h 64 cached syndromes, warm starts, p={p} "
+          f"p_sampling={ps} droplets={kw['droplets']} steps={kw['steps']}: "
+          f"{'; '.join(parts)}; STDC vs port PTEQ: mean TV {t_pteq:.4f} "
+          f"(bar {H2H_STDC_PTEQ_MAX_TV}), argmax agreement {agree_pteq}/64; "
+          f"{dt:.2f} s for both", flush=True)
+    if t_pteq > H2H_STDC_PTEQ_MAX_TV:
+        fails.append(f"TV STDC vs PTEQ {t_pteq:.4f} > {H2H_STDC_PTEQ_MAX_TV}")
+    check(not fails, "; ".join(fails))
+
+
+def phase_sweep_timing():
+    """One launch of the sweep kernel at the STDC main path's shape
+    (1024 syndromes x 16 classes x 4 droplets = 65,536 chains of toric d=5,
+    one sweep, equal betas) and with 100 sweeps, each against the plain
+    version; outputs must be equal."""
+    spec = get_spec("toric", 5)
+    R = STDC_MAIN["B"] * spec.n_classes * STDC_MAIN["droplets"]
+    states = _random_states(spec, R, seed=9)
+    b = torch.as_tensor(betas_depolarizing(STDC_MAIN["p_sampling"]),
+                        dtype=torch.float32, device="cuda")
+    res = {}
+    for n_sweeps, reps in ((1, 200), (100, 10)):
+        fn = make_sweep(spec, n_sweeps, equal_betas=True)
+        out = fn(states, 5, b)  # warm-up, kept for the comparison
+        ms = _time_ms(lambda: fn(states, 5, b), reps)
+        plain_out = []
+        plain_ms = _time_ms(lambda: plain_out.append(sweep_reference(
+            spec, states, 5, b, n_sweeps, equal_betas=True)), 1)
+        n_bad = int((out != plain_out[0]).sum())
+        check(n_bad == 0, f"n_sweeps={n_sweeps}: kernel and plain version "
+                          f"differ in {n_bad} entries")
+        err = float((out.int() - plain_out[0].int()).abs().max())
+        nw = -(-spec.nq // 64)
+        bound, bound_by = bound_ms(
+            _nbytes(states, out, b),
+            2 * nw * R * n_sweeps * spec.n_stabs,
+            R * n_sweeps * _philox_blocks_per_sweep(spec))
+        res[n_sweeps] = dict(ms=ms, plain_ms=plain_ms, err=err,
+                             bound_ms=bound, bound_by=bound_by)
+    print("phase 10 sweep kernel, toric d=5, 65,536 chains, equal betas: "
+          + "; ".join(
+              f"n_sweeps={n}: kernel {r['ms']:.4f} ms, plain version "
+              f"{r['plain_ms']:.1f} ms ({r['plain_ms'] / r['ms']:.1f}x), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+              for n, r in res.items())
+          + "; all states equal", flush=True)
+    return res
 
 
 def main() -> int:
@@ -264,27 +546,50 @@ def main() -> int:
         phase_device()
         phase = "build"
         phase_build()
-        phase = "kernel vs plain"
+        phase = "window kernel vs plain"
         max_err = phase_parity()
-        phase = "main path"
-        launches = phase_main_path()
-        phase = "h2h quality"
-        phase_quality()
-        phase = "timing"
-        ms, plain_ms, timing_err = phase_timing()
-        max_err = max(max_err, timing_err)
+        phase = "PTEQ main path"
+        k2_launches = phase_main_path()
+        phase = "h2h PTEQ quality"
+        pteq_distr = phase_quality()
+        phase = "window timing"
+        k2 = phase_timing()
+        phase = "sweep kernel vs plain"
+        k1_err = phase_sweep_parity()
+        phase = "STDC main path"
+        k1_launches = phase_stdc_main_path()
+        phase = "h2h STDC/STRC quality"
+        phase_counting_quality(pteq_distr)
+        phase = "sweep timing"
+        k1 = phase_sweep_timing()
     except PhaseFailed as e:
         print(f"FAILED phase {phase}: {e}", flush=True)
         return 1
+    k1_main = k1[1]
     print(json.dumps({"kernels": [{
         "name": "ladder_window",
         "route": "cuda",
         "source": "mcmc_qec_tpu_torch/csrc/ladder_window.cu",
         "replaces": "mcmc_qec_tpu/ops/pallas_ladder.py:144",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "launches": k2_launches,
+        "max_abs_err": max(max_err, k2["err"]),
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "sweep",
+        "route": "cuda",
+        "source": "mcmc_qec_tpu_torch/csrc/sweep.cu",
+        "replaces": "mcmc_qec_tpu/ops/pallas_sweep.py:42",
+        "launches": k1_launches,
+        "max_abs_err": max(k1_err, *(r["err"] for r in k1.values())),
+        "ms": k1_main["ms"],
+        "plain_ms": k1_main["plain_ms"],
+        "bound_ms": k1_main["bound_ms"],
+        "bound_by": k1_main["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

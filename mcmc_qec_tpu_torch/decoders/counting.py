@@ -1,0 +1,233 @@
+"""On-device unique-chain counting and occupancy statistics.
+
+Counterpart of ``mcmc_qec_tpu/decoders/counting.py`` for the materialised
+path.  Every chain visit is recorded on the device as a 64-bit content key
+(two 32-bit universal hashes, ``ops/pauli.py::pack_key``, held as int64
+values in [0, 2**32)) plus per-Pauli counts; a sort along the sample axis
+marks first occurrences and segment reductions produce:
+
+- Z_DC       = sum over *unique* chains of exp(-beta_err . n_xyz)   (STDC)
+- m(n), N(n) = total / unique observations per length               (STRC)
+- shortest-set statistics                                           (STRC)
+
+Sorting: JAX's two-key lexicographic sort over the uint32 halves becomes
+one stable ``torch.sort`` of the int64 key ``(k0 - 2**31) * 2**32 + k1``,
+which is exact and orders like (k0, k1), so sorted positions and tie
+order (time order) equal ``jnp.lexsort``'s.  The float sums of the
+reductions run in torch's order, not XLA's, so log Z agrees with the JAX
+package to float32 rounding, not bit for bit.
+
+Not ported yet (``NotImplementedError``): validity masks (the ``conv_mult``
+early-stop rule, ``conv_mult_valid_mask``) and the other sampler engines.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..models.base import CodeSpec
+from ..ops.engines import resolve_engine
+from ..ops.pauli import (
+    apply_stabilizers_uniform,
+    count_errors_xyz,
+    make_hash_mults,
+    pack_key,
+)
+from ..ops.sweep import make_sweep
+
+_NO_VALID = ("validity masks (the conv_mult early-stop rule, "
+             "conv_mult_valid_mask) are not ported yet: ROADMAP.md queue 1")
+
+
+class SampleStream(NamedTuple):
+    """Recorded chain visits, leading axes (..., n_samples)."""
+
+    keys: torch.Tensor  # (..., N, 2) int64 holding the uint32 hash halves
+    n_xyz: torch.Tensor  # (..., N, 3) int32
+
+
+def make_sampler(spec: CodeSpec, steps: int, iters_per_step: int = 1,
+                 engine: str = "pallas", equal_betas: bool = False):
+    """Build ``sample(states, seed, betas) -> (states, SampleStream)``.
+
+    Each of ``steps`` recording steps runs ``iters_per_step`` colored sweeps
+    over every chain (one launch of the sweep kernel on a CUDA tensor) and
+    records the current chains into preallocated buffers on the states'
+    device.  ``states``: (..., nq) u8; stream axes (..., steps).  Per-step
+    kernel seeds come from a CPU ``torch.Generator`` seeded with ``seed``,
+    so the loop never waits for the device.  ``betas`` (3,) f32: pass a
+    tensor on the device (a host array is copied once per call)."""
+    resolve_engine(engine, "counting")
+    sweep = make_sweep(spec, n_sweeps=iters_per_step, equal_betas=equal_betas)
+    mults = make_hash_mults(spec)
+
+    def sample(states: torch.Tensor, seed: int, betas):
+        device = states.device
+        batch_shape, nq = states.shape[:-1], states.shape[-1]
+        flat = states.reshape(-1, nq).contiguous()
+        R = flat.shape[0]
+        betas_d = torch.as_tensor(betas, dtype=torch.float32, device=device)
+        m = torch.as_tensor(mults.astype(np.int64), device=device)
+        keys = torch.empty((R, steps, 2), dtype=torch.int64, device=device)
+        nxyz = torch.empty((R, steps, 3), dtype=torch.int32, device=device)
+        gen = torch.Generator().manual_seed(int(seed))
+        seeds = torch.randint(0, 2**31 - 1, (steps,), generator=gen).tolist()
+        for t in range(steps):
+            flat = sweep(flat, seeds[t], betas_d)
+            keys[:, t] = pack_key(spec, flat, m)
+            nxyz[:, t] = count_errors_xyz(flat)
+        return flat.reshape(states.shape), SampleStream(
+            keys.reshape(batch_shape + (steps, 2)),
+            nxyz.reshape(batch_shape + (steps, 3)),
+        )
+
+    return sample
+
+
+def sample_classes(spec: CodeSpec, sampler, class_states: torch.Tensor,
+                   seed: int, betas_sampling, droplets: int, steps: int,
+                   randomize: bool) -> SampleStream:
+    """Run ``droplets`` chains per (syndrome, class) seed of
+    ``class_states`` (B, K, nq) through ``sampler`` (built for ``steps``
+    steps) and merge each (syndrome, class)'s droplets into one stream
+    (B, K, droplets * steps, ...), droplet-major as in the JAX decoders.
+    ``randomize`` rains every droplet first (decoders.py:244-246)."""
+    B, K, nq = class_states.shape
+    gen = torch.Generator().manual_seed(int(seed))
+    rain_seed, samp_seed = torch.randint(0, 2**62, (2,), generator=gen).tolist()
+    states = class_states[:, :, None, :].expand(B, K, droplets, nq).contiguous()
+    if randomize:
+        rain = torch.Generator(device=states.device).manual_seed(rain_seed)
+        states = apply_stabilizers_uniform(spec, states, rain, 0.5)
+    _, stream = sampler(states, samp_seed, betas_sampling)
+    return SampleStream(stream.keys.reshape(B, K, droplets * steps, 2),
+                        stream.n_xyz.reshape(B, K, droplets * steps, 3))
+
+
+def _sort_key(keys: torch.Tensor) -> torch.Tensor:
+    """(..., 2) uint32 halves in int64 -> (...,) int64 ordered like the
+    pair; exact: (k0 - 2**31) * 2**32 spans [-2**63, 2**63 - 2**32]."""
+    return (keys[..., 0] - 2**31) * 2**32 + keys[..., 1]
+
+
+def _first_of_runs(sorted_keys: torch.Tensor) -> torch.Tensor:
+    """True where a sorted key differs from its predecessor (and at 0)."""
+    first = torch.ones_like(sorted_keys, dtype=torch.bool)
+    first[..., 1:] = sorted_keys[..., 1:] != sorted_keys[..., :-1]
+    return first
+
+
+def first_occurrence(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort a (..., N, 2) key stream lexicographically and mark first
+    occurrences: (order, first_mask), ``first_mask[i]`` True when sorted key
+    i differs from key i-1 (counting.py:112-123)."""
+    sk, order = torch.sort(_sort_key(keys), dim=-1, stable=True)
+    return order, _first_of_runs(sk)
+
+
+def chronological_first_occurrence(keys: torch.Tensor) -> torch.Tensor:
+    """First-occurrence mask in *time order* for a (..., N, 2) key stream:
+    True at index t iff keys[t] was never seen at an earlier index
+    (counting.py:126-135).  The stable sort keeps equal keys in time
+    order, as ``jnp.lexsort`` with the time index as last key does."""
+    order, first_sorted = first_occurrence(keys)
+    return torch.zeros_like(first_sorted).scatter(-1, order, first_sorted)
+
+
+def _weighted_length(n_xyz: torch.Tensor, betas) -> torch.Tensor:
+    """sum_i beta_i * n_i with 0 * inf := 0 (p_i = 0 handling,
+    decoders.py:406-417)."""
+    b = torch.as_tensor(betas, dtype=torch.float32, device=n_xyz.device)
+    terms = torch.where(n_xyz > 0, n_xyz.to(torch.float32) * b, 0.0)
+    return terms.sum(-1)
+
+
+def z_direct_count(
+    stream: SampleStream,
+    betas_error,
+    shortest_only: bool = False,
+    valid=None,
+    with_shortest: bool = False,
+):
+    """log Z_E = logsumexp over unique chains of -beta_err . n_xyz
+    (counting.py:188-258; decoders.py:317-318, 406-417).  With
+    ``shortest_only`` only chains within ~1e-5 of the minimal weighted
+    length contribute; ``with_shortest`` returns (log Z, log Z_shortest)
+    from the one sorted stream.  Vectorised over leading axes: returns
+    log Z (...,) f32."""
+    if valid is not None:
+        raise NotImplementedError(_NO_VALID)
+    lead, N = stream.keys.shape[:-2], stream.keys.shape[-2]
+    keys = stream.keys.reshape(-1, N, 2)
+    w_all = _weighted_length(stream.n_xyz.reshape(-1, N, 3), betas_error)
+    sk, order = torch.sort(_sort_key(keys), dim=-1, stable=True)
+    w = w_all.gather(-1, order)
+    first = _first_of_runs(sk)
+    neg = -w
+
+    def reduce(mask):
+        m = torch.where(mask, neg, -torch.inf).amax(-1)
+        s = torch.where(mask, torch.exp(neg - m[:, None]), 0.0).sum(-1)
+        return (m + torch.log(s)).reshape(lead)
+
+    if shortest_only or with_shortest:
+        wmin = torch.where(first, w, torch.inf).amin(-1, keepdim=True)
+        # jnp.isclose(w, wmin, rtol=1e-5, atol=1e-8)
+        short = first & ((w - wmin).abs() <= 1e-8 + 1e-5 * wmin.abs())
+        if with_shortest:
+            return reduce(first), reduce(short)
+        return reduce(short)
+    return reduce(first)
+
+
+class OccupancyStats(NamedTuple):
+    """Per-length occupancy of a stream (arrays indexed by total length n)."""
+
+    m_n: torch.Tensor  # (..., nq+1) total observations per length
+    N_n: torch.Tensor  # (..., nq+1) unique chains per length
+    shortest: torch.Tensor  # (...,) minimal observed length
+    next_shortest: torch.Tensor  # (...,) second-smallest length (or nq+1)
+
+
+def occupancy_stats(stream: SampleStream, nq: int, valid=None) -> OccupancyStats:
+    """m(n), N(n) and shortest/next-shortest lengths (counting.py:270-307;
+    STRC machinery, decoders.py:597-623, 768-827).  int32 outputs."""
+    if valid is not None:
+        raise NotImplementedError(_NO_VALID)
+    lead, N = stream.keys.shape[:-2], stream.keys.shape[-2]
+    keys = stream.keys.reshape(-1, N, 2)
+    n_all = stream.n_xyz.reshape(-1, N, 3).sum(-1)  # int64
+    sk, order = torch.sort(_sort_key(keys), dim=-1, stable=True)
+    n = n_all.gather(-1, order)
+    first = _first_of_runs(sk)
+    i32 = torch.int32
+    zeros = torch.zeros((keys.shape[0], nq + 2), dtype=i32, device=keys.device)
+    m_n = zeros.scatter_add(-1, n, torch.ones_like(n, dtype=i32))[:, : nq + 1]
+    N_n = zeros.scatter_add(-1, n, first.to(i32))[:, : nq + 1]
+    idx = torch.arange(nq + 1, dtype=i32, device=keys.device)
+    has = m_n > 0
+    shortest = torch.where(has, idx, nq + 1).amin(-1)
+    nxt = torch.where(has & (idx > shortest[:, None]), idx, nq + 1).amin(-1)
+    return OccupancyStats(
+        m_n.reshape(lead + (nq + 1,)),
+        N_n.reshape(lead + (nq + 1,)),
+        shortest.reshape(lead),
+        nxt.reshape(lead),
+    )
+
+
+def unique_count_in_shortest(stream: SampleStream,
+                             nq: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(#unique chains at the shortest length, #unique at next shortest)."""
+    stats = occupancy_stats(stream, nq)
+    lead = stats.shortest.shape
+    idx = stats.shortest.reshape(-1).long()
+    nxt = stats.next_shortest.reshape(-1).long()
+    N_flat = stats.N_n.reshape(-1, nq + 1)
+    rows = torch.arange(len(idx), device=N_flat.device)
+    n_short = N_flat[rows, idx.clamp(0, nq)]
+    n_next = torch.where(nxt <= nq, N_flat[rows, nxt.clamp(0, nq)], 0)
+    return n_short.reshape(lead), n_next.reshape(lead)

@@ -31,7 +31,7 @@ import torch
 
 from ..mcmc.ladder import LadderState, beta_ladder_depolarizing, init_ladder
 from ..models.base import CodeSpec
-from ..ops.engines import resolve_engine
+from ..ops.engines import resolve_device, resolve_engine
 from ..ops.ladder_window import make_ladder_window
 from .convergence import EnergyHistory
 
@@ -115,7 +115,7 @@ def _get_window_fn(spec: CodeSpec, Nc: int, cfg: PTEQConfig,
             "(beta_ladder_depolarizing) are ported; biased and alpha ladders "
             "need K2's general branches (ROADMAP.md queue 2)"
         )
-    engine = resolve_engine(cfg.engine)
+    engine = resolve_engine(cfg.engine, "pteq")
     key = (spec.family, spec.size, Nc, cfg.iters, cfg.p_logical, cfg.window,
            cfg.tops_burn, engine, cfg.energy_chunk)
     if key in _WINDOW_CACHE:
@@ -166,18 +166,15 @@ def pteq_run(
     shortest_beta: float = 0.0,
     metrics=None,
     *,
-    device,
+    device="cuda",
 ) -> PTEQResult:
-    """Generic PTEQ engine over an explicit beta ladder, on ``device``.
+    """Generic PTEQ engine over an explicit beta ladder, on ``device``
+    (the card unless the caller asks for ``"cpu"``).
 
     ``seed`` seeds a CPU ``torch.Generator`` that draws each window's
     kernel seed."""
     del shortest_beta  # only used with track_shortest
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={device} requested but torch.cuda.is_available() is False"
-        )
+    device = resolve_device(device)
     if cfg.ckpt_dir:
         raise NotImplementedError(
             "ckpt_dir: checkpoint/resume is not ported yet (ROADMAP.md queue "
@@ -336,10 +333,10 @@ def PTEQ(
     seed: int = 0,
     metrics=None,
     *,
-    device,
+    device="cuda",
 ) -> PTEQResult:
     """Depolarizing PTEQ (decoders.py:25-89), batched over syndromes on
-    ``device`` (e.g. ``"cuda"`` or ``"cpu"``)."""
+    ``device`` (the card by default; ``"cpu"`` runs the plain window)."""
     Nc = cfg.Nc or spec.size
     ladder = beta_ladder_depolarizing(p, Nc)
     return pteq_run(spec, init_states, ladder, cfg, (1.0, 1.0, 1.0), seed,

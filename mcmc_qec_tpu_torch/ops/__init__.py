@@ -1,16 +1,22 @@
-from .engines import VALID_ENGINES, resolve_engine
+from .engines import VALID_ENGINES, resolve_device, resolve_engine
 from .ladder_window import (
     ladder_window_counts,
     ladder_window_reference,
     make_ladder_window,
 )
 from .pauli import (
+    all_class_states,
     anticommute,
+    apply_stabilizers_uniform,
     bit_planes,
     class_bits,
     count_errors,
     count_errors_xyz,
     eq_class,
+    make_hash_mults,
+    pack_key,
     syndrome,
+    to_class,
 )
 from .philox import philox4x32
+from .sweep import make_sweep, sweep_counts, sweep_reference

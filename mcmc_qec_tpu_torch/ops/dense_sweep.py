@@ -1,8 +1,8 @@
 """Colored-sweep tables.
 
 Only ``_color_tables`` is ported so far (numpy, carried over unchanged
-from ``mcmc_qec_tpu/ops/dense_sweep.py``): the ladder-window kernel and its
-plain version build their stabilizer tables from it.  ``make_dense_sweep``
+from ``mcmc_qec_tpu/ops/dense_sweep.py``): the ladder-window and sweep
+kernels and their plain versions build their stabilizer tables from it.  ``make_dense_sweep``
 (the ``sweep`` engine) is still to port (ROADMAP.md, queue 1).
 """
 

@@ -1,19 +1,22 @@
 """Batched Pauli-state operations on torch tensors.
 
 Counterpart of ``mcmc_qec_tpu/ops/pauli.py`` for the functions the PTEQ
-slice uses.  All functions take *flat* uint8 states ``(..., nq)`` on any
-device; the spec's numpy tables are moved to the state's device per call.
-Everything is elementwise or a gather (no matmul), so results are exact on
-every device.
+and counting slices use.  All functions take *flat* uint8 states
+``(..., nq)`` on any device; the spec's numpy tables are moved to the
+state's device per call.  Everything is elementwise or a gather (no matmul:
+torch has no integer matmul on CUDA, and a float one may run in TF32), so
+results are exact on every device.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..models.base import CodeSpec
+from .philox import MASK32
 
 
 def count_errors(state: torch.Tensor) -> torch.Tensor:
@@ -72,3 +75,60 @@ def eq_class(spec: CodeSpec, state: torch.Tensor) -> torch.Tensor:
     b2e = torch.as_tensor(spec.bits_to_eq, dtype=torch.int32,
                           device=state.device)
     return b2e[class_bits(spec, state).long()]
+
+
+def to_class(spec: CodeSpec, state: torch.Tensor, eq) -> torch.Tensor:
+    """Move states to class ``eq`` (an int or a tensor broadcastable to
+    the batch) while preserving the syndrome (pauli.py:80-88)."""
+    e2b = torch.as_tensor(spec.eq_to_bits, dtype=torch.int64, device=state.device)
+    masks = torch.as_tensor(spec.class_delta_masks, device=state.device)
+    eq = torch.as_tensor(eq, dtype=torch.int64, device=state.device)
+    delta = class_bits(spec, state).long() ^ e2b[eq]
+    return state ^ masks[delta]
+
+
+def all_class_states(spec: CodeSpec, state: torch.Tensor) -> torch.Tensor:
+    """(K, ..., nq): one state per equivalence class with the syndrome of
+    ``state`` (..., nq); the class axis leads, as ``jax.vmap`` over the
+    classes puts it (pauli.py:91-96)."""
+    return torch.stack([to_class(spec, state, e) for e in range(spec.n_classes)])
+
+
+def apply_stabilizers_uniform(spec: CodeSpec, state: torch.Tensor,
+                              generator: torch.Generator,
+                              p: float = 0.5) -> torch.Tensor:
+    """XOR a random subset of stabilizers (each selected w.p. ``p``) onto
+    the state, the "rain" randomization (pauli.py:99-119).  ``generator``
+    must live on the state's device.  The Pauli encoding is GF(2)-linear in
+    the (X, Z) bit planes, so XORing the selected stabilizer masks one by
+    one equals the JAX mat-vec over the planes."""
+    sel = torch.rand(state.shape[:-1] + (spec.n_stabs,), generator=generator,
+                     device=state.device) < p
+    masks = torch.as_tensor(spec.stab_masks, device=state.device)
+    out = state.clone()
+    for s in range(spec.n_stabs):
+        out ^= sel[..., s : s + 1].to(torch.uint8) * masks[s]
+    return out
+
+
+def pack_key(spec: CodeSpec, state: torch.Tensor, mults) -> torch.Tensor:
+    """64-bit content key of a chain as two 32-bit universal hashes
+    (pauli.py:139-148): (..., 2) int64 holding the JAX uint32 values.
+    Each product is below 2**34 and a sum over nq <= 512 qubits below 2**43,
+    so the int64 sum is exact and masking it to 32 bits is the JAX uint32
+    wraparound.  ``mults`` is the (2, nq) numpy table of
+    ``make_hash_mults`` or that table as an int64 tensor on the state's
+    device (no copy per call)."""
+    if isinstance(mults, torch.Tensor):
+        m = mults.to(device=state.device, dtype=torch.int64)
+    else:
+        m = torch.as_tensor(np.asarray(mults, np.int64), device=state.device)
+    h = (state.to(torch.int64).unsqueeze(-2) * m).sum(-1)
+    return h & MASK32
+
+
+def make_hash_mults(spec: CodeSpec, seed: int = 0x9E3779B9) -> np.ndarray:
+    """(2, nq) odd uint32 multipliers of ``pack_key`` (pauli.py:151-154)."""
+    rng = np.random.RandomState(seed & 0x7FFFFFFF)
+    mults = rng.randint(0, 1 << 31, size=(2, spec.nq), dtype=np.int64) * 2 + 1
+    return mults.astype(np.uint32)

@@ -2,8 +2,8 @@
 
 Salmon et al., "Parallel random numbers: as easy as 1, 2, 3" (SC'11); the
 constants and round structure follow Random123's ``philox4x32_R``.  The
-same function is ``philox4x32_10`` in ``csrc/philox.cuh``, so the CUDA
-ladder-window kernel and its plain PyTorch version draw identical bits.
+same function is ``philox4x32_10`` in ``csrc/philox.cuh``, so each CUDA
+kernel and its plain PyTorch version draw identical bits.
 
 Every word is held in an int64 tensor and masked to 32 bits.  The 32x32-bit
 products are formed from 16-bit halves of the multiplier so no

@@ -92,6 +92,9 @@ def test_cuda_device_fails_without_a_card():
     with pytest.raises(RuntimeError, match="cuda"):
         PTEQ(spec, states, 0.05, PTEQConfig(max_steps=100, window=100),
              device="cuda")
+    # the card is the default: the CPU runs only when asked for
+    with pytest.raises(RuntimeError, match="cuda"):
+        PTEQ(spec, states, 0.05, PTEQConfig(max_steps=100, window=100))
 
 
 @pytest.mark.parametrize("change", [
