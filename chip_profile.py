@@ -1,4 +1,4 @@
-"""Where the time of a PTEQ decode and of an STDC decode goes, on one
+"""Where the time of PTEQ decodes and of an STDC decode goes, on one
 NVIDIA GPU.
 
     python3 chip_profile.py
@@ -19,7 +19,12 @@ d=5, B=1024, p=0.1, p_sampling=0.25, droplets=4, steps=450), and prints:
    syndromes per block;
 6. syndromes/s of three STDC decodes in a row, and one STDC decode under
    torch.profiler (as in 3), split into its sampling loop and its
-   reduction, each span ended by a device synchronise.
+   reduction, each span ended by a device synchronise;
+7. one PTEQ_alpha decode at the biased path's shape (xzzx d=13, Nc=13,
+   B=512, eta=10, p=0.20 as its alpha equivalent, max_steps=32955, the
+   production window settings; chip_smoke.py phase 12) unprofiled and
+   then under torch.profiler (as in 3), with the host's share of the
+   window loop: the part of the wall time in which the device is idle.
 
 Window times are CUDA-event means over 5 launches after one warm-up.
 Needs a CUDA device; imports no jax.
@@ -38,6 +43,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import mcmc_qec_tpu_torch.ops.ladder_window as lw
 from chip_smoke import (
+    BIASED_MAIN,
     PROD,
     PROD_BRANCH,
     STDC_MAIN,
@@ -46,10 +52,15 @@ from chip_smoke import (
     phase_device,
     stdc_halves,
 )
-from mcmc_qec_tpu_torch.decoders import PTEQ, STDC, PTEQConfig
+from mcmc_qec_tpu_torch.decoders import PTEQ, STDC, PTEQ_alpha, PTEQConfig
 from mcmc_qec_tpu_torch.mcmc.ladder import beta_ladder_depolarizing, init_ladder
 from mcmc_qec_tpu_torch.models import get_spec
-from mcmc_qec_tpu_torch.models.noise import sample_depolarizing
+from mcmc_qec_tpu_torch.models.noise import (
+    biased_alpha_equivalent,
+    sample_depolarizing,
+    sample_xyz,
+    xyz_probs_from_biased,
+)
 
 B_MAIN, NC, P = 2048, 5, 0.15
 
@@ -82,7 +93,8 @@ def profile_decode(spec, states, run=None, name="PTEQ") -> None:
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = busy_ms(dev)
     print(f"profiled {name} decode: wall {dt * 1e3:.1f} ms, device busy "
-          f"{busy:.1f} ms, busy share {busy / (dt * 1e3):.3f}", flush=True)
+          f"{busy:.1f} ms, busy share {busy / (dt * 1e3):.3f}, host share "
+          f"{1 - busy / (dt * 1e3):.3f}", flush=True)
     by_name = defaultdict(lambda: [0.0, 0])
     for e in dev:
         by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
@@ -150,6 +162,26 @@ def main() -> int:
     print(f"STDC split: sampling {t_sample * 1e3:.1f} ms, reduction "
           f"{t_reduce * 1e3:.1f} ms, sampling share "
           f"{t_sample / (t_sample + t_reduce):.3f}", flush=True)
+
+    m = BIASED_MAIN
+    spec = get_spec("xzzx", m["d"])
+    px, py, pz = xyz_probs_from_biased(m["p"], m["eta"])
+    pz_tilde, alpha = biased_alpha_equivalent(m["p"], m["eta"])
+    gen = torch.Generator(device="cuda").manual_seed(2028)
+    states = sample_xyz(gen, spec, px, py, pz, (m["B"],), device="cuda")
+    cfg = PTEQConfig(max_steps=m["max_steps"], **PROD)
+
+    def alpha_decode(spec, states):
+        return _sync_time(lambda: PTEQ_alpha(spec, states, pz_tilde, alpha, cfg,
+                                             seed=1, device="cuda"))
+
+    lw.ladder_window_counts.reset()
+    res, dt = alpha_decode(spec, states)
+    print(f"PTEQ_alpha xzzx d={m['d']} B={m['B']}: {m['B'] / dt:.1f} syn/s "
+          f"({dt * 1e3:.1f} ms), windows {lw.ladder_window_counts.launches}, "
+          f"converged {res.converged.mean():.4f}, buckets {list(res.buckets)}",
+          flush=True)
+    profile_decode(spec, states, alpha_decode, "PTEQ_alpha")
     return 0
 
 

@@ -16,6 +16,13 @@ kernel against its plain PyTorch version on the card:
   the kernel, with the split between sampling and reduction; STDC and STRC
   on the 64 cached syndromes against the reference and against PTEQ; one
   launch timed against the plain version at the main path's shape.
+- K2's other branches (general-beta sweep, Metropolis logical mix,
+  even_odd exchange, traces): kernel vs plain version at 1, 3, 6 and 12
+  words per plane; PTEQ_alpha at one cell of the XZZX threshold study
+  (xzzx d=13, eta=10, p=0.20) through the kernel against the JAX study's
+  failure rate; biased, alpha and even_odd PTEQ and the shortest-chain
+  decoder at d=3 against the exact posterior; one general-branch window
+  timed against the plain version at that cell's shape.
 
 Each phase prints one line; any failed phase exits non-zero.  The line
 before the last is a JSON record of the kernels (launches on the main
@@ -26,6 +33,7 @@ the card could take for the same work); the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,20 +44,39 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mcmc_qec_tpu_torch.decoders import PTEQ, STDC, STRC, PTEQConfig
+from mcmc_qec_tpu_torch.decoders import (
+    PTEQ,
+    STDC,
+    STRC,
+    PTEQ_alpha,
+    PTEQ_alpha_with_shortest,
+    PTEQ_biased,
+    PTEQConfig,
+    exact_mld,
+)
+from mcmc_qec_tpu_torch.decoders.pteq import _shortest_scan, init_shortest
 from mcmc_qec_tpu_torch.decoders.stdc import _class_seeds, _get_stdc_fn
 from mcmc_qec_tpu_torch.mcmc.ladder import (
+    beta_ladder_alpha,
+    beta_ladder_biased,
     beta_ladder_depolarizing,
     betas_depolarizing,
     betas_xyz,
     init_ladder,
 )
 from mcmc_qec_tpu_torch.models import get_spec, np_eq_class
-from mcmc_qec_tpu_torch.models.noise import sample_depolarizing
+from mcmc_qec_tpu_torch.models.noise import (
+    biased_alpha_equivalent,
+    sample_depolarizing,
+    sample_xyz,
+    xyz_probs_from_biased,
+)
 from mcmc_qec_tpu_torch.ops import _build
 from mcmc_qec_tpu_torch.ops.dense_sweep import _color_tables
 from mcmc_qec_tpu_torch.ops.ladder_window import (
+    _N_EXTRA_USES,
     _rng_layout,
+    kernel_words,
     ladder_window_counts,
     ladder_window_reference,
     make_ladder_window,
@@ -60,11 +87,27 @@ KERNELS = ("ladder_window", "sweep")
 ROOT = Path(__file__).resolve().parent
 H2H_CACHE = ROOT / "examples" / "h2h_ref_cache_r5.npz"
 OUT_NAMES = ("state", "flag", "tops0", "eq_count", "since_burn", "energies",
-             "burn_any", "burn_first", "swap_acc")
+             "burn_any", "burn_first", "swap_acc", "eq_trace", "key_trace")
 # production PTEQ window (bench.py:328-329)
 PROD = dict(window=600, iters=2, energy_chunk=12)
-# the only ported branch of the window: zero top rung, equal per-Pauli betas
+# the window's production branch: zero top rung, equal per-Pauli betas
 PROD_BRANCH = dict(top_exact=True, equal_betas=True)
+# the other branches, as (top_exact, equal_betas): alpha ladders run the
+# general sweep with the exact mix, biased ladders the Metropolis mix
+BRANCHES = {"general-exact": (True, False), "general-mh": (False, False),
+            "equal-exact": (True, True)}
+# the biased-noise path: one cell of the XZZX threshold study
+# (examples/threshold_fit_biased.py defaults; examples/
+# threshold_eta10_r5_pooled.json: JAX failure 0.0767 +- 0.0042 at n=4096,
+# converged 0.9985); failure within 0.025 of it (about 3.5 sigma of the
+# two samples) and converged >= 0.98
+BIASED_MAIN = dict(d=13, eta=10.0, p=0.20, B=512, calls=4, max_steps=32955)
+BIASED_REF_FAILURE = 0.0767
+BIASED_MAX_FAILURE_GAP = 0.025
+BIASED_MIN_CONVERGED = 0.98
+# d=3 exact checks (tests/test_decoders.py:141-157): mean TV and argmax
+EXACT_CFG = dict(max_steps=24000, window=400, TOPS=30, SEQ=4)
+EXACT_MAX_TV = 0.05
 # the reference's own run-to-run TV on the 64 cached syndromes
 # (RESULTS.md:589-598) and the recovery floor below JAX 52 / reference 54
 H2H_MAX_TV = 0.173
@@ -89,6 +132,8 @@ H2H_STDC_PTEQ_MAX_TV = 0.15
 # Philox4x32-10 is 10 rounds of two mul.hi and two mul.lo (40 IMAD) per
 # block of four draws.  The precise logf of a proposal that may be rejected
 # depends on the data and is not counted, so the bound is a lower bound.
+# A proposal costs two 64-bit popcounts per word with equal betas and six
+# with general betas (the X, Y and Z counts, before and after).
 HBM_BYTES_PER_S = 3.35e12
 POPC_PER_CLK_SM = 16
 IMAD_PER_CLK_SM = 64
@@ -181,18 +226,21 @@ def _ladder_inputs(spec, B, Nc, seed, device):
     return tuple(torch.as_tensor(a, device=device) for a in arrs)
 
 
-def compare_outputs(tag, kern, plain, W):
-    """All nine outputs of the kernel and of the plain version must be
-    equal, and the exchange must have both accepted and rejected swaps;
-    returns the largest absolute difference."""
+def compare_outputs(tag, kern, plain, W, both_swaps=True):
+    """All outputs of the kernel and of the plain version (nine, eleven
+    with traces) must be equal, and unless ``both_swaps`` is False the
+    exchange must have both accepted and rejected swaps; returns the
+    largest absolute difference."""
     torch.cuda.synchronize()
+    check(len(kern) == len(plain), f"{tag}: {len(kern)} vs {len(plain)} outputs")
     worst = 0.0
     for name, a, b in zip(OUT_NAMES, kern, plain):
         check(a.shape == b.shape and a.dtype == b.dtype,
               f"{tag}: {name} {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
         if name == "energies":
-            # both sides form (w0 * sum of integer counts) * f32(1/C) in f32
-            # with the same two roundings, so they must agree exactly
+            # both sides form the weighted sums of integer counts times
+            # f32(1/C) in f32 with the same roundings, so they must agree
+            # exactly
             err = float((a - b).abs().max()) if a.numel() else 0.0
             check(err == 0.0, f"{tag}: energies differ by {err}")
         else:
@@ -201,25 +249,44 @@ def compare_outputs(tag, kern, plain, W):
             err = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
         worst = max(worst, err)
     swaps = kern[8]
-    check(bool((swaps > 0).any()) and bool((swaps < W).any()),
-          f"{tag}: exchange never both accepted and rejected")
+    if both_swaps:
+        check(bool((swaps > 0).any()) and bool((swaps < W).any()),
+              f"{tag}: exchange never both accepted and rejected")
     return worst
 
 
-def compare_window(family, d, Nc, B, W, iters, C, p, rng, seed):
+def branch_ladder(branch, p, Nc):
+    """(betas, energy weights) of a branch's ladder with bottom error rate
+    ``p``: alpha (pz_tilde = p, alpha = 2) for the general sweep with the
+    exact mix, biased (eta = 4) for the Metropolis mix, depolarizing for
+    the equal-betas branch."""
+    if branch == "general-exact":
+        return beta_ladder_alpha(p, 2.0, Nc), (2.0, 2.0, 1.0)
+    if branch == "general-mh":
+        return beta_ladder_biased(p, 4.0, Nc), (1.0, 1.0, 1.0)
+    return beta_ladder_depolarizing(p, Nc), (1.0, 1.0, 1.0)
+
+
+def compare_window(family, d, Nc, B, W, iters, C, p, rng, seed,
+                   branch="equal-exact", exchange="sequential", traces=False,
+                   both_swaps=True):
     """Kernel vs plain version on the card, same inputs and draws; returns
-    the largest absolute difference over the nine outputs."""
+    the largest absolute difference over all outputs."""
     spec = get_spec(family, d)
     inputs = _ladder_inputs(spec, B, Nc, seed, "cuda")
-    betas = torch.as_tensor(beta_ladder_depolarizing(p, Nc), dtype=torch.float32,
-                            device="cuda")
-    w = np.ones(3, np.float32)
-    kern = make_ladder_window(spec, Nc, W, iters, 0.5, 2, C, **PROD_BRANCH,
-                              rng=rng)(*inputs, seed, betas, w)
+    ladder, weights = branch_ladder(branch, p, Nc)
+    betas = torch.as_tensor(ladder, dtype=torch.float32, device="cuda")
+    w = np.asarray(weights, np.float32)
+    top_exact, equal_betas = BRANCHES[branch]
+    kw = dict(top_exact=top_exact, equal_betas=equal_betas, exchange=exchange,
+              track_traces=traces)
+    kern = make_ladder_window(spec, Nc, W, iters, 0.5, 2, C, rng=rng,
+                              **kw)(*inputs, seed, betas, w)
     plain = ladder_window_reference(
         spec, *inputs, seed, betas, w, window=W, iters=iters, p_logical=0.5,
-        tops_burn=2, energy_chunk=C, rng=rng)
-    return compare_outputs(f"{family} d={d} {rng}", kern, plain, W)
+        tops_burn=2, energy_chunk=C, rng=rng, **kw)
+    tag = f"{family} d={d} {branch} {exchange} traces={traces} {rng}"
+    return compare_outputs(tag, kern, plain, W, both_swaps)
 
 
 def phase_parity() -> float:
@@ -331,7 +398,7 @@ def phase_timing():
     plain_out = []
     plain_ms = _time_ms(lambda: plain_out.append(ladder_window_reference(
         spec, *args, window=PROD["window"], iters=PROD["iters"], p_logical=0.5,
-        tops_burn=2, energy_chunk=PROD["energy_chunk"])), 1)
+        tops_burn=2, energy_chunk=PROD["energy_chunk"], **PROD_BRANCH)), 1)
     err = compare_outputs("toric d=5 B=2048 W=600 philox", kern_out,
                           plain_out[0], PROD["window"])
     # the window's work: every proposal of every sweep on every rung, plus
@@ -540,6 +607,239 @@ def phase_sweep_timing():
     return res
 
 
+COMBOS = [(b, e) for b in BRANCHES for e in ("sequential", "even_odd")]
+
+
+def phase_branch_parity() -> float:
+    """K2's other branches, kernel vs plain version on the card: every
+    combination of sweep form and mix kind with both exchange schedules,
+    at xzzx d=5 (1 word per plane; Philox and zero draws), xzzx d=13 (3),
+    toric d=13 (6) and toric d=19 (12 words; tables in device memory),
+    traces on in half the cases of each."""
+    worst, n = 0.0, 0
+    for i, (branch, exchange) in enumerate(COMBOS):
+        for rng in ("philox", "zeros"):
+            worst = max(worst, compare_window(
+                "xzzx", 5, 5, 256, 48, 2, 12, 0.15, rng, 300 + i, branch,
+                exchange, traces=i % 2 == 0, both_swaps=rng == "philox"))
+            n += 1
+    for family, d, B, W in (("xzzx", 13, 256, 24), ("toric", 13, 128, 12),
+                            ("toric", 19, 64, 8)):
+        for i, (branch, exchange) in enumerate(COMBOS):
+            worst = max(worst, compare_window(
+                family, d, d, B, W, 2, 4, 0.15, "philox", 400 + i, branch,
+                exchange, traces=i % 2 == 0))
+            n += 1
+    print(f"phase 11 window kernel vs plain, other branches: {n} cases "
+          f"(general/exact, general/Metropolis and equal/exact mix x "
+          f"sequential and even_odd exchange; xzzx d=5 Philox and zeros, "
+          f"xzzx d=13, toric d=13, toric d=19 Philox; words per plane "
+          f"1/3/6/12): all outputs equal, traces included, max abs err "
+          f"{worst}", flush=True)
+    return worst
+
+
+def phase_biased_main_path():
+    """PTEQ_alpha at one cell of the XZZX threshold study through the
+    kernel: biased noise (p, eta) sampled on the card and decoded with its
+    alpha equivalent (examples/threshold_fit_biased.py:60-84)."""
+    m = BIASED_MAIN
+    spec = get_spec("xzzx", m["d"])
+    px, py, pz = xyz_probs_from_biased(m["p"], m["eta"])
+    pz_tilde, alpha = biased_alpha_equivalent(m["p"], m["eta"])
+    cfg = PTEQConfig(max_steps=m["max_steps"], **PROD)
+    gen = torch.Generator(device="cuda").manual_seed(2028)
+    fails = conv = 0
+    dt = 0.0
+    per_call = []  # windows each call ran; the cap is max_steps // window
+    torch.cuda.synchronize()
+    ladder_window_counts.reset()
+    for call in range(m["calls"]):
+        before = ladder_window_counts.launches
+        states = sample_xyz(gen, spec, px, py, pz, (m["B"],), device="cuda")
+        truth = np_eq_class(spec, states.cpu().numpy())
+        res, t = _sync_time(lambda: PTEQ_alpha(
+            spec, states, pz_tilde, alpha, cfg, seed=call + 1, device="cuda"))
+        dt += t
+        per_call.append(ladder_window_counts.launches - before)
+        d = res.distribution
+        check(d.shape == (m["B"], spec.n_classes) and d.dtype == np.uint8,
+              f"distribution {d.shape} {d.dtype}")
+        check(bool((d.sum(axis=1) <= 100).all()), "percentages exceed 100")
+        fails += int((d.argmax(axis=1) != truth).sum())
+        conv += int(res.converged.sum())
+    launches = ladder_window_counts.launches
+    plain = ladder_window_counts.plain_calls
+    check(launches > 0, "PTEQ_alpha never launched the kernel")
+    check(plain == 0, f"PTEQ_alpha ran the plain version {plain} times")
+    n = m["B"] * m["calls"]
+    failure, converged = fails / n, conv / n
+    cap = m["max_steps"] // PROD["window"]
+    print(f"phase 12 PTEQ_alpha xzzx d={m['d']} Nc={m['d']} eta={m['eta']} "
+          f"p={m['p']} (pz_tilde={pz_tilde:.6f}, alpha={alpha:.6f}) "
+          f"max_steps={m['max_steps']} window=600 iters=2 energy_chunk=12, "
+          f"{m['calls']} calls of B={m['B']}: {n / dt:.1f} syn/s ({dt:.2f} s), "
+          f"failure {failure:.4f} (JAX study {BIASED_REF_FAILURE}, bar "
+          f"+-{BIASED_MAX_FAILURE_GAP}), converged {converged:.4f} (bar "
+          f"{BIASED_MIN_CONVERGED}), windows run {launches} (per call "
+          f"{per_call}; {sum(w == cap for w in per_call)} of {m['calls']} "
+          f"calls at the cap of {cap})", flush=True)
+    check(abs(failure - BIASED_REF_FAILURE) <= BIASED_MAX_FAILURE_GAP,
+          f"failure {failure:.4f} not within {BIASED_MAX_FAILURE_GAP} of "
+          f"{BIASED_REF_FAILURE}")
+    check(converged >= BIASED_MIN_CONVERGED,
+          f"converged {converged:.4f} < {BIASED_MIN_CONVERGED}")
+    return launches
+
+
+def _xyz_state(spec, px, py, pz, seed):
+    """One state from the port's X/Y/Z sampler on a seeded CPU generator
+    (the states of tests/test_torch_pteq_biased.py)."""
+    return sample_xyz(torch.Generator().manual_seed(seed), spec, px, py, pz).numpy()
+
+
+def phase_exact_d3():
+    """Biased, alpha and even_odd PTEQ on a replicated d=3 syndrome (B=64)
+    against the exact posterior, the shortest-chain argmax at xzzx d=3,
+    and shortest tracking at xzzx d=5 B=512 with the time of its update."""
+    p, eta = 0.12, 4.0
+    bxyz = xyz_probs_from_biased(p, eta)
+    alpha, pz_tilde = 2.0, 0.15
+    ab = -np.log(pz_tilde) * np.array([alpha, alpha, 1.0])
+    p3 = (0.1 / 3,) * 3
+    xzzx, toric = get_spec("xzzx", 3), get_spec("toric", 3)
+    cfg = PTEQConfig(**EXACT_CFG)
+    cases = [
+        ("PTEQ_biased", xzzx, _xyz_state(xzzx, *bxyz, seed=4), betas_xyz(*bxyz),
+         lambda sp, st: PTEQ_biased(sp, st, p, eta, cfg, seed=6, device="cuda")),
+        ("PTEQ_alpha", xzzx, _xyz_state(xzzx, *p3, seed=3), ab,
+         lambda sp, st: PTEQ_alpha(sp, st, pz_tilde, alpha, cfg, seed=4,
+                                   device="cuda")),
+        ("PTEQ even_odd", toric, _xyz_state(toric, *p3, seed=2),
+         betas_depolarizing(0.1),
+         lambda sp, st: PTEQ(sp, st, 0.1, dataclasses.replace(
+             cfg, exchange="even_odd"), seed=2, device="cuda")),
+    ]
+    parts, fails = [], []
+    for name, spec, s0, betas, run in cases:
+        exact = exact_mld(spec, s0[None], betas)[0]
+        res = run(spec, np.tile(s0[None], (64, 1)))
+        mean = res.distribution.mean(axis=0) / 100.0
+        tv = float(0.5 * np.abs(mean - exact).sum())
+        same = int(mean.argmax()) == int(exact.argmax())
+        parts.append(f"{name} TV {tv:.4f} argmax {'equal' if same else 'DIFFERS'} "
+                     f"(exact max {exact.max():.3f})")
+        if tv >= EXACT_MAX_TV or not same:
+            fails.append(f"{name}: TV {tv:.4f}, argmax equal {same}")
+    s0 = _xyz_state(xzzx, *p3, seed=0)
+    exact = exact_mld(xzzx, s0[None], ab)[0]
+    res = PTEQ_alpha_with_shortest(
+        xzzx, s0[None], pz_tilde, alpha,
+        PTEQConfig(max_steps=3000, window=200, TOPS=10, SEQ=2, energy_chunk=4),
+        seed=1, device="cuda")
+    same = int(res.shortest_boltzmann[0].argmax()) == int(exact.argmax())
+    parts.append(f"PTEQ_alpha_with_shortest argmax {'equal' if same else 'DIFFERS'}")
+    if not same:
+        fails.append("shortest-chain argmax differs from the exact one")
+    sh_res = _shortest_at_d5(alpha, pz_tilde)
+    print(f"phase 13 d=3 exact checks (B=64, max_steps=24000, window=400, "
+          f"TOPS=30, SEQ=4; bar TV < {EXACT_MAX_TV}, same argmax): "
+          f"{'; '.join(parts)}; PTEQ_alpha_with_shortest xzzx d=5 B=512 "
+          f"max_steps=6000: {sh_res}", flush=True)
+    check(not fails, "; ".join(fails))
+
+
+def _shortest_at_d5(alpha, pz_tilde):
+    """PTEQ_alpha_with_shortest at xzzx d=5 B=512 (sanity of the three
+    distributions, syn/s, windows run), and over one 600-step window of
+    that shape the ms of the trace-mode window kernel and of the
+    shortest-state update with every step burned."""
+    spec = get_spec("xzzx", 5)
+    B, Nc, W = 512, 5, 600
+    gen = torch.Generator(device="cuda").manual_seed(2029)
+    states = sample_depolarizing(gen, spec, 0.1, (B,), device="cuda")
+    ladder_window_counts.reset()
+    res, dt = _sync_time(lambda: PTEQ_alpha_with_shortest(
+        spec, states, pz_tilde, alpha,
+        PTEQConfig(max_steps=6000, **PROD), seed=3, device="cuda"))
+    windows = ladder_window_counts.launches
+    for name in ("shortest_boltzmann", "shortest_counts"):
+        d = getattr(res, name)
+        check(d.shape == (B, spec.n_classes) and bool(np.isfinite(d).all()),
+              f"{name} {d.shape} not finite")
+        check(bool((np.abs(d.sum(axis=1) - 100.0) < 1e-6).all()),
+              f"{name} rows do not sum to 100")
+    ls = init_ladder(spec, states, Nc)
+    eq = torch.zeros((B, spec.n_classes), dtype=torch.int32, device="cuda")
+    sb = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    betas = torch.as_tensor(beta_ladder_alpha(pz_tilde, alpha, Nc),
+                            dtype=torch.float32, device="cuda")
+    w = np.array([alpha, alpha, 1.0], np.float32)
+    window = make_ladder_window(spec, Nc, W, 2, 0.5, 2, 1, top_exact=True,
+                                equal_betas=False, track_traces=True)
+    args = (ls.state, ls.flag, ls.tops0, eq, sb, 5, betas, w)
+    out = window(*args)
+    window_ms = _time_ms(lambda: window(*args), 3)
+    burn_any = torch.ones((B,), dtype=torch.bool, device="cuda")
+    burn_first = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    sh0 = init_shortest(B, spec.n_classes, 128, "cuda")
+    scan = lambda: _shortest_scan(sh0, out[9], out[5], out[10], burn_any, burn_first)
+    scan()
+    update_ms = _time_ms(scan, 3)
+    return (f"{B / dt:.1f} syn/s ({dt * 1e3:.1f} ms, {windows} windows), "
+            f"converged {res.converged.mean():.3f}, overflow rows "
+            f"{int(res.shortest_overflow.any(axis=1).sum())}; per 600-step "
+            f"window: trace-mode window kernel {window_ms:.3f} ms, shortest "
+            f"update {update_ms:.1f} ms (the update at most "
+            f"{windows * update_ms / (dt * 1e3):.3f} of the decode)")
+
+
+def phase_general_timing():
+    """One window of the general branch at the biased path's shape (xzzx
+    d=13, Nc=13, B=512, W=600, alpha ladder, exact mix) on the kernel
+    against one of the plain version on the same inputs; the two outputs
+    must also be equal."""
+    m = BIASED_MAIN
+    spec = get_spec("xzzx", m["d"])
+    B, Nc, W, iters, C = m["B"], m["d"], PROD["window"], PROD["iters"], PROD["energy_chunk"]
+    px, py, pz = xyz_probs_from_biased(m["p"], m["eta"])
+    pz_tilde, alpha = biased_alpha_equivalent(m["p"], m["eta"])
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    states = sample_xyz(gen, spec, px, py, pz, (B,), device="cuda")
+    ls = init_ladder(spec, states, Nc)
+    eq = torch.zeros((B, spec.n_classes), dtype=torch.int32, device="cuda")
+    sb = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    betas = torch.as_tensor(beta_ladder_alpha(pz_tilde, alpha, Nc),
+                            dtype=torch.float32, device="cuda")
+    w = np.array([alpha, alpha, 1.0], np.float32)
+    branch = dict(top_exact=True, equal_betas=False)
+    args = (ls.state, ls.flag, ls.tops0, eq, sb, 3, betas, w)
+    kern = make_ladder_window(spec, Nc, W, iters, 0.5, 2, C, **branch)
+    kern_out = kern(*args)  # warm-up, kept for the comparison
+    ms = _time_ms(lambda: kern(*args), 3)
+    plain_out = []
+    plain_ms = _time_ms(lambda: plain_out.append(ladder_window_reference(
+        spec, *args, window=W, iters=iters, p_logical=0.5, tops_burn=2,
+        energy_chunk=C, **branch)), 1)
+    err = compare_outputs(f"xzzx d=13 B={B} W={W} general philox", kern_out,
+                          plain_out[0], W)
+    nw = kernel_words(spec.nq)
+    proposals = B * Nc * W * iters * spec.n_stabs
+    _, _, n_xblocks = _rng_layout(spec, Nc, iters)
+    blocks = (B * Nc * W * iters * _philox_blocks_per_sweep(spec)
+              + B * W * (_N_EXTRA_USES - 1) * n_xblocks)
+    bound, bound_by = bound_ms(_nbytes(*args[:5], betas, *kern_out),
+                               6 * nw * proposals, blocks)
+    print(f"phase 14 one general-branch window xzzx d={m['d']} B={B} Nc={Nc} "
+          f"W={W} iters={iters} C={C} (alpha ladder, exact mix): kernel "
+          f"{ms:.3f} ms, plain version {plain_ms:.1f} ms ({plain_ms / ms:.1f}x); "
+          f"all outputs equal, max abs err {err}; bound {bound:.4f} ms "
+          f"({bound_by}; {proposals} proposals at {nw} words, 6 popcounts per "
+          f"word, {blocks} Philox blocks)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
+                bound_by=bound_by)
+
+
 def main() -> int:
     phase = "device"
     try:
@@ -562,6 +862,14 @@ def main() -> int:
         phase_counting_quality(pteq_distr)
         phase = "sweep timing"
         k1 = phase_sweep_timing()
+        phase = "window kernel vs plain, other branches"
+        branch_err = phase_branch_parity()
+        phase = "PTEQ_alpha main path"
+        gen_launches = phase_biased_main_path()
+        phase = "d=3 exact checks"
+        phase_exact_d3()
+        phase = "general-branch window timing"
+        gen = phase_general_timing()
     except PhaseFailed as e:
         print(f"FAILED phase {phase}: {e}", flush=True)
         return 1
@@ -589,6 +897,18 @@ def main() -> int:
         "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"],
         "bound_by": k1_main["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "ladder_window_general",
+        "route": "cuda",
+        "source": "mcmc_qec_tpu_torch/csrc/ladder_window.cu",
+        "replaces": "mcmc_qec_tpu/ops/pallas_ladder.py:144",
+        "launches": gen_launches,
+        "max_abs_err": max(branch_err, gen["err"]),
+        "ms": gen["ms"],
+        "plain_ms": gen["plain_ms"],
+        "bound_ms": gen["bound_ms"],
+        "bound_by": gen["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

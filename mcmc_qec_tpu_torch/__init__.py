@@ -2,9 +2,12 @@
 
 Same layout and module names as the JAX package, which stays the reference
 every part of the port is tested against (tests/test_torch_*.py).  Ported so
-far: the code families; the depolarizing PTEQ decoder (``decoders.PTEQ``)
-and its fused parallel-tempering window (CUDA kernel
-``csrc/ladder_window.cu``); the counting decoders STDC and STRC
+far: the code families; the PTEQ decoders for depolarizing, biased and
+alpha noise with shortest-chain tracking (``decoders.PTEQ``,
+``PTEQ_biased``, ``PTEQ_alpha``, ``PTEQ_alpha_with_shortest``) and their
+fused parallel-tempering window (CUDA kernel ``csrc/ladder_window.cu``,
+every branch); the exact posterior ``decoders.exact_mld``; the counting
+decoders STDC and STRC
 (``decoders.STDC``, ``decoders.STRC``) and their colored Metropolis sweep
 (CUDA kernel ``csrc/sweep.cu``).  The kernels are built with nvcc at first
 use on a CUDA device; entry points run on the card unless the caller asks

@@ -1,7 +1,8 @@
 """Carry state across from the JAX package.
 
 This system has no learned weights: its parameters are the code tables, the
-beta ladder (numpy in both packages) and the ladder state.  These helpers
+beta ladder (numpy in both packages), the ladder state and the
+shortest-chain tracking state.  These helpers
 let both packages compute on identical inputs; none of them imports jax.
 """
 
@@ -13,6 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .decoders.pteq import ShortestState
 from .mcmc.ladder import LadderState
 from .models.base import CodeSpec, LogicalDraw
 
@@ -51,3 +53,21 @@ def ladder_state_from_numpy(state, flag, tops0, device) -> LadderState:
 def ladder_state_to_numpy(ls: LadderState) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(state, flag, tops0) numpy arrays of a LadderState."""
     return tuple(t.detach().cpu().numpy() for t in ls)
+
+
+def shortest_state_from_numpy(val, cnt, nuq, ovf, keys, device) -> ShortestState:
+    """ShortestState on ``device`` from numpy (B, K) f32 val, i32 cnt and
+    nuq, bool ovf and (B, K, U, 4) i32 keys (the fields of the JAX
+    package's ``ShortestState``, in its order), copied."""
+    return ShortestState(
+        val=torch.as_tensor(np.array(val, np.float32), device=device),
+        cnt=torch.as_tensor(np.array(cnt, np.int32), device=device),
+        nuq=torch.as_tensor(np.array(nuq, np.int32), device=device),
+        ovf=torch.as_tensor(np.array(ovf, bool), device=device),
+        keys=torch.as_tensor(np.array(keys, np.int32), device=device),
+    )
+
+
+def shortest_state_to_numpy(sh: ShortestState) -> Tuple[np.ndarray, ...]:
+    """(val, cnt, nuq, ovf, keys) numpy arrays of a ShortestState."""
+    return tuple(t.detach().cpu().numpy() for t in sh)

@@ -42,24 +42,29 @@ __device__ __forceinline__ float uniform24(uint32_t bits) {
 // The draws of one (window seed, syndrome row, step, use): element e is
 // word e % 4 of Philox4x32-10 at counter (e / 4, use, step, row) under key
 // (seed low, seed high).  Distinct (step, use, element) never share a
-// counter.  Consecutive elements reuse the block of four; zeros mode makes
-// every draw 0 (what the Pallas TPU interpreter's stubbed PRNG returns).
+// counter.  Consecutive elements reuse the block of four.  Fixed mode makes
+// every draw the word ``fixed_word`` (0 is what the Pallas TPU interpreter's
+// stubbed PRNG returns; the parity tests stub it with other constants too);
+// it is decided where a block is drawn, once per four elements, as the
+// Philox call is.
 struct DrawStream {
   uint32_t k0, k1, use, step, row;
-  bool zeros;
+  bool fixed;
+  uint32_t fixed_word;
   int group;
   uint4 cur;
 
   __device__ __forceinline__ DrawStream(uint32_t k0_, uint32_t k1_, uint32_t use_,
-                                        uint32_t step_, uint32_t row_, bool zeros_)
-      : k0(k0_), k1(k1_), use(use_), step(step_), row(row_), zeros(zeros_),
-        group(-1), cur(make_uint4(0u, 0u, 0u, 0u)) {}
+                                        uint32_t step_, uint32_t row_, bool fixed_,
+                                        uint32_t fixed_word_ = 0u)
+      : k0(k0_), k1(k1_), use(use_), step(step_), row(row_), fixed(fixed_),
+        fixed_word(fixed_word_), group(-1), cur(make_uint4(0u, 0u, 0u, 0u)) {}
 
   __device__ __forceinline__ uint32_t operator()(int e) {
     const int g = e >> 2;
     if (g != group) {
       group = g;
-      cur = zeros ? make_uint4(0u, 0u, 0u, 0u)
+      cur = fixed ? make_uint4(fixed_word, fixed_word, fixed_word, fixed_word)
                   : philox4x32_10(make_uint4((uint32_t)g, use, step, row), k0, k1);
     }
     return word_of(cur, e & 3);

@@ -24,8 +24,9 @@
 // skipped when a proposal cannot be rejected.
 //
 // Layout: one thread per chain, kSweepThreads chains per block; any B works
-// (the last block is ragged).  Up to 6 words per plane: toric d=13 has
-// nq = 338.
+// (the last block is ragged).  1, 2, 3, 4 or 6 words per plane, the word
+// counts of the tables it shares with the ladder-window kernel
+// (ops/ladder_window.py::kernel_words): toric d=13 has nq = 338.
 //
 // Built by mcmc_qec_tpu_torch/ops/_build.py (nvcc, no fast math, so logf is
 // the same function torch.log calls) and bound with ctypes.
@@ -150,7 +151,6 @@ extern "C" int mqt_sweep(const mqt::SweepParams* P, const mqt::SweepBuffers* buf
     case 2: return (int)mqt::launch_nw<2>(*P, *buf, st);
     case 3: return (int)mqt::launch_nw<3>(*P, *buf, st);
     case 4: return (int)mqt::launch_nw<4>(*P, *buf, st);
-    case 5: return (int)mqt::launch_nw<5>(*P, *buf, st);
     case 6: return (int)mqt::launch_nw<6>(*P, *buf, st);
     default: return (int)cudaErrorInvalidValue;
   }

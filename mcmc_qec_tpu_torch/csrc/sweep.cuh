@@ -1,7 +1,7 @@
 // One color of a conflict-free colored Metropolis sweep on one chain held
 // as NW-word X/Z bit planes (bit q of X[q / 64] is the X component of
-// qubit q).  Shared by the ladder-window kernel (equal betas only) and the
-// standalone sweep kernel sweep.cu (both acceptance forms).
+// qubit q).  Shared by the ladder-window kernel and the standalone sweep
+// kernel sweep.cu, both in both acceptance forms.
 #pragma once
 
 #include <cstdint>

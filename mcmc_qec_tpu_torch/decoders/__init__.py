@@ -1,4 +1,13 @@
-from .pteq import PTEQ, PTEQConfig, PTEQResult, pteq_run
+from .exact import exact_mld
+from .pteq import (
+    PTEQ,
+    PTEQ_alpha,
+    PTEQ_alpha_with_shortest,
+    PTEQ_biased,
+    PTEQConfig,
+    PTEQResult,
+    pteq_run,
+)
 from .stdc import (
     STDC,
     STDC_general_noise,

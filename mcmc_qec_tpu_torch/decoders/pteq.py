@@ -1,7 +1,10 @@
 """PTEQ: parallel-tempering equivalence-class occupation decoding.
 
-Torch counterpart of ``mcmc_qec_tpu/decoders/pteq.py`` for depolarizing
-noise.  The ladder runs on ``device``, batched over syndromes, one fused
+Torch counterpart of ``mcmc_qec_tpu/decoders/pteq.py``: ``PTEQ``
+(depolarizing), ``PTEQ_biased``, ``PTEQ_alpha`` and
+``PTEQ_alpha_with_shortest`` (decoders.py:25-105,
+decoders_biasednoise.py:28-237) over ``pteq_run``.  The ladder runs on
+``device``, batched over syndromes, one fused
 window of ``cfg.window`` steps per call (``ops/ladder_window.py``: the CUDA
 kernel on a CUDA device, its plain PyTorch version on the CPU); the host
 sees each window's summaries in one transfer and runs the convergence
@@ -16,20 +19,31 @@ into power-of-two buckets (pteq.py:661-718).  The host loop is the depth-1
 loop (pteq.py:762-777): the fetch-batching and window-growth fields of
 ``PTEQConfig`` are accepted for config parity and have no effect.
 
-Not ported yet (raise ``NotImplementedError``): checkpointing, shortest-chain
-tracking, per-window metrics, ladders other than equal betas with a zero
-top rung (biased and alpha PTEQ) and ``exchange="even_odd"``.
+Shortest-chain tracking (``track_shortest``) keeps a ``ShortestState`` on
+the ladder's device: the window runs in trace mode at ``energy_chunk=1``
+and its per-step class and chain-hash traces update the state step by step
+(pteq.py:258-298 of the JAX package); rows are flushed to the host when
+they leave the batch and at the end (pteq.py:443-470, 686-690, 821-842).
+
+Not ported yet (raise ``NotImplementedError``): checkpointing and
+per-window metrics.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..mcmc.ladder import LadderState, beta_ladder_depolarizing, init_ladder
+from ..mcmc.ladder import (
+    LadderState,
+    beta_ladder_alpha,
+    beta_ladder_biased,
+    beta_ladder_depolarizing,
+    init_ladder,
+)
 from ..models.base import CodeSpec
 from ..ops.engines import resolve_device, resolve_engine
 from ..ops.ladder_window import make_ladder_window
@@ -54,8 +68,8 @@ class PTEQConfig:
     # "auto" and "fused" run the fused window; the other engines are not
     # ported yet (ops/engines.py)
     engine: str = "auto"
-    # "sequential" (the reference's top->bottom sweep); "even_odd" is not
-    # ported yet
+    # "sequential" (the reference's top->bottom sweep) or "even_odd" (all
+    # even pairs, then all odd pairs)
     exchange: str = "sequential"
     # per-chunk mean energies; must divide ``window``
     energy_chunk: int = 4
@@ -78,11 +92,105 @@ class PTEQResult:
     converged: np.ndarray  # (B,) bool
     steps: np.ndarray  # (B,) steps taken at snapshot
     tops0: np.ndarray  # (B,)
-    shortest_boltzmann: Optional[np.ndarray] = None  # not ported
-    shortest_counts: Optional[np.ndarray] = None  # not ported
-    shortest_overflow: Optional[np.ndarray] = None  # not ported
+    # with track_shortest (PTEQ_alpha_with_shortest,
+    # decoders_biasednoise.py:163-172):
+    shortest_boltzmann: Optional[np.ndarray] = None  # (B, K) percentages
+    shortest_counts: Optional[np.ndarray] = None  # (B, K) percentages
+    # (B, K) True where the unique-shortest buffer overflowed
+    # (shortest_unique_cap); unique counts there are lower bounds
+    shortest_overflow: Optional[np.ndarray] = None
     # device-batch sizes after each compaction (empty = never compacted)
     buckets: Tuple[int, ...] = ()
+
+
+class ShortestState(NamedTuple):
+    """Shortest-n_eff tracking on the ladder's device
+    (decoders_biasednoise.py:112-144): per (element, class) the running
+    minimal energy, the number of samples at that minimum, and a bounded
+    buffer of distinct chain keys at that minimum."""
+
+    val: torch.Tensor  # (B, K) f32 running min energy (+inf init)
+    cnt: torch.Tensor  # (B, K) i32 samples at the min
+    nuq: torch.Tensor  # (B, K) i32 distinct keys recorded at the min
+    ovf: torch.Tensor  # (B, K) bool buffer overflow (nuq saturated)
+    keys: torch.Tensor  # (B, K, U, KEY_W) i32 distinct-key buffer
+
+
+# key width: the window's 4-component chain hash
+KEY_W = 4
+
+
+def init_shortest(B: int, K: int, U: int, device="cpu") -> ShortestState:
+    return ShortestState(
+        val=torch.full((B, K), float("inf"), dtype=torch.float32, device=device),
+        cnt=torch.zeros((B, K), dtype=torch.int32, device=device),
+        nuq=torch.zeros((B, K), dtype=torch.int32, device=device),
+        ovf=torch.zeros((B, K), dtype=torch.bool, device=device),
+        keys=torch.zeros((B, K, U, KEY_W), dtype=torch.int32, device=device),
+    )
+
+
+def _shortest_update(sh: ShortestState, eq: torch.Tensor, kk: torch.Tensor,
+                     e: torch.Tensor, burned: torch.Tensor) -> ShortestState:
+    """One post-step update (JAX pteq.py:181-217): element b's class-``eq[b]``
+    row sees a chain with key ``kk[b]`` at energy ``e[b]`` (ignored unless
+    ``burned[b]``).  A strictly smaller energy resets the row; an equal
+    energy increments the count and appends the key if unseen.
+
+    Only row ``eq[b]`` of element b can change, so the update gathers that
+    row, applies the JAX package's dense masked rule to it and scatters it
+    back: the same result, bit for bit, for K times less work."""
+    B, K = sh.val.shape
+    U = sh.keys.shape[2]
+    ar = torch.arange(B, device=eq.device)
+    eq = eq.long()
+    val, cnt, nuq, ovf = (a[ar, eq] for a in sh[:4])  # (B,)
+    keys = sh.keys[ar, eq]  # (B, U, KEY_W)
+    gate = burned > 0
+    better = gate & (e < val)
+    equal = gate & (e == val)
+    slot_idx = torch.arange(U, device=eq.device).unsqueeze(0)  # (1, U)
+    valid = slot_idx < nuq.unsqueeze(1)
+    match = (keys == kk.unsqueeze(1)).all(-1)  # (B, U)
+    present = (valid & match).any(-1)
+    append = equal & ~present & (nuq < U)
+    ovf_new = equal & ~present & (nuq >= U)
+    write = better | append
+    slot = torch.where(better, 0, nuq)
+    onehot = slot_idx == slot.unsqueeze(1)  # (B, U)
+    base = torch.where(better[:, None, None], 0, keys)
+    new_keys = torch.where((write.unsqueeze(1) & onehot).unsqueeze(-1),
+                           kk.unsqueeze(1), base)
+    i32 = torch.int32
+    rows = (
+        torch.where(better, e, val),
+        torch.where(better, 1, cnt + equal.to(i32)).to(i32),
+        torch.where(better, 1, nuq + append.to(i32)).to(i32),
+        torch.where(better, False, ovf | ovf_new),
+        new_keys,
+    )
+    out = []
+    for full, row in zip(sh, rows):
+        full = full.clone()
+        full[ar, eq] = row
+        out.append(full)
+    return ShortestState(*out)
+
+
+def _shortest_scan(sh: ShortestState, eq_tr, en, key_tr, burn_any,
+                   burn_first) -> ShortestState:
+    """Apply a window's per-step traces (eq_trace (W, B), per-step energies
+    (W, B), key_trace (W, B, 4)) in step order.  The burn gate is monotone
+    within the window, so step t's flag is ``burn_any & (t >= burn_first)``
+    (JAX pteq.py:283-291); steps before the first burned one change
+    nothing and are skipped."""
+    if not bool(burn_any.any()):
+        return sh
+    t0 = int(burn_first[burn_any].min())
+    for t in range(t0, eq_tr.shape[0]):
+        burned = (burn_any & (t >= burn_first)).to(torch.int32)
+        sh = _shortest_update(sh, eq_tr[t], key_tr[t], en[t], burned)
+    return sh
 
 
 _WINDOW_CACHE = {}
@@ -92,46 +200,45 @@ def _get_window_fn(spec: CodeSpec, Nc: int, cfg: PTEQConfig,
                    track_shortest: bool = False,
                    top_exact_accept: bool = False,
                    equal_betas: bool = False):
-    """``window(ls, seed, betas, eq_count, since_burn, weights) -> (ls,
-    eq_count, since_burn, energies, burn_any, burn_first, tops0, swap_acc)``
-    for one window of ``cfg.window`` ladder steps on the device of ``ls``."""
+    """``window(ls, seed, betas, eq_count, since_burn, weights[, sh]) ->
+    (ls, eq_count, since_burn, energies, burn_any, burn_first, tops0,
+    swap_acc[, sh])`` for one window of ``cfg.window`` ladder steps on the
+    device of ``ls``; ``sh`` (a ``ShortestState``) only with
+    ``track_shortest``."""
     if cfg.exchange not in ("sequential", "even_odd"):
         raise ValueError(
             f"exchange={cfg.exchange!r}: expected 'sequential' or 'even_odd'"
         )
-    if cfg.exchange == "even_odd":
-        raise NotImplementedError(
-            "exchange='even_odd' is not ported yet (ROADMAP.md queue 2, K2 "
-            "even_odd branch)"
-        )
-    if track_shortest:
-        raise NotImplementedError(
-            "track_shortest is not ported yet (ROADMAP.md queue 1, "
-            "'Biased/alpha PTEQ')"
-        )
-    if not (top_exact_accept and equal_betas):
-        raise NotImplementedError(
-            "only ladders with equal per-Pauli betas and a zero top rung "
-            "(beta_ladder_depolarizing) are ported; biased and alpha ladders "
-            "need K2's general branches (ROADMAP.md queue 2)"
-        )
+    C = cfg.energy_chunk
     engine = resolve_engine(cfg.engine, "pteq")
+    # the JAX package's key (pteq.py:237-239): every option that changes the
+    # window's code is in it
     key = (spec.family, spec.size, Nc, cfg.iters, cfg.p_logical, cfg.window,
-           cfg.tops_burn, engine, cfg.energy_chunk)
+           cfg.tops_burn, track_shortest, engine, top_exact_accept, C,
+           equal_betas, cfg.shortest_unique_cap, cfg.exchange)
     if key in _WINDOW_CACHE:
         return _WINDOW_CACHE[key]
+    # tracking needs per-step energies and traces from the window
+    Ck = 1 if track_shortest else C
     fused = make_ladder_window(spec, Nc, cfg.window, cfg.iters, cfg.p_logical,
-                               cfg.tops_burn, energy_chunk=cfg.energy_chunk,
+                               cfg.tops_burn, energy_chunk=Ck,
                                top_exact=top_exact_accept,
-                               equal_betas=equal_betas)
+                               equal_betas=equal_betas,
+                               track_traces=track_shortest,
+                               exchange=cfg.exchange)
 
     def window(ls: LadderState, seed: int, betas, eq_count, since_burn,
-               weights):
-        st, fl, tp, eq, sb, en, ba, bf, sw = fused(
-            ls.state, ls.flag, ls.tops0, eq_count, since_burn, seed, betas,
-            weights,
-        )
-        return LadderState(st, fl, tp), eq, sb, en, ba, bf, tp, sw
+               weights, sh: Optional[ShortestState] = None):
+        out = fused(ls.state, ls.flag, ls.tops0, eq_count, since_burn, seed,
+                    betas, weights)
+        st, fl, tp, eq, sb, en, ba, bf, sw = out[:9]
+        extras = ()
+        if track_shortest:
+            sh = _shortest_scan(sh, out[9], en, out[10], ba, bf)
+            extras = (sh,)
+            if C > 1:  # chunk means for the host automaton
+                en = en.reshape(en.shape[0] // C, C, -1).mean(dim=1)
+        return (LadderState(st, fl, tp), eq, sb, en, ba, bf, tp, sw) + extras
 
     _WINDOW_CACHE[key] = window
     return window
@@ -140,7 +247,7 @@ def _get_window_fn(spec: CodeSpec, Nc: int, cfg: PTEQConfig,
 def _fetch(out) -> Tuple[np.ndarray, ...]:
     """One device->host transfer of a window's summaries: (energies,
     burn_any, burn_first, tops0, swap_acc, since_burn, eq_count)."""
-    _, eq, sb, en, ba, bf, tp, sw = out
+    _, eq, sb, en, ba, bf, tp, sw = out[:8]
     Wc, B = en.shape
     ints = torch.cat([
         ba.to(torch.int32)[:, None], bf[:, None], tp[:, None], sb[:, None],
@@ -172,8 +279,9 @@ def pteq_run(
     (the card unless the caller asks for ``"cpu"``).
 
     ``seed`` seeds a CPU ``torch.Generator`` that draws each window's
-    kernel seed."""
-    del shortest_beta  # only used with track_shortest
+    kernel seed.  ``track_shortest`` adds the shortest-chain distributions
+    to the result, weighting each unique shortest chain by
+    exp(-shortest_beta * n_eff) (decoders_biasednoise.py:163-169)."""
     device = resolve_device(device)
     if cfg.ckpt_dir:
         raise NotImplementedError(
@@ -215,6 +323,33 @@ def pteq_run(
     # arrays live in *row* space (the current device batch of size Br),
     # ``rows`` maps each row to its syndrome index (-1 = padding)
     Br = B
+    # shortest-chain tracking: the running state lives on the device; rows
+    # are flushed into these host arrays (original syndrome order) when
+    # they leave the batch or the run ends
+    sh = None
+    if track_shortest:
+        sh = init_shortest(B, K, cfg.shortest_unique_cap, device)
+        sh_val_h = np.full((B, K), np.inf)
+        sh_cnt_h = np.zeros((B, K), dtype=np.int64)
+        sh_nuq_h = np.zeros((B, K), dtype=np.int64)
+        sh_ovf_h = np.zeros((B, K), dtype=bool)
+
+        def finalize_sh(row_sel):
+            """Flush the device's shortest stats of batch rows ``row_sel``
+            into the host arrays."""
+            row_sel = np.asarray(row_sel, dtype=np.int64)
+            if len(row_sel) == 0:
+                return
+            sel_d = torch.as_tensor(row_sel, device=device)
+            fv, fc, fn_, fo = (a.index_select(0, sel_d).cpu().numpy()
+                               for a in sh[:4])
+            orig = rows[row_sel]
+            ok = orig >= 0
+            sh_val_h[orig[ok]] = fv[ok]
+            sh_cnt_h[orig[ok]] = fc[ok]
+            sh_nuq_h[orig[ok]] = fn_[ok]
+            sh_ovf_h[orig[ok]] = fo[ok]
+
     rows = np.arange(B)
     buckets = []
     hist = EnergyHistory(B, max_rows=cfg.cum_rows_cap)
@@ -274,12 +409,16 @@ def pteq_run(
 
     def do_compact(new_Br):
         nonlocal ls, eq_count, since_burn, burn_start, conv_start
-        nonlocal in_streak, rows, Br
+        nonlocal in_streak, rows, Br, sh
         real_idx = np.nonzero(rows >= 0)[0]
         alive_rows = real_idx[~converged[rows[real_idx]]]
         pad = new_Br - len(alive_rows)
         sel = np.concatenate([alive_rows, np.repeat(alive_rows[:1], pad)])
         sel_d = torch.as_tensor(sel, device=device)
+        if track_shortest:
+            # rows leaving the batch stop accumulating: flush them first
+            finalize_sh(np.setdiff1d(real_idx, alive_rows))
+            sh = ShortestState(*(t.index_select(0, sel_d) for t in sh))
         ls = LadderState(*(t.index_select(0, sel_d) for t in ls))
         eq_count = eq_count.index_select(0, sel_d)
         since_burn = since_burn.index_select(0, sel_d)
@@ -293,8 +432,11 @@ def pteq_run(
 
     for _ in range(n_windows):
         w_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
-        out = window_fn(ls, w_seed, betas, eq_count, since_burn, weights)
+        args = (ls, w_seed, betas, eq_count, since_burn, weights)
+        out = window_fn(*args, sh) if track_shortest else window_fn(*args)
         ls, eq_count, since_burn = out[:3]
+        if track_shortest:
+            sh = out[8]
         process_window(_fetch(out))
         if converged.all():
             break
@@ -316,11 +458,36 @@ def pteq_run(
         snap_steps[orig] = steps_done
         snap_tops[orig] = tops_fin[r_idx]
 
+    sh_boltz = sh_counts = sh_overflow = None
+    if track_shortest:
+        finalize_sh(np.nonzero(rows >= 0)[0])
+        # Boltzmann over unique shortest chains: each unique chain at the
+        # class's shortest n_eff contributes exp(-beta * n_eff)
+        # (decoders_biasednoise.py:163-169; JAX pteq.py:821-842)
+        n_unique = sh_nuq_h.astype(np.float64)
+        with np.errstate(invalid="ignore"):
+            logw = -shortest_beta * np.where(np.isfinite(sh_val_h), sh_val_h,
+                                             np.inf)
+            # a row with no finite weight gives NaN and then 0, as the JAX
+            # package's nanmax does
+            top = np.max(np.where(np.isfinite(logw), logw, -np.inf), axis=1,
+                         keepdims=True)
+            w_ = n_unique * np.exp(logw - top)
+        w_ = np.where(np.isfinite(w_), w_, 0.0)
+        tot = w_.sum(axis=1, keepdims=True)
+        sh_boltz = np.where(tot > 0, w_ / np.maximum(tot, 1e-300) * 100, 0.0)
+        ctot = sh_cnt_h.sum(axis=1, keepdims=True)
+        sh_counts = np.where(ctot > 0, sh_cnt_h / np.maximum(ctot, 1) * 100,
+                             0.0)
+        sh_overflow = sh_ovf_h
     return PTEQResult(
         distribution=(snap_distr * 100).astype(np.uint8),
         converged=converged,
         steps=snap_steps,
         tops0=snap_tops,
+        shortest_boltzmann=sh_boltz,
+        shortest_counts=sh_counts,
+        shortest_overflow=sh_overflow,
         buckets=tuple(buckets),
     )
 
@@ -341,3 +508,63 @@ def PTEQ(
     ladder = beta_ladder_depolarizing(p, Nc)
     return pteq_run(spec, init_states, ladder, cfg, (1.0, 1.0, 1.0), seed,
                     metrics=metrics, device=device)
+
+
+def PTEQ_biased(
+    spec: CodeSpec,
+    init_states,
+    p: float,
+    eta: float = 0.5,
+    cfg: PTEQConfig = PTEQConfig(),
+    seed: int = 0,
+    metrics=None,
+    *,
+    device="cuda",
+) -> PTEQResult:
+    """Biased-noise PTEQ (decoders_biasednoise.py:28-75) on ``device``."""
+    Nc = cfg.Nc or spec.size
+    ladder = beta_ladder_biased(p, eta, Nc)
+    return pteq_run(spec, init_states, ladder, cfg, (1.0, 1.0, 1.0), seed,
+                    metrics=metrics, device=device)
+
+
+def PTEQ_alpha(
+    spec: CodeSpec,
+    init_states,
+    pz_tilde: float,
+    alpha: float = 1.0,
+    cfg: PTEQConfig = PTEQConfig(),
+    seed: int = 0,
+    metrics=None,
+    *,
+    device="cuda",
+) -> PTEQResult:
+    """Alpha-noise PTEQ on effective length n_eff = n_z + alpha (n_x + n_y)
+    (decoders_biasednoise.py:175-222) on ``device``."""
+    Nc = cfg.Nc or spec.size
+    ladder = beta_ladder_alpha(pz_tilde, alpha, Nc)
+    return pteq_run(spec, init_states, ladder, cfg, (alpha, alpha, 1.0), seed,
+                    metrics=metrics, device=device)
+
+
+def PTEQ_alpha_with_shortest(
+    spec: CodeSpec,
+    init_states,
+    pz_tilde: float,
+    alpha: float = 1.0,
+    cfg: PTEQConfig = PTEQConfig(),
+    seed: int = 0,
+    *,
+    device="cuda",
+) -> PTEQResult:
+    """Alpha PTEQ that also tracks the unique shortest-n_eff chains per
+    class (decoders_biasednoise.py:93-172) on ``device``.  The result's
+    ``shortest_boltzmann`` and ``shortest_counts`` carry the two extra
+    distributions the reference returns."""
+    Nc = cfg.Nc or spec.size
+    ladder = beta_ladder_alpha(pz_tilde, alpha, Nc)
+    return pteq_run(
+        spec, init_states, ladder, cfg, (alpha, alpha, 1.0), seed,
+        track_shortest=True, shortest_beta=float(-np.log(pz_tilde)),
+        device=device,
+    )

@@ -1,9 +1,10 @@
 """Parallel-tempering ladder state and beta tables.
 
-Counterpart of ``mcmc_qec_tpu/mcmc/ladder.py`` for the PTEQ slice: the
-numpy beta tables are carried over unchanged, ``LadderState`` holds torch
-tensors, and ``init_ladder`` replicates the initial states across the
-rungs with the top rung flagged (src/mcmc.py:72-79).  The ladder step
+Counterpart of ``mcmc_qec_tpu/mcmc/ladder.py`` for the PTEQ decoders: the
+numpy beta tables (depolarizing, biased, alpha) are carried over unchanged,
+``LadderState`` holds torch tensors, and ``init_ladder`` replicates the
+initial states across the rungs with the top rung flagged
+(src/mcmc.py:72-79).  The ladder step
 itself lives in the fused window (``ops/ladder_window.py``);
 ``make_ladder_step`` (the unfused step) is still to port (ROADMAP.md,
 queue 1).
@@ -41,6 +42,26 @@ def beta_ladder_depolarizing(p_bottom: float, Nc: int, p_top: float = 0.75) -> n
     """linspace p-ladder bottom -> 0.75 (src/mcmc.py:62-66)."""
     ps = np.linspace(p_bottom, p_top, Nc)
     return np.stack([betas_depolarizing(p) for p in ps])
+
+
+def beta_ladder_biased(p_bottom: float, eta: float, Nc: int) -> np.ndarray:
+    """p_top = (eta+1)/(2*eta+1) (src/mcmc_biased.py:83-86)."""
+    p_top = (eta + 1.0) / (2.0 * eta + 1.0)
+    ps = np.linspace(p_bottom, p_top, Nc)
+    out = []
+    for p in ps:
+        pz = p * eta / (eta + 1.0)
+        px = p / (2.0 * (eta + 1.0))
+        out.append(betas_xyz(px, px, pz))
+    return np.stack(out)
+
+
+def beta_ladder_alpha(pz_tilde_bottom: float, alpha: float, Nc: int) -> np.ndarray:
+    """pz_tilde ladder bottom -> 1 (src/mcmc_alpha.py:94-98); the unified
+    betas are beta_z = -ln pz_tilde, beta_x = beta_y = -alpha ln pz_tilde."""
+    pzt = np.linspace(pz_tilde_bottom, 1.0, Nc)
+    bz = -np.log(np.maximum(pzt, 1e-30))
+    return np.stack([alpha * bz, alpha * bz, bz], axis=-1)
 
 
 def init_ladder(spec: CodeSpec, init_states: torch.Tensor, Nc: int) -> LadderState:

@@ -3,16 +3,22 @@
 Counterpart of ``mcmc_qec_tpu/ops/pallas_ladder.py`` (the fused Pallas TPU
 window).  ``make_ladder_window`` returns a function with the exact
 ``_get_window_fn`` contract of ``make_pallas_ladder_window``
-(pallas_ladder.py:160-171).  It dispatches on the device of the state:
+(pallas_ladder.py:160-210).  It dispatches on the device of the state:
 
 - a CUDA tensor launches ``csrc/ladder_window.cu`` (built with ``nvcc`` at
   first use, ``ops/_build.py``) once per window, or raises;
 - a CPU tensor runs ``ladder_window_reference``, the plain version.
 
-Only the production branch of the TPU kernel is ported: equal per-Pauli
-betas, exactly-zero top-rung betas (always-accept logical mix), sequential
-replica exchange, no traces (pteq.py:398-411 takes it for every
-``beta_ladder_depolarizing`` ladder).
+Every branch of the TPU kernel is ported:
+
+- the sweep: equal per-Pauli betas (acceptance on the total error count,
+  ``equal_betas=True``) or general per-Pauli betas per rung;
+- the top-rung logical mix: always accepted for exactly-zero top betas
+  (``top_exact=True``) or ``iters`` sequential Metropolis rounds;
+- the replica exchange: the reference's sequential top->bottom sweep or
+  ``exchange="even_odd"`` (all even pairs on the pre-phase counts, then
+  all odd pairs);
+- ``track_traces``: per-step bottom-rung class and 4-component chain hash.
 
 Randomness: every draw is Philox4x32-10 (``ops/philox.py``) word ``e % 4``
 at counter ``(e // 4, use, step, row)`` under key ``(seed mod 2**32,
@@ -25,13 +31,19 @@ step, with ``G = iters * n_colors * Nc``:
 - ``G``: top-mix gates, element ``it``;
 - ``G + 1``: top-mix draws, element ``(it * n_draws + i) * 3 + k`` for
   (op, X position, Z position) of logical draw ``i``;
-- ``G + 2``: exchange, element ``i`` for rung pair ``(i, i + 1)``.
+- ``G + 2``: exchange, element ``i`` for rung pair ``(i, i + 1)`` (both
+  schedules);
+- ``G + 3``: the Metropolis mix's acceptance uniforms, element ``it``.
 
 No two draws share a counter, so no two are correlated (the overlap
 ROADMAP.md §3 warns of).  ``rng="zeros"`` makes every draw 0: that is what
 the Pallas TPU interpreter's PRNG returns on the CPU, so the zeros-mode
 plain window reproduces ``make_pallas_ladder_window(..., interpret=True)``
-output for output (tests/test_torch_ladder_window.py).
+output for output (tests/test_torch_ladder_window.py).  An integer ``rng``
+makes every draw that 32-bit word: with the interpreter's PRNG stubbed to
+the same constant, the logical mix proposes a nontrivial logical, which
+zeros (op 0 is the identity in every family) never does
+(tests/test_torch_ladder_branches.py).
 """
 
 from __future__ import annotations
@@ -48,12 +60,20 @@ from ..models.base import CodeSpec
 from .dense_sweep import _color_tables
 from .philox import MASK32, philox4x32
 
-# compile-time maximum of 64-bit words per bit plane in the kernel
-MAX_WORDS = 2
-# syndromes per block ceiling (threads per block = syndromes * Nc <= 1024)
+# 64-bit words per bit plane the kernel is instantiated for (a code's word
+# count is rounded up to the next; the extra words stay zero)
+KERNEL_WORDS = (1, 2, 3, 4, 6, 8, 12)
+# syndromes per block ceiling
 MAX_SPB = 32
+# dynamic shared memory one block may use on Hopper (227 KB)
+SMEM_LIMIT = 232448
 # bound on Philox blocks materialised at once by the plain version
 _DRAW_BUDGET = 1 << 21
+# Philox uses per step after the sweeps (gates, draws, exchange, MH accept)
+_N_EXTRA_USES = 4
+# components of the chain hash in trace mode, and bits per coefficient
+N_KEY = 4
+_KEY_BITS = 6
 
 WindowOut = Tuple[torch.Tensor, ...]
 
@@ -85,6 +105,15 @@ def _rng_layout(spec: CodeSpec, Nc: int, iters: int) -> Tuple[int, int, int]:
     return iters * len(tables) * Nc, -(-w_max // 4), -(-n_extra // 4)
 
 
+def key_coefficients(nq: int) -> np.ndarray:
+    """(N_KEY, nq) int64 hash coefficients in [0, 64) of trace mode: the
+    same draws as the TPU kernel's table (pallas_ladder.py:318-324)."""
+    rng = np.random.RandomState(0x5EED ^ (nq * 7919))
+    return np.stack([rng.randint(0, 64, size=nq) for _ in range(N_KEY)]).astype(
+        np.int64
+    )
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
@@ -99,18 +128,19 @@ class _PlainTables:
         nq = spec.nq
         q1 = nq + 1
         v = np.arange(4)
-        # per color: Pauli op per qubit (q1,), flat lookup of the change in
-        # "qubit in error" at (support slot, value) (W * deg * 4,), the
-        # flattened support (W * deg,), and the owning slot per qubit (q1,)
+        # per color: Pauli op per qubit (q1,), flat lookups of the change in
+        # "qubit in error" and in "qubit is X / Y / Z" at (support slot,
+        # value) (W * deg * 4,) and (3, W * deg * 4), the flattened support
+        # (W * deg,), and the owning slot per qubit (q1,)
         self.colors = []
         for sel, xop, zop in _color_tables(spec):
             n = sel.shape[0]
             op = np.zeros(q1, np.int64)
             op[:nq] = xop.astype(np.int64) ^ (3 * zop.astype(np.int64))
-            # change in "qubit is in error" when the color's op hits value v
-            dtab = ((v[None, :] ^ op[:, None]) != 0).astype(np.int64) - (
-                v[None, :] != 0
-            )
+            new = v[None, :] ^ op[:, None]  # (q1, 4) value after the op
+            dtab = (new != 0).astype(np.int64) - (v[None, :] != 0)
+            dtab3 = np.stack([(new == k).astype(np.int64) - (v[None, :] == k)
+                              for k in (1, 2, 3)])
             deg = int(sel.sum(axis=1).max())
             supp = np.full((n, deg), nq, np.int64)
             owner = np.full(q1, n, np.int64)
@@ -118,10 +148,12 @@ class _PlainTables:
                 qs = np.flatnonzero(sel[j])
                 supp[j, : len(qs)] = qs
                 owner[qs] = j
-            dsupp = dtab[supp.reshape(-1)].reshape(-1)
+            flat = supp.reshape(-1)
+            dsupp = dtab[flat].reshape(-1)
+            dsupp3 = dtab3[:, flat].reshape(3, -1)
             self.colors.append(tuple(
                 torch.as_tensor(a, device=device)
-                for a in (op, dsupp, supp.reshape(-1), owner)
+                for a in (op, dsupp, dsupp3, flat, owner)
             ) + (n, deg))
         draws = spec.logical_draws
         n_pos = [d.x_masks.shape[0] for d in draws]
@@ -146,6 +178,10 @@ class _PlainTables:
         )
         self.bit_w = 1 << torch.arange(spec.n_class_bits, device=device)
         self.b2e = torch.as_tensor(spec.bits_to_eq.astype(np.int64), device=device)
+        keyc = np.zeros((N_KEY, q1), np.int64)
+        keyc[:, :nq] = key_coefficients(nq)
+        self.keyc = torch.as_tensor(keyc, device=device)
+        self.paulis = torch.arange(1, 4, device=device)  # X, Y, Z values
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,14 +189,26 @@ def _plain_tables(spec: CodeSpec, device: torch.device) -> _PlainTables:
     return _PlainTables(spec, device)
 
 
+def _fixed_word(rng):
+    """The word every draw equals (``rng="zeros"`` or an int), or None for
+    Philox draws."""
+    if rng == "philox":
+        return None
+    if rng == "zeros":
+        return 0
+    if isinstance(rng, int) and not isinstance(rng, bool) and 0 <= rng <= MASK32:
+        return rng
+    raise ValueError(f"rng={rng!r}: expected 'philox', 'zeros' or a 32-bit word")
+
+
 def _draw_words(k0: int, k1: int, t0: int, t1: int, B: int, use0: int,
-                n_uses: int, n_blocks: int, zeros: bool, device) -> torch.Tensor:
+                n_uses: int, n_blocks: int, fixed, device) -> torch.Tensor:
     """Draws of uses [use0, use0 + n_uses) in steps [t0, t1):
     (t1 - t0, B, n_uses, 4 * n_blocks) int64 words in [0, 2**32), element
-    e at [..., e]."""
+    e at [..., e]; every word is ``fixed`` unless it is None."""
     shape = (t1 - t0, B, n_uses, 4 * n_blocks)
-    if zeros:
-        return torch.zeros(shape, dtype=torch.int64, device=device)
+    if fixed is not None:
+        return torch.full(shape, fixed, dtype=torch.int64, device=device)
     ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
     c0 = ar(n_blocks).view(1, 1, 1, -1)
     c1 = ar(use0, use0 + n_uses).view(1, 1, -1, 1)
@@ -176,6 +224,17 @@ def _class_ids(T: _PlainTables, s: torch.Tensor) -> torch.Tensor:
     b1 = ((s >> 1) & 1).unsqueeze(-2)
     feats = ((b0 & T.class_a).sum(-1) + (b1 & T.class_b).sum(-1)) & 1
     return T.b2e[(feats * T.bit_w).sum(-1)]
+
+
+def _xyz_counts(T: _PlainTables, s: torch.Tensor) -> torch.Tensor:
+    """(..., 3) int64 X, Y and Z counts of int64 Pauli states (..., nq + 1)."""
+    return (s.unsqueeze(-2) == T.paulis.view(3, 1)).sum(-1)
+
+
+def _weighted(w: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """(w0 * n_x + w1 * n_y) + w2 * n_z in f32, each product and sum rounded
+    on its own in the TPU kernel's order; ``n`` (..., 3) f32."""
+    return (w[0] * n[..., 0] + w[1] * n[..., 1]) + w[2] * n[..., 2]
 
 
 def ladder_window_reference(
@@ -194,16 +253,23 @@ def ladder_window_reference(
     p_logical: float,
     tops_burn: int,
     energy_chunk: int,
+    top_exact: bool = False,
+    equal_betas: bool = False,
+    exchange: str = "sequential",
+    track_traces: bool = False,
     rng: str = "philox",
 ) -> WindowOut:
-    """Plain PyTorch version of one window (production branch of
-    ``make_pallas_ladder_window``) on the device of ``state``.
+    """Plain PyTorch version of one window of ``make_pallas_ladder_window``
+    on the device of ``state``, every branch.
 
     Same inputs and outputs as the kernel wrapper (see
     ``make_ladder_window``).  Per step: every color of every sweep updates
     all (syndrome, rung) chains at once through per-qubit lookup tables,
-    the exchange runs on a per-syndrome rung permutation, and the class
-    histogram and energy of the bottom rung are folded once per chunk."""
+    the top rung mixes in random logicals, the exchange runs on a
+    per-syndrome rung permutation, and the class histogram and energy of
+    the bottom rung are folded once per chunk.  Float expressions keep the
+    TPU kernel's operation order, each product and sum rounded on its
+    own."""
     device = state.device
     B, Nc, nq = state.shape
     T = _plain_tables(spec, device)
@@ -212,7 +278,7 @@ def ladder_window_reference(
     use_gate, n_blocks, n_xblocks = _rng_layout(spec, Nc, iters)
     n_draws = len(spec.logical_draws)
     k0, k1 = int(seed) & MASK32, (int(seed) >> 32) & MASK32
-    zeros = rng == "zeros"
+    fixed = _fixed_word(rng)
 
     S = torch.zeros((B, Nc, nq + 1), dtype=torch.int64, device=device)
     S[..., :nq] = state
@@ -222,10 +288,11 @@ def ladder_window_reference(
     since = since_burn.to(torch.int64)
     bfirst = torch.full((B,), -1, dtype=torch.int64, device=device)
     swaps = torch.zeros((B, max(Nc - 1, 0)), dtype=torch.int64, device=device)
-    beta = torch.as_tensor(betas, dtype=f32, device=device).reshape(Nc, 3)[:, 0]
-    beta_col = beta.view(1, Nc, 1)
-    dbeta = beta[1:] - beta[:-1]
-    w0 = torch.as_tensor(weights, dtype=f32, device=device).reshape(3)[0]
+    beta3 = torch.as_tensor(betas, dtype=f32, device=device).reshape(Nc, 3)
+    beta_cols = [beta3[:, k].view(1, Nc, 1) for k in range(3)]
+    dbeta = beta3[1:] - beta3[:-1]  # (Nc - 1, 3)
+    beta_top = beta3[-1]
+    w = torch.as_tensor(weights, dtype=f32, device=device).reshape(3)
     inv_c = torch.tensor(np.float32(1.0 / C), device=device)
     two_m24 = torch.tensor(2.0 ** -24, dtype=f32, device=device)
     eps = torch.tensor(1e-12, dtype=f32, device=device)
@@ -234,37 +301,52 @@ def ladder_window_reference(
     rung_ids = torch.arange(Nc, device=device).expand(B, Nc)
     no_hit = torch.zeros((B, Nc, 1), dtype=torch.bool, device=device)
     slot4 = [4 * torch.arange(n * deg, device=device)
-             for _, _, _, _, n, deg in T.colors]
+             for *_, n, deg in T.colors]
     draw_e = (
         torch.arange(iters, device=device).view(-1, 1, 1) * n_draws
         + torch.arange(n_draws, device=device).view(1, -1, 1)
     ) * 3 + torch.arange(3, device=device)  # (iters, n_draws, 3)
+    if exchange == "even_odd":
+        pair_order = list(range(0, Nc - 1, 2)) + list(range(1, Nc - 1, 2))
+    else:
+        pair_order = list(reversed(range(Nc - 1)))
     energies = torch.empty((window // C, B), dtype=f32, device=device)
+    if track_traces:
+        eq_trace = torch.empty((window, B), dtype=torch.int32, device=device)
+        key_trace = torch.empty((window, B, N_KEY), dtype=torch.int32,
+                                device=device)
     chunk_s, chunk_g, chunk_n = [], [], []
 
-    per_step = B * (use_gate * n_blocks + 3 * n_xblocks)
+    per_step = B * (use_gate * n_blocks + _N_EXTRA_USES * n_xblocks)
     span = max(1, _DRAW_BUDGET // max(per_step, 1))
     for t0 in range(0, window, span):
         t1 = min(window, t0 + span)
         sweep_bits = _draw_words(k0, k1, t0, t1, B, 0, use_gate, n_blocks,
-                                 zeros, device) >> 8
+                                 fixed, device) >> 8
         logu = torch.log(sweep_bits.to(f32) * two_m24 + eps)
-        bits24 = _draw_words(k0, k1, t0, t1, B, use_gate, 3, n_xblocks,
-                             zeros, device) >> 8
+        bits24 = _draw_words(k0, k1, t0, t1, B, use_gate, _N_EXTRA_USES,
+                             n_xblocks, fixed, device) >> 8
         logu_sw = torch.log(bits24[:, :, 2].to(f32) * two_m24 + eps)
         for t in range(t0, t1):
             lt = t - t0
             # 1) colored sweeps on all (syndrome, rung) chains
             for it in range(iters):
-                for c, (op, dsupp, supp, owner, n, deg) in enumerate(T.colors):
+                for c, (op, dsupp, dsupp3, supp, owner, n, deg) in enumerate(
+                        T.colors):
                     base = (it * len(T.colors) + c) * Nc
                     lu = logu[lt, :, base : base + Nc, :n]
-                    vals = S.index_select(-1, supp)  # (B, Nc, n * deg)
-                    dn = dsupp.take(vals + slot4[c]).view(B, Nc, n, deg).sum(-1)
-                    acc = lu < -(beta_col * dn.to(f32))
+                    idx = S.index_select(-1, supp) + slot4[c]  # (B, Nc, n * deg)
+                    if equal_betas:
+                        dn = dsupp.take(idx).view(B, Nc, n, deg).sum(-1)
+                        logr = -(beta_cols[0] * dn.to(f32))
+                    else:
+                        d = dsupp3[:, idx].view(3, B, Nc, n, deg).sum(-1).to(f32)
+                        logr = -((beta_cols[0] * d[0] + beta_cols[1] * d[1])
+                                 + beta_cols[2] * d[2])
+                    acc = lu < logr
                     hit = torch.cat([acc, no_hit], -1).index_select(-1, owner)
                     S = torch.where(hit, S ^ op, S)
-            # 2) top-rung logical mix: every gated proposal accepts
+            # 2) top-rung logical mix
             if p_logical > 0.0:
                 u_gate = bits24[lt, :, 0, :iters].to(f32) * two_m24 + eps
                 gate = u_gate < p_logical  # (B, iters)
@@ -277,15 +359,40 @@ def ladder_window_reference(
                 m = (T.xm[T.draw_id, posx] * dox[..., None]) ^ (
                     T.zm[T.draw_id, posz] * doz[..., None]
                 )  # (B, iters, n_draws, nq + 1) Pauli masks
-                mx = (((m & 1) ^ ((m >> 1) & 1)).sum((1, 2))) & 1
-                mz = (((m >> 1) & 1).sum((1, 2))) & 1
-                S = S ^ ((mx ^ (3 * mz)).unsqueeze(1) * top_only)
-            # 3) sequential top->bottom exchange on counts after the mix
-            N = (S != 0).sum(-1)  # (B, Nc)
-            cols = torch.stack([rung_ids, N, fl], dim=-1)  # (B, Nc, 3)
+                if top_exact:
+                    # zero top betas: every gated proposal accepts
+                    mx = (((m & 1) ^ ((m >> 1) & 1)).sum((1, 2))) & 1
+                    mz = (((m >> 1) & 1).sum((1, 2))) & 1
+                    S = S ^ ((mx ^ (3 * mz)).unsqueeze(1) * top_only)
+                else:
+                    # iters sequential Metropolis rounds on the top rung
+                    logu_mix = torch.log(
+                        bits24[lt, :, 3, :iters].to(f32) * two_m24 + eps
+                    )
+                    for it in range(iters):
+                        mk = m[:, it, 0]
+                        for i in range(1, n_draws):
+                            mk = mk ^ m[:, it, i]
+                        top = S[:, -1]
+                        dn = (_xyz_counts(T, top ^ mk)
+                              - _xyz_counts(T, top)).to(f32)
+                        logr = -_weighted(beta_top, dn)
+                        acc = logu_mix[:, it] < logr
+                        S = S ^ (torch.where(acc[:, None], mk, 0).unsqueeze(1)
+                                 * top_only)
+            # 3) exchange on the counts after the mix, on a permutation
+            if equal_betas:
+                N = (S != 0).sum(-1, keepdim=True)  # (B, Nc, 1)
+            else:
+                N = _xyz_counts(T, S)  # (B, Nc, 3)
+            cols = torch.cat([rung_ids.unsqueeze(-1), N, fl.unsqueeze(-1)], -1)
             lsw = logu_sw[lt]
-            for i in reversed(range(Nc - 1)):
-                logr = dbeta[i] * (cols[:, i + 1, 1] - cols[:, i, 1]).to(f32)
+            for i in pair_order:
+                dn = (cols[:, i + 1, 1:-1] - cols[:, i, 1:-1]).to(f32)
+                if equal_betas:
+                    logr = dbeta[i, 0] * dn[:, 0]
+                else:
+                    logr = _weighted(dbeta[i], dn)
                 acc = lsw[:, i] < logr
                 pair = cols[:, i : i + 2]
                 cols = cols.clone()
@@ -293,7 +400,7 @@ def ladder_window_reference(
                     acc[:, None, None], pair.flip(1), pair
                 )
                 swaps[:, i] += acc
-            perm, N, fl = cols.unbind(-1)
+            perm, N, fl = cols[..., 0], cols[..., 1:-1], cols[..., -1]
             S = S.gather(1, perm.unsqueeze(-1).expand_as(S))
             # 4) flags (src/mcmc.py:100-103)
             fl = fl.clone()
@@ -308,16 +415,23 @@ def ladder_window_reference(
             chunk_s.append(S[:, 0])
             chunk_g.append(burned)
             chunk_n.append(N[:, 0])
+            if track_traces:
+                eq_trace[t] = _class_ids(T, S[:, 0]).to(torch.int32)
+                key_trace[t] = (S[:, 0].unsqueeze(1) * T.keyc).sum(-1).to(
+                    torch.int32)
             if (t + 1) % C == 0:
                 cls = _class_ids(T, torch.stack(chunk_s))  # (C, B)
                 gated = torch.stack(chunk_g)[..., None]
                 eq = eq + (F.one_hot(cls, spec.n_classes) * gated).sum(0)
-                esum = torch.stack(chunk_n).sum(0)
-                energies[t // C] = (w0 * esum.to(f32)) * inv_c
+                esum = torch.stack(chunk_n).sum(0).to(f32)  # (B, 1 or 3)
+                if equal_betas:
+                    energies[t // C] = (w[0] * esum[:, 0]) * inv_c
+                else:
+                    energies[t // C] = _weighted(w, esum) * inv_c
                 chunk_s, chunk_g, chunk_n = [], [], []
 
     i32 = torch.int32
-    return (
+    out = (
         S[..., :nq].to(torch.uint8),
         fl.to(i32),
         tops.to(i32),
@@ -328,6 +442,9 @@ def ladder_window_reference(
         bfirst.clamp(min=0).to(i32),
         swaps.to(i32),
     )
+    if track_traces:
+        out = out + (eq_trace, key_trace)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -340,11 +457,13 @@ class _Params(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int32) for n in (
         "B", "Nc", "nq", "nw", "K", "n_bits", "n_colors", "n_draws",
-        "window", "iters", "tops_burn", "energy_chunk", "zeros", "spb",
-        "n_tab", "n_meta", "off_draw", "off_class", "m_draw", "m_lut", "m_b2e",
-    )] + [(n, ctypes.c_float) for n in ("p_logical", "w0", "inv_chunk")] + [
-        (n, ctypes.c_uint32) for n in ("key0", "key1")
-    ]
+        "window", "iters", "tops_burn", "energy_chunk", "fixed", "spb",
+        "n_tab", "n_meta", "off_draw", "off_class", "off_key", "m_draw",
+        "m_lut", "m_b2e", "equal_betas", "top_exact", "even_odd", "traces",
+        "tab_in_smem",
+    )] + [(n, ctypes.c_float) for n in (
+        "p_logical", "w0", "w1", "w2", "inv_chunk",
+    )] + [(n, ctypes.c_uint32) for n in ("key0", "key1", "fixed_word")]
 
 
 class _Buffers(ctypes.Structure):
@@ -353,8 +472,28 @@ class _Buffers(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "state_in", "state_out", "flag_in", "flag_out", "tops_in", "tops_out",
         "eq_in", "eq_out", "since_in", "since_out", "energies", "burn_any",
-        "burn_first", "swap_acc", "betas", "tab", "meta",
+        "burn_first", "swap_acc", "eq_trace", "key_trace", "betas", "tab",
+        "meta",
     )]
+
+
+def kernel_words(nq: int) -> int:
+    """64-bit words per bit plane of the kernel instantiation for ``nq``."""
+    need = -(-nq // 64)
+    for nw in KERNEL_WORDS:
+        if nw >= need:
+            return nw
+    raise ValueError(
+        f"nq={nq} needs {need} words per plane; the kernel is built for at "
+        f"most {KERNEL_WORDS[-1]} (nq <= {64 * KERNEL_WORDS[-1]})"
+    )
+
+
+def max_threads(nw: int) -> int:
+    """Threads per block the kernel is bounded to at ``nw`` words per plane
+    (csrc/ladder_window.cu::kMaxThreads): fewer threads leave each more
+    registers for its planes."""
+    return 1024 if nw <= 2 else 512 if nw <= 4 else 256
 
 
 def _words(mask: np.ndarray, nw: int) -> np.ndarray:
@@ -373,12 +512,14 @@ def _xz(m: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 @functools.lru_cache(maxsize=None)
 def kernel_tables(spec: CodeSpec):
-    """(u64 table, int32 meta, offsets) the kernel copies into shared
-    memory: per stabilizer (ordered by color) its support and op X/Z masks;
-    per logical-draw position the X/Z planes of its x- and z-mask; per class
-    bit its A/B masks; color starts, draw starts, op LUT and bits_to_eq."""
+    """(u64 table, int32 meta, offsets) the kernel reads: per stabilizer
+    (ordered by color) its support and op X/Z masks; per logical-draw
+    position the X/Z planes of its x- and z-mask; per class bit its A/B
+    masks; per hash component and coefficient bit the qubits whose
+    coefficient has that bit; color starts, draw starts, op LUT and
+    bits_to_eq."""
     nq = spec.nq
-    nw = -(-nq // 64)
+    nw = kernel_words(nq)
     tab, meta = [], []
     color_start = [0]
     for sel, xop, zop in _color_tables(spec):
@@ -397,6 +538,9 @@ def kernel_tables(spec: CodeSpec):
     off_class = len(tab) * nw
     for f in range(spec.n_class_bits):
         tab += [_words(spec.class_A[f], nw), _words(spec.class_B[f], nw)]
+    off_key = len(tab) * nw
+    for coef in key_coefficients(nq):
+        tab += [_words((coef >> k) & 1, nw) for k in range(_KEY_BITS)]
     meta += color_start
     m_draw = len(meta)
     meta += draw_start
@@ -408,9 +552,39 @@ def kernel_tables(spec: CodeSpec):
     tab_np = np.concatenate(tab).view(np.int64)
     meta_np = np.asarray(meta, np.int32)
     offs = dict(n_tab=len(tab_np), n_meta=len(meta_np), off_draw=off_draw,
-                off_class=off_class, m_draw=m_draw, m_lut=m_lut, m_b2e=m_b2e,
-                n_colors=len(color_start) - 1, nw=nw)
+                off_class=off_class, off_key=off_key, m_draw=m_draw,
+                m_lut=m_lut, m_b2e=m_b2e, n_colors=len(color_start) - 1,
+                nw=nw)
     return tab_np, meta_np, offs
+
+
+def smem_bytes(offs, Nc: int, K: int, spb: int, equal_betas: bool,
+               tab_in_smem: bool) -> int:
+    """Dynamic shared memory of one block (csrc/ladder_window.cu::Smem)."""
+    slots = spb * Nc
+    n_cnt = 1 if equal_betas else 3
+    return (8 * offs["n_tab"] * int(tab_in_smem)
+            + 8 * 2 * slots * 2 * offs["nw"]
+            + 4 * offs["n_meta"] + 4 * 3 * Nc
+            + 4 * 2 * slots * n_cnt + 4 * 2 * slots + 4 * slots
+            + 4 * spb * (Nc - 1) + 4 * spb * K)
+
+
+def block_shape(offs, Nc: int, K: int, spb: int, equal_betas: bool):
+    """(syndromes per block, tables in shared memory?) for a wanted ``spb``:
+    at most the thread bound and what shared memory holds.  The tables go
+    to shared memory when one syndrome's ladder fits beside them, else the
+    kernel reads them from device memory (toric d=19: 208 KB of
+    stabilizer masks)."""
+    fit = lambda s, tab: smem_bytes(offs, Nc, K, s, equal_betas, tab) <= SMEM_LIMIT
+    tab_in_smem = fit(1, True)
+    spb = max(1, min(spb, max_threads(offs["nw"]) // Nc))
+    while spb > 1 and not fit(spb, tab_in_smem):
+        spb -= 1
+    if not fit(spb, tab_in_smem):
+        raise ValueError(f"one syndrome's ladder (Nc={Nc}, {offs['nw']} words "
+                         f"per plane) does not fit in shared memory")
+    return spb, tab_in_smem
 
 
 def _syndromes_per_block(B: int, Nc: int, device: torch.device) -> int:
@@ -446,18 +620,13 @@ def _kernel_entry():
 
 def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
             weights, *, window, iters, p_logical, tops_burn, energy_chunk,
-            zeros, device_tables) -> WindowOut:
+            top_exact, equal_betas, exchange, track_traces, fixed,
+            device_tables) -> WindowOut:
     device = state.device
     B, Nc, nq = state.shape
     K = spec.n_classes
     if nq != spec.nq:
         raise ValueError(f"state has {nq} qubits, spec {spec.nq}")
-    nw = -(-nq // 64)
-    if nw > MAX_WORDS:
-        raise NotImplementedError(
-            f"nq={nq} needs {nw} words per plane; the kernel is built for at "
-            f"most {MAX_WORDS} (nq <= {64 * MAX_WORDS})"
-        )
     _check(state, "state", (B, Nc, nq), torch.uint8, device)
     _check(flag, "flag", (B, Nc), torch.int32, device)
     _check(tops0, "tops0", (B,), torch.int32, device)
@@ -465,7 +634,8 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
     _check(since_burn, "since_burn", (B,), torch.int32, device)
     betas_d = torch.as_tensor(betas, dtype=torch.float32, device=device)
     _check(betas_d, "betas", (Nc, 3), torch.float32, device)
-    w0 = float(np.asarray(torch.as_tensor(weights, dtype=torch.float32).cpu())[0])
+    w = [float(v) for v in
+         np.asarray(torch.as_tensor(weights, dtype=torch.float32).cpu()).reshape(3)]
 
     tab_np, meta_np, offs = kernel_tables(spec)
     if device not in device_tables:
@@ -483,24 +653,37 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
         torch.empty((B,), dtype=torch.int32, device=device),
         torch.empty((B, Nc - 1), dtype=torch.int32, device=device),
     )
+    if track_traces:
+        out = out + (
+            torch.empty((window, B), dtype=torch.int32, device=device),
+            torch.empty((window, B, N_KEY), dtype=torch.int32, device=device),
+        )
     if B == 0:
         return out
+    spb, tab_in_smem = block_shape(offs, Nc, K,
+                                   _syndromes_per_block(B, Nc, device),
+                                   equal_betas)
     P = _Params(
-        B=B, Nc=Nc, nq=nq, nw=nw, K=K, n_bits=spec.n_class_bits,
+        B=B, Nc=Nc, nq=nq, nw=offs["nw"], K=K, n_bits=spec.n_class_bits,
         n_colors=offs["n_colors"], n_draws=len(spec.logical_draws),
         window=window, iters=iters, tops_burn=tops_burn,
-        energy_chunk=energy_chunk, zeros=int(zeros),
-        spb=_syndromes_per_block(B, Nc, device),
+        energy_chunk=energy_chunk, fixed=int(fixed is not None), spb=spb,
         n_tab=offs["n_tab"], n_meta=offs["n_meta"], off_draw=offs["off_draw"],
-        off_class=offs["off_class"], m_draw=offs["m_draw"],
-        m_lut=offs["m_lut"], m_b2e=offs["m_b2e"],
-        p_logical=p_logical, w0=w0, inv_chunk=float(np.float32(1.0 / energy_chunk)),
+        off_class=offs["off_class"], off_key=offs["off_key"],
+        m_draw=offs["m_draw"], m_lut=offs["m_lut"], m_b2e=offs["m_b2e"],
+        equal_betas=int(equal_betas), top_exact=int(top_exact),
+        even_odd=int(exchange == "even_odd"), traces=int(track_traces),
+        tab_in_smem=int(tab_in_smem),
+        p_logical=p_logical, w0=w[0], w1=w[1], w2=w[2],
+        inv_chunk=float(np.float32(1.0 / energy_chunk)),
         key0=int(seed) & MASK32, key1=(int(seed) >> 32) & MASK32,
+        fixed_word=fixed or 0,
     )
-    st_o, fl_o, tp_o, eq_o, sb_o, en_o, ba_o, bf_o, sw_o = out
-    bufs = _Buffers(*(t.data_ptr() for t in (
-        state, st_o, flag, fl_o, tops0, tp_o, eq_count, eq_o, since_burn,
-        sb_o, en_o, ba_o, bf_o, sw_o, betas_d, tab, meta,
+    traces = out[9:] if track_traces else (None, None)
+    bufs = _Buffers(*(t.data_ptr() if t is not None else None for t in (
+        state, out[0], flag, out[1], tops0, out[2], eq_count, out[3],
+        since_burn, out[4], out[5], out[6], out[7], out[8], *traces, betas_d,
+        tab, meta,
     )))
     entry = _kernel_entry()
     with torch.cuda.device(device):
@@ -509,7 +692,7 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
     if err != 0:
         raise RuntimeError(
             f"ladder_window kernel launch failed: cudaError {err} "
-            f"(B={B}, Nc={Nc}, nq={nq}, spb={P.spb})"
+            f"(B={B}, Nc={Nc}, nq={nq}, nw={offs['nw']}, spb={spb})"
         )
     ladder_window_counts.launches += 1
     return out
@@ -525,45 +708,53 @@ def make_ladder_window(
     energy_chunk: int = 1,
     top_exact: bool = False,
     equal_betas: bool = False,
+    track_traces: bool = False,
+    exchange: str = "sequential",
     rng: str = "philox",
 ):
     """Build ``fn(state, flag, tops0, eq_count, since_burn, seed, betas,
     weights)`` running one PTEQ window of ``window`` ladder steps.
 
-    Only the production branch is ported: the caller asserts with
-    ``top_exact=True`` that the top rung's betas are zero (the logical mix
-    always accepts) and with ``equal_betas=True`` that every rung has
-    beta_x == beta_y == beta_z.  Anything else raises
-    ``NotImplementedError``.
+    As in ``make_pallas_ladder_window``, the caller asserts with
+    ``top_exact=True`` that the top rung's betas are exactly zero (the
+    logical mix always accepts; otherwise it runs ``iters`` Metropolis
+    rounds) and with ``equal_betas=True`` that every rung has beta_x ==
+    beta_y == beta_z and the weights are uniform (acceptance, exchange and
+    energy on total counts; otherwise per Pauli).  ``exchange`` is
+    ``"sequential"`` (top->bottom) or ``"even_odd"``.
 
     Shapes (B = syndrome batch):
       state (B, Nc, nq) u8, flag (B, Nc) i32, tops0 (B,) i32,
       eq_count (B, K) i32, since_burn (B,) i32, seed int,
-      betas (Nc, 3) f32 with beta_x == beta_y == beta_z per rung and a zero
-      top rung, weights (3,) f32 (the energy uses weights[0]).
+      betas (Nc, 3) f32, weights (3,) f32 energy weights.
     Returns (state, flag, tops0, eq_count, since_burn,
              energies (window // energy_chunk, B) f32 chunk means,
              burn_any (B,) bool, burn_first (B,) i32,
-             swap_acc (B, Nc-1) i32 accepted swaps per rung pair).
+             swap_acc (B, Nc-1) i32 accepted swaps per rung pair), and with
+    ``track_traces`` also eq_trace (window, B) i32, the bottom rung's class
+    per step, and key_trace (window, B, 4) i32, its chain hash
+    sum_q v_q * c_q per component (``key_coefficients``).
 
     The device of ``state`` decides: CUDA launches the kernel (one launch
     per call, counted in ``ladder_window_counts.launches``), CPU runs
     ``ladder_window_reference`` (counted in ``plain_calls``); any other
-    device raises.  ``rng="zeros"`` makes every random draw 0 (parity
-    tests and the chip smoke check only)."""
-    if not (top_exact and equal_betas):
-        raise NotImplementedError(
-            "only top_exact=True with equal_betas=True is ported; the general "
-            "sweep and logical mix are ROADMAP.md queue 2 (K2 branches)"
-        )
+    device raises.  ``rng="zeros"`` makes every random draw 0 and an
+    integer ``rng`` makes every draw that 32-bit word (parity tests and the
+    chip smoke check only)."""
     if window % energy_chunk != 0:
         raise ValueError(
             f"window ({window}) must be divisible by energy_chunk ({energy_chunk})"
         )
-    if rng not in ("philox", "zeros"):
-        raise ValueError(f"rng={rng!r}: expected 'philox' or 'zeros'")
+    fixed = _fixed_word(rng)
+    if exchange not in ("sequential", "even_odd"):
+        raise ValueError(
+            f"exchange={exchange!r}: expected 'sequential' or 'even_odd'"
+        )
+    kernel_words(spec.nq)  # raises for codes beyond the largest instantiation
     kw = dict(window=window, iters=iters, p_logical=float(p_logical),
-              tops_burn=tops_burn, energy_chunk=energy_chunk)
+              tops_burn=tops_burn, energy_chunk=energy_chunk,
+              top_exact=top_exact, equal_betas=equal_betas, exchange=exchange,
+              track_traces=track_traces)
     device_tables = {}
 
     def fn(state, flag, tops0, eq_count, since_burn, seed, betas, weights):
@@ -571,7 +762,7 @@ def make_ladder_window(
             raise ValueError(f"state has {state.shape[1]} rungs, window {Nc}")
         if state.device.type == "cuda":
             return _launch(spec, state, flag, tops0, eq_count, since_burn,
-                           seed, betas, weights, zeros=(rng == "zeros"),
+                           seed, betas, weights, fixed=fixed,
                            device_tables=device_tables, **kw)
         if state.device.type == "cpu":
             ladder_window_counts.plain_calls += 1

@@ -46,10 +46,12 @@ from .ladder_window import (
     _draw_words,
     _plain_tables,
     kernel_tables,
+    kernel_words,
 )
 from .philox import MASK32
 
-# compile-time maximum of 64-bit words per bit plane (toric d=13: nq=338)
+# most 64-bit words per bit plane the kernel is built for (toric d=13:
+# nq=338); a code's count is ``kernel_words(nq)``
 MAX_WORDS = 6
 
 # the sweep wrapper's counts (every function ``make_sweep`` returns adds to it)
@@ -87,7 +89,7 @@ def sweep_reference(spec: CodeSpec, states: torch.Tensor, seed: int, betas,
     eps = torch.tensor(1e-12, dtype=f32, device=device)
     no_hit = torch.zeros((B, 1), dtype=torch.bool, device=device)
     slot4 = [4 * torch.arange(n * deg, device=device) for *_, n, deg in T.colors]
-    op_supp = [op.index_select(0, supp) for op, _, supp, *_ in T.colors]
+    op_supp = [op.index_select(0, supp) for op, _, _, supp, *_ in T.colors]
 
     S = torch.zeros((B, nq + 1), dtype=i64, device=device)
     S[:, :nq] = states
@@ -95,11 +97,11 @@ def sweep_reference(spec: CodeSpec, states: torch.Tensor, seed: int, betas,
     for t0 in range(0, n_sweeps, span):
         t1 = min(n_sweeps, t0 + span)
         if logu is None:
-            bits = _draw_words(k0, k1, t0, t1, B, 0, n_colors, n_blocks, False,
+            bits = _draw_words(k0, k1, t0, t1, B, 0, n_colors, n_blocks, None,
                                device) >> 8  # (t1 - t0, B, n_colors, 4 * n_blocks)
             lu_all = torch.log(bits.to(f32) * two_m24 + eps)
         for t in range(t0, t1):
-            for c, (op, dsupp, supp, owner, n, deg) in enumerate(T.colors):
+            for c, (op, dsupp, _, supp, owner, n, deg) in enumerate(T.colors):
                 if logu is None:
                     lu = lu_all[t - t0, :, c, :n]
                 else:
@@ -161,12 +163,13 @@ def _launch(spec: CodeSpec, states: torch.Tensor, seed: int, betas,
     B, nq = states.shape
     if nq != spec.nq:
         raise ValueError(f"states have {nq} qubits, spec {spec.nq}")
-    nw = -(-nq // 64)
-    if nw > MAX_WORDS:
+    need = -(-nq // 64)
+    if need > MAX_WORDS:
         raise NotImplementedError(
-            f"nq={nq} needs {nw} words per plane; the sweep kernel is built "
+            f"nq={nq} needs {need} words per plane; the sweep kernel is built "
             f"for at most {MAX_WORDS} (nq <= {64 * MAX_WORDS})"
         )
+    nw = kernel_words(nq)  # the word count of the shared tables
     _check(states, "states", (B, nq), torch.uint8, device)
     # a host array here would be a blocking copy per call: callers on the
     # hot path pass the betas as a tensor on the device

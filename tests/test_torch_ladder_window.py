@@ -11,6 +11,8 @@
     the CUDA kernel shares with the plain version.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -39,8 +41,23 @@ from mcmc_qec_tpu_torch.ops.philox import MASK32, philox4x32
 
 OUT_NAMES = ("state", "flag", "tops0", "eq_count", "since_burn", "energies",
              "burn_any", "burn_first", "swap_acc")
-# the only ported branch: zero top rung, equal per-Pauli betas
+# the production branch: zero top rung, equal per-Pauli betas (the other
+# branches: tests/test_torch_ladder_branches.py)
 PROD_BRANCH = dict(top_exact=True, equal_betas=True)
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Run torch on one thread: the plain window's large tensors otherwise
+    start a thread per core in every test worker, and the workers' spinning
+    threads oversubscribe the cores (a B=512 window test took 417 s instead
+    of about 15 s under the tier-1 command's six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def _ladder_inputs(jspec, B, Nc, seed):
@@ -153,11 +170,20 @@ def test_cpu_window_runs_plain_version_only():
     with pytest.raises(ValueError):
         make_ladder_window(spec, Nc, 8, 1, 0.5, 2, 4, **PROD_BRANCH,
                            rng="threefry")
-    # the general branches (biased / alpha ladders) are not ported
+    # the general branches (biased / alpha ladders) run the plain version
+    # too, with trace outputs on request
+    args = (torch.as_tensor(state), torch.as_tensor(flag),
+            torch.as_tensor(tops0), torch.as_tensor(eq_count),
+            torch.as_tensor(since), 9, beta_ladder_depolarizing(0.1, Nc),
+            np.ones(3, np.float32))
     for top_exact, equal_betas in ((False, True), (True, False)):
-        with pytest.raises(NotImplementedError):
-            make_ladder_window(spec, Nc, 8, 1, 0.5, 2, 4, top_exact=top_exact,
-                               equal_betas=equal_betas)
+        out = make_ladder_window(spec, Nc, 8, 1, 0.5, 2, 4, top_exact=top_exact,
+                                 equal_betas=equal_betas, track_traces=True,
+                                 exchange="even_odd")(*args)
+        assert len(out) == 11
+        assert out[9].shape == (8, B) and out[10].shape == (8, B, 4)
+    assert ladder_window_counts.launches == before[0]
+    assert ladder_window_counts.plain_calls == before[1] + 3
 
 
 def test_philox_window_matches_jax_sweep_window_in_distribution():
@@ -194,10 +220,11 @@ def test_philox_window_matches_jax_sweep_window_in_distribution():
     flag[:, -1] = 1
     ls = ladder_state_from_numpy(np.repeat(states[:, None], Nc, 1), flag,
                                  np.zeros(B, np.int32), "cpu")
-    st, fl, tp, eq, sb, en, ba, bf, sw = fn(
-        ls.state, ls.flag, ls.tops0, torch.zeros((B, K), dtype=torch.int32),
-        torch.zeros((B,), dtype=torch.int32), 11, betas, w,
-    )
+    with one_torch_thread():
+        st, fl, tp, eq, sb, en, ba, bf, sw = fn(
+            ls.state, ls.flag, ls.tops0, torch.zeros((B, K), dtype=torch.int32),
+            torch.zeros((B,), dtype=torch.int32), 11, betas, w,
+        )
     d_port = eq.sum(0).numpy() / max(int(sb.sum()), 1)
     tops_port = float(tp.float().mean())
     en_port = float(en[en.shape[0] // 2 :].mean())
@@ -254,7 +281,7 @@ def test_draw_layout():
     csrc/philox.cuh::DrawStream implements."""
     seed = (7 << 32) | 0x89ABCDEF
     k0, k1 = seed & MASK32, seed >> 32
-    words = _draw_words(k0, k1, 3, 5, 4, 10, 2, 3, False, "cpu")
+    words = _draw_words(k0, k1, 3, 5, 4, 10, 2, 3, None, "cpu")
     assert words.shape == (2, 4, 2, 12)
     for t, b, u, e in [(3, 0, 10, 0), (4, 3, 11, 7), (3, 2, 10, 11)]:
         want = _philox_int((e // 4, u, t, b), (k0, k1))[e % 4]
@@ -264,7 +291,8 @@ def test_draw_layout():
 def test_kernel_tables_cover_the_spec():
     """The kernel's packed tables: one (support, X op, Z op) triple per
     stabilizer, four planes per logical-draw position, two per class
-    bit, and the bits_to_eq map at the end of the metadata."""
+    bit, six per hash component (one per coefficient bit), and the
+    bits_to_eq map at the end of the metadata."""
     for family, d in (("toric", 5), ("planar", 3), ("xzzx", 3)):
         spec = spec_from_jax(jax_get_spec(family, d))
         tab, meta, offs = kernel_tables(spec)
@@ -272,6 +300,7 @@ def test_kernel_tables_cover_the_spec():
         assert offs["off_draw"] == 3 * nw * spec.n_stabs
         n_pos = sum(dr.x_masks.shape[0] for dr in spec.logical_draws)
         assert offs["off_class"] == offs["off_draw"] + 4 * nw * n_pos
-        assert offs["n_tab"] == len(tab) == offs["off_class"] + 2 * nw * spec.n_class_bits
+        assert offs["off_key"] == offs["off_class"] + 2 * nw * spec.n_class_bits
+        assert offs["n_tab"] == len(tab) == offs["off_key"] + 4 * 6 * nw
         np.testing.assert_array_equal(meta[offs["m_b2e"]:], spec.bits_to_eq)
         assert meta[offs["n_colors"]] == spec.n_stabs

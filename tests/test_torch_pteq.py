@@ -1,8 +1,8 @@
 """The port's depolarizing PTEQ decoder on the CPU (plain window version)
 against exact posteriors and the JAX decoder, plus the slice's contract:
 no kernel launches on the CPU, an explicit CUDA request fails here, the
-options still to port raise, and the package imports neither jax nor
-triton."""
+options still to port raise (and those ported since run), and the package
+imports neither jax nor triton."""
 
 import dataclasses
 import subprocess
@@ -97,25 +97,39 @@ def test_cuda_device_fails_without_a_card():
         PTEQ(spec, states, 0.05, PTEQConfig(max_steps=100, window=100))
 
 
-@pytest.mark.parametrize("change", [
-    dict(cfg=dict(engine="sweep")),
-    dict(cfg=dict(engine="literal")),
-    dict(cfg=dict(exchange="even_odd")),
-    dict(cfg=dict(ckpt_dir="ckpt")),
-    dict(run=dict(metrics=object())),
-    dict(run=dict(track_shortest=True)),
-    dict(ladder="biased"),
-])
-def test_options_not_ported_raise(change):
+def _run_with(change):
     spec = spec_from_jax(jax_get_spec("toric", 3))
     states = _depolarizing(spec, 0.05, 2, seed=1)
     ladder = np.stack([betas_depolarizing(p) for p in (0.05, 0.4, 0.75)])
     if change.get("ladder") == "biased":
         ladder = ladder * np.array([1.0, 1.0, 0.5])
     cfg = PTEQConfig(max_steps=100, window=100, **change.get("cfg", {}))
+    return pteq_run(spec, states, ladder, cfg, device="cpu",
+                    **change.get("run", {}))
+
+
+@pytest.mark.parametrize("change", [
+    dict(cfg=dict(engine="sweep")),
+    dict(cfg=dict(engine="literal")),
+    dict(cfg=dict(ckpt_dir="ckpt")),
+    dict(run=dict(metrics=object())),
+])
+def test_options_not_ported_raise(change):
     with pytest.raises(NotImplementedError):
-        pteq_run(spec, states, ladder, cfg, device="cpu",
-                 **change.get("run", {}))
+        _run_with(change)
+
+
+@pytest.mark.parametrize("change", [
+    dict(cfg=dict(exchange="even_odd")),
+    dict(run=dict(track_shortest=True, shortest_beta=1.0)),
+    dict(ladder="biased"),
+])
+def test_options_ported_since_run(change):
+    """The options the first slices refused (the even_odd exchange,
+    shortest tracking, ladders with unequal per-Pauli betas) now decode."""
+    res = _run_with(change)
+    assert res.distribution.shape == (2, 16)
+    assert (res.shortest_boltzmann is not None) == ("run" in change)
 
 
 def test_unknown_engine_and_exchange_are_errors():
