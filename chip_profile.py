@@ -14,9 +14,11 @@ d=5, B=1024, p=0.1, p_sampling=0.25, droplets=4, steps=450), and prints:
 3. one PTEQ decode under torch.profiler: host wall time, device busy time
    (the union of the device's kernel and copy intervals), busy share =
    busy / wall, and device time by kernel name;
-4. one window of the kernel at B=2048 for each syndromes-per-block choice;
-5. one window of the kernel for batches from 64 to 8192 at the default
-   syndromes per block;
+4. one window of the kernel against the lanes per rung (1, 2, 4, 8) at
+   the two main-path shapes: the production branch at toric d=5, Nc=5,
+   B=2048 (instantiation <1, 1, true>) and the general branch of the biased
+   path at xzzx d=13, Nc=13, B=512 (<3, 2, false>: alpha ladder, exact mix);
+5. one window of each against the batch, 64 to 8192, at the default lanes;
 6. syndromes/s of three STDC decodes in a row, and one STDC decode under
    torch.profiler (as in 3), split into its sampling loop and its
    reduction, each span ended by a device synchronise;
@@ -26,7 +28,9 @@ d=5, B=1024, p=0.1, p_sampling=0.25, droplets=4, steps=450), and prints:
    then under torch.profiler (as in 3), with the host's share of the
    window loop: the part of the wall time in which the device is idle.
 
-Window times are CUDA-event means over 5 launches after one warm-up.
+Window times are CUDA-event means over 3 launches after one warm-up, with
+the launch (lanes, threads and syndromes per block, resident warps per SM)
+beside each.
 Needs a CUDA device; imports no jax.
 """
 
@@ -45,15 +49,19 @@ import mcmc_qec_tpu_torch.ops.ladder_window as lw
 from chip_smoke import (
     BIASED_MAIN,
     PROD,
-    PROD_BRANCH,
     STDC_MAIN,
     _sync_time,
     _time_ms,
+    launch_line,
     phase_device,
     stdc_halves,
 )
 from mcmc_qec_tpu_torch.decoders import PTEQ, STDC, PTEQ_alpha, PTEQConfig
-from mcmc_qec_tpu_torch.mcmc.ladder import beta_ladder_depolarizing, init_ladder
+from mcmc_qec_tpu_torch.mcmc.ladder import (
+    beta_ladder_alpha,
+    beta_ladder_depolarizing,
+    init_ladder,
+)
 from mcmc_qec_tpu_torch.models import get_spec
 from mcmc_qec_tpu_torch.models.noise import (
     biased_alpha_equivalent,
@@ -110,19 +118,45 @@ def stdc_decode(spec, states):
         device="cuda"))
 
 
-def window_ms(spec, B, seed=5) -> float:
+# the window's two main-path shapes: (family, d, Nc, equal betas, batch)
+WINDOW_CELLS = {
+    "production": ("toric", 5, NC, True, B_MAIN),
+    "general": ("xzzx", BIASED_MAIN["d"], BIASED_MAIN["d"], False, BIASED_MAIN["B"]),
+}
+
+
+def window_ms(cell, B, lanes=None, seed=5):
+    """ms of one window of ``cell`` at batch ``B`` (the production window
+    settings), with ``lanes`` per rung or the default, and its launch."""
+    family, d, Nc, equal_betas, _ = WINDOW_CELLS[cell]
+    spec = get_spec(family, d)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    states = sample_depolarizing(gen, spec, P, (B,), device="cuda")
-    ls = init_ladder(spec, states, NC)
+    if equal_betas:
+        states = sample_depolarizing(gen, spec, P, (B,), device="cuda")
+        ladder, w = beta_ladder_depolarizing(P, Nc), np.ones(3, np.float32)
+    else:
+        m = BIASED_MAIN
+        pz_tilde, alpha = biased_alpha_equivalent(m["p"], m["eta"])
+        states = sample_xyz(gen, spec, *xyz_probs_from_biased(m["p"], m["eta"]),
+                            (B,), device="cuda")
+        ladder = beta_ladder_alpha(pz_tilde, alpha, Nc)
+        w = np.array([alpha, alpha, 1.0], np.float32)
+    ls = init_ladder(spec, states, Nc)
     eq = torch.zeros((B, spec.n_classes), dtype=torch.int32, device="cuda")
     sb = torch.zeros((B,), dtype=torch.int32, device="cuda")
-    betas = torch.as_tensor(beta_ladder_depolarizing(P, NC), dtype=torch.float32,
-                            device="cuda")
-    kern = lw.make_ladder_window(spec, NC, PROD["window"], PROD["iters"], 0.5, 2,
-                                 PROD["energy_chunk"], **PROD_BRANCH)
-    args = (ls.state, ls.flag, ls.tops0, eq, sb, 3, betas, np.ones(3, np.float32))
-    kern(*args)
-    return _time_ms(lambda: kern(*args), 5)
+    betas = torch.as_tensor(ladder, dtype=torch.float32, device="cuda")
+    default = lw.lanes_per_rung
+    try:
+        if lanes is not None:
+            lw.lanes_per_rung = lambda offs, Nc: lanes
+        kern = lw.make_ladder_window(spec, Nc, PROD["window"], PROD["iters"], 0.5,
+                                     2, PROD["energy_chunk"], top_exact=True,
+                                     equal_betas=equal_betas)
+        args = (ls.state, ls.flag, ls.tops0, eq, sb, 3, betas, w)
+        kern(*args)
+        return _time_ms(lambda: kern(*args), 3), launch_line(spec, B, Nc, equal_betas)
+    finally:
+        lw.lanes_per_rung = default
 
 
 def main() -> int:
@@ -137,18 +171,16 @@ def main() -> int:
               f"{list(res.buckets)}", flush=True)
     profile_decode(spec, states)
 
-    default_spb = lw._syndromes_per_block
-    try:
-        for spb in (1, 2, 4, 8, 16, 32):
-            lw._syndromes_per_block = lambda B, Nc, device, spb=spb: spb
-            print(f"B={B_MAIN} spb={spb:2d}: {window_ms(spec, B_MAIN):.3f} "
-                  f"ms/window", flush=True)
-    finally:
-        lw._syndromes_per_block = default_spb
-    for B in (64, 128, 256, 512, 1024, 2048, 4096, 8192):
-        spb = default_spb(B, NC, torch.device("cuda"))
-        print(f"B={B:5d} default spb={spb:2d}: {window_ms(spec, B):.3f} "
-              f"ms/window", flush=True)
+    for cell, (family, d, Nc, _, B) in WINDOW_CELLS.items():
+        for lanes in (1, 2, 4, 8):
+            ms, launch = window_ms(cell, B, lanes)
+            print(f"{cell} window {family} d={d} Nc={Nc} B={B} lanes={lanes}: "
+                  f"{ms:.3f} ms/window | {launch}", flush=True)
+    for cell, (family, d, Nc, _, _) in WINDOW_CELLS.items():
+        for B in (64, 128, 256, 512, 1024, 2048, 4096, 8192):
+            ms, launch = window_ms(cell, B)
+            print(f"{cell} window {family} d={d} Nc={Nc} B={B:5d} default "
+                  f"lanes: {ms:.3f} ms/window | {launch}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(2027)
     states = sample_depolarizing(gen, spec, STDC_MAIN["p"], (STDC_MAIN["B"],),

@@ -6,10 +6,13 @@ Builds both kernels from mcmc_qec_tpu_torch/csrc with nvcc (one process per
 source, started together), then drives each ported path and holds each
 kernel against its plain PyTorch version on the card:
 
-- K2, the PT window (csrc/ladder_window.cu): kernel vs plain version;
-  depolarizing PTEQ at production size through the kernel; the 64 cached
-  head-to-head syndromes against the executing reference; one window timed
-  against one of the plain version at the main path's shape, outputs equal.
+- K2, the PT window (csrc/ladder_window.cu): kernel vs plain version,
+  also with a ragged last block, at 1 to 32 lanes per rung and with
+  multi-warp groups; depolarizing PTEQ at production size through the
+  kernel; the 64 cached head-to-head syndromes against the executing
+  reference; one window timed against one of the plain version at the
+  main path's shape, outputs equal, with its launch (lanes, threads and
+  syndromes per block, resident warps per SM).
 - K1, the colored sweep (csrc/sweep.cu): kernel vs plain version (both
   acceptance branches, toric d=5 ragged, planar d=3, toric d=13); STDC at
   the shape of the repo's ``stdc_decoder_syndromes_per_sec_d5`` key through
@@ -18,7 +21,8 @@ kernel against its plain PyTorch version on the card:
   launch timed against the plain version at the main path's shape.
 - K2's other branches (general-beta sweep, Metropolis logical mix,
   even_odd exchange, traces): kernel vs plain version at 1, 3, 6 and 12
-  words per plane; PTEQ_alpha at one cell of the XZZX threshold study
+  words per plane, with the tables in device memory (toric d=19 at 25
+  rungs); PTEQ_alpha at one cell of the XZZX threshold study
   (xzzx d=13, eta=10, p=0.20) through the kernel against the JAX study's
   failure rate; biased, alpha and even_odd PTEQ and the shortest-chain
   decoder at d=3 against the exact posterior; one general-branch window
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -71,14 +76,17 @@ from mcmc_qec_tpu_torch.models.noise import (
     sample_xyz,
     xyz_probs_from_biased,
 )
+import mcmc_qec_tpu_torch.ops.ladder_window as lw
 from mcmc_qec_tpu_torch.ops import _build
 from mcmc_qec_tpu_torch.ops.dense_sweep import _color_tables
 from mcmc_qec_tpu_torch.ops.ladder_window import (
     _N_EXTRA_USES,
     _rng_layout,
+    kernel_tables,
     kernel_words,
     ladder_window_counts,
     ladder_window_reference,
+    launch_plan,
     make_ladder_window,
 )
 from mcmc_qec_tpu_torch.ops.sweep import make_sweep, sweep_counts, sweep_reference
@@ -132,8 +140,11 @@ H2H_STDC_PTEQ_MAX_TV = 0.15
 # Philox4x32-10 is 10 rounds of two mul.hi and two mul.lo (40 IMAD) per
 # block of four draws.  The precise logf of a proposal that may be rejected
 # depends on the data and is not counted, so the bound is a lower bound.
-# A proposal costs two 64-bit popcounts per word with equal betas and six
-# with general betas (the X, Y and Z counts, before and after).
+# The sweep kernel's proposal costs two 64-bit popcounts per word of the
+# plane with equal betas and six with general betas (the X, Y and Z counts,
+# before and after); the window kernel's only on the words the
+# stabilizer's support spans, two with equal betas and four with general
+# betas (``_window_popc_per_sweep``).
 HBM_BYTES_PER_S = 3.35e12
 POPC_PER_CLK_SM = 16
 IMAD_PER_CLK_SM = 64
@@ -169,12 +180,30 @@ def phase_build() -> None:
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         built = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     for name, b in built.items():
-        regs = [ln.strip() for ln in b.log.splitlines()
-                if "registers" in ln or "spill" in ln]
         how = f"{b.seconds:.1f} s" if b.seconds else "reused existing build"
-        print(f"phase 2 build: {name}.cu {how} | {' | '.join(regs)}",
+        print(f"phase 2 build: {name}.cu {how} | {' | '.join(ptxas_summary(b.log))}",
               flush=True)
         _build.load(name)
+
+
+def ptxas_summary(log: str):
+    """'kernel<a, ...>: N registers, S bytes spilled' per instantiation, from
+    nvcc's -Xptxas -v output."""
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '_ZN3mqt\d+(\w+?)I((?:L[ib]\d+E)+)E", ln)
+        if m:
+            args = [("true" if v == "1" else "false") if k == "b" else v
+                    for k, v in re.findall(r"L([ib])(\d+)E", m[2])]
+            name = f"{m[1]}<{', '.join(args)}>"
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            spill = m[1]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m[1]} registers, {spill} bytes spilled")
+            name = None
+    return out
 
 
 def _card_rates():
@@ -203,6 +232,35 @@ def _philox_blocks_per_sweep(spec) -> int:
     """Philox blocks one chain draws in one sweep (one per four stabilizers
     of each color)."""
     return sum(-(-sel.shape[0] // 4) for sel, _, _ in _color_tables(spec))
+
+
+def _window_popc_per_sweep(spec, equal_betas: bool) -> int:
+    """64-bit popcounts the window kernel's sweep of one chain needs: per
+    stabilizer and word its support spans (summed from the kernel's
+    spanned-word table), two with equal betas (the error count on the
+    support before and after) and four with general betas (the overlaps of
+    the op's X and Z parts with the planes, and the Y count before and
+    after)."""
+    _, meta, offs = kernel_tables(spec)
+    words = sum(len(lw.unpack_span(int(v))[0])
+                for v in meta[offs["m_span"]: offs["m_span"] + spec.n_stabs])
+    return (2 if equal_betas else 4) * words
+
+
+def launch_line(spec, B, Nc, equal_betas) -> str:
+    """The window launch at this shape: lanes per rung, threads and groups
+    per block, and the warps one SM holds (launched, and the occupancy
+    calculator's limit)."""
+    shape, resident = launch_plan(spec, B, Nc, PROD["iters"], equal_betas)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-B // shape.groups_per_block)
+    wpb = shape.threads // 32
+    held = min(resident, -(-blocks // n_sm))
+    return (f"L={shape.lanes} lanes per rung, {shape.warps_per_group} warp(s) "
+            f"per syndrome, {shape.threads} threads and "
+            f"{shape.groups_per_block} syndromes per block, {blocks} blocks, "
+            f"{held * wpb} warps per SM resident (up to {resident * wpb} "
+            f"by occupancy), {shape.smem} B shared memory per block")
 
 
 def _nbytes(*tensors) -> int:
@@ -269,9 +327,10 @@ def branch_ladder(branch, p, Nc):
 
 def compare_window(family, d, Nc, B, W, iters, C, p, rng, seed,
                    branch="equal-exact", exchange="sequential", traces=False,
-                   both_swaps=True):
+                   both_swaps=True, lanes=None):
     """Kernel vs plain version on the card, same inputs and draws; returns
-    the largest absolute difference over all outputs."""
+    the largest absolute difference over all outputs.  ``lanes`` overrides
+    the lanes per rung."""
     spec = get_spec(family, d)
     inputs = _ladder_inputs(spec, B, Nc, seed, "cuda")
     ladder, weights = branch_ladder(branch, p, Nc)
@@ -280,12 +339,20 @@ def compare_window(family, d, Nc, B, W, iters, C, p, rng, seed,
     top_exact, equal_betas = BRANCHES[branch]
     kw = dict(top_exact=top_exact, equal_betas=equal_betas, exchange=exchange,
               track_traces=traces)
-    kern = make_ladder_window(spec, Nc, W, iters, 0.5, 2, C, rng=rng,
-                              **kw)(*inputs, seed, betas, w)
+    default_lanes = lw.lanes_per_rung
+    try:
+        if lanes is not None:
+            lw.lanes_per_rung = lambda offs, Nc: lanes
+        kern = make_ladder_window(spec, Nc, W, iters, 0.5, 2, C, rng=rng,
+                                  **kw)(*inputs, seed, betas, w)
+        torch.cuda.synchronize()
+    finally:
+        lw.lanes_per_rung = default_lanes
     plain = ladder_window_reference(
         spec, *inputs, seed, betas, w, window=W, iters=iters, p_logical=0.5,
         tops_burn=2, energy_chunk=C, rng=rng, **kw)
-    tag = f"{family} d={d} {branch} {exchange} traces={traces} {rng}"
+    tag = (f"{family} d={d} Nc={Nc} B={B} {branch} {exchange} traces={traces} "
+           f"{rng} lanes={lanes or 'default'}")
     return compare_outputs(tag, kern, plain, W, both_swaps)
 
 
@@ -296,9 +363,19 @@ def phase_parity() -> float:
                                           rng, seed=1234))
     worst = max(worst, compare_window("planar", 3, 3, 256, 48, 2, 12, 0.01,
                                       "zeros", seed=99))
+    # B=263 leaves the last block one syndrome short (2 per block on 132
+    # SMs); every lane count; Nc=13 at L=4 makes two-warp groups with named
+    # barriers
+    for lanes in (None, 1, 2, 8, 32):
+        worst = max(worst, compare_window("toric", 5, 5, 263, 48, 2, 12, 0.15,
+                                          "philox", seed=1235, lanes=lanes))
+    worst = max(worst, compare_window("toric", 5, 13, 263, 48, 2, 12, 0.15,
+                                      "philox", seed=1236))
     print(f"phase 3 kernel vs plain on the card: toric d=5 Nc=5 B=256 W=48 "
-          f"(philox, zeros) and planar d=3 (zeros): all nine outputs equal, "
-          f"max abs err {worst}", flush=True)
+          f"(philox, zeros), planar d=3 (zeros), toric d=5 B=263 (ragged last "
+          f"block) at 4 (one warp per syndrome), 1, 2, 8 and 32 lanes per "
+          f"rung, and Nc=13 (two warps, named barriers): all nine outputs "
+          f"equal, max abs err {worst}", flush=True)
     return worst
 
 
@@ -404,19 +481,20 @@ def phase_timing():
     # the window's work: every proposal of every sweep on every rung, plus
     # the gate, logical-draw and exchange blocks of each (step, syndrome)
     W, iters = PROD["window"], PROD["iters"]
-    nw = -(-spec.nq // 64)
     proposals = B * Nc * W * iters * spec.n_stabs
     _, _, n_xblocks = _rng_layout(spec, Nc, iters)
     blocks = (B * Nc * W * iters * _philox_blocks_per_sweep(spec)
               + B * W * 3 * n_xblocks)
+    popc = B * Nc * W * iters * _window_popc_per_sweep(spec, True)
     bound, bound_by = bound_ms(
         _nbytes(ls.state, ls.flag, ls.tops0, eq, sb, betas, *kern_out),
-        2 * nw * proposals, blocks)
+        popc, blocks)
     print(f"phase 6 one window toric d=5 B={B} Nc={Nc} W=600 iters=2 C=12: "
           f"kernel {ms:.3f} ms, plain version {plain_ms:.1f} ms "
           f"({plain_ms / ms:.1f}x); all nine outputs equal, max abs err {err}; "
-          f"bound {bound:.4f} ms ({bound_by}; {proposals} proposals, "
-          f"{blocks} Philox blocks)", flush=True)
+          f"bound {bound:.4f} ms ({bound_by}; {proposals} proposals, {popc} "
+          f"64-bit popcounts, {blocks} Philox blocks); launch: "
+          f"{launch_line(spec, B, Nc, True)}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
                 bound_by=bound_by)
 
@@ -630,12 +708,24 @@ def phase_branch_parity() -> float:
                 family, d, d, B, W, 2, 4, 0.15, "philox", 400 + i, branch,
                 exchange, traces=i % 2 == 0))
             n += 1
+    # xzzx d=13's four-warp groups with a ragged last block (B=263: 2 per
+    # block), and toric d=19 with 25 rungs, whose tables leave no room for
+    # the group and are read from device memory
+    for i, (branch, exchange) in enumerate(COMBOS[:2]):
+        worst = max(worst, compare_window(
+            "xzzx", 13, 13, 263, 24, 2, 4, 0.15, "philox", 510 + i, branch,
+            exchange, traces=i % 2 == 1))
+        worst = max(worst, compare_window(
+            "toric", 19, 25, 16, 8, 2, 4, 0.15, "philox", 520 + i, branch,
+            exchange, traces=i % 2 == 0))
+        n += 2
     print(f"phase 11 window kernel vs plain, other branches: {n} cases "
           f"(general/exact, general/Metropolis and equal/exact mix x "
           f"sequential and even_odd exchange; xzzx d=5 Philox and zeros, "
           f"xzzx d=13, toric d=13, toric d=19 Philox; words per plane "
-          f"1/3/6/12): all outputs equal, traces included, max abs err "
-          f"{worst}", flush=True)
+          f"1/3/6/12; xzzx d=13 B=263 ragged; toric d=19 Nc=25, its tables "
+          f"in device memory): all outputs equal, traces included, max abs "
+          f"err {worst}", flush=True)
     return worst
 
 
@@ -828,14 +918,20 @@ def phase_general_timing():
     _, _, n_xblocks = _rng_layout(spec, Nc, iters)
     blocks = (B * Nc * W * iters * _philox_blocks_per_sweep(spec)
               + B * W * (_N_EXTRA_USES - 1) * n_xblocks)
-    bound, bound_by = bound_ms(_nbytes(*args[:5], betas, *kern_out),
-                               6 * nw * proposals, blocks)
+    popc = B * Nc * W * iters * _window_popc_per_sweep(spec, False)
+    n_bytes = _nbytes(*args[:5], betas, *kern_out)
+    bound, bound_by = bound_ms(n_bytes, popc, blocks)
+    # the count before the kernel took only spanned words: 6 popcounts on
+    # every word of the plane
+    dense, _ = bound_ms(n_bytes, 6 * nw * proposals, blocks)
     print(f"phase 14 one general-branch window xzzx d={m['d']} B={B} Nc={Nc} "
           f"W={W} iters={iters} C={C} (alpha ladder, exact mix): kernel "
           f"{ms:.3f} ms, plain version {plain_ms:.1f} ms ({plain_ms / ms:.1f}x); "
           f"all outputs equal, max abs err {err}; bound {bound:.4f} ms "
-          f"({bound_by}; {proposals} proposals at {nw} words, 6 popcounts per "
-          f"word, {blocks} Philox blocks)", flush=True)
+          f"({bound_by}; {proposals} proposals, {popc} 64-bit popcounts on "
+          f"the spanned words, {blocks} Philox blocks; {dense:.4f} ms counting "
+          f"6 popcounts on each of {nw} words); launch: "
+          f"{launch_line(spec, B, Nc, False)}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
                 bound_by=bound_by)
 

@@ -1,7 +1,7 @@
 // One color of a conflict-free colored Metropolis sweep on one chain held
 // as NW-word X/Z bit planes (bit q of X[q / 64] is the X component of
-// qubit q).  Shared by the ladder-window kernel and the standalone sweep
-// kernel sweep.cu, both in both acceptance forms.
+// qubit q).  The sweep kernel sweep.cu's, in both acceptance forms (the
+// window kernel decides a color across lanes instead: ladder_window.cu).
 #pragma once
 
 #include <cstdint>

@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -60,11 +60,17 @@ from ..models.base import CodeSpec
 from .dense_sweep import _color_tables
 from .philox import MASK32, philox4x32
 
-# 64-bit words per bit plane the kernel is instantiated for (a code's word
-# count is rounded up to the next; the extra words stay zero)
+# 64-bit words per bit plane of the kernels' tables (a code's word count is
+# rounded up to the next; the extra words stay zero)
 KERNEL_WORDS = (1, 2, 3, 4, 6, 8, 12)
-# syndromes per block ceiling
-MAX_SPB = 32
+# (words per plane, spanned-word entries per stabilizer) the window kernel is
+# instantiated for (csrc/ladder_window.cu::dispatch): a stabilizer spanning
+# 3 words is padded to 4 entries
+KERNEL_SHAPES = ((1, 1), (2, 2), (3, 2), (3, 4), (4, 4), (6, 4), (8, 4), (12, 4))
+# threads per block of the window kernel (csrc/ladder_window.cu::kMaxThreads)
+MAX_THREADS = 512
+# named barriers a block has for multi-warp groups (id 0 is __syncthreads)
+MAX_NAMED_BARRIERS = 15
 # dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
 # bound on Philox blocks materialised at once by the plain version
@@ -457,10 +463,12 @@ class _Params(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int32) for n in (
         "B", "Nc", "nq", "nw", "K", "n_bits", "n_colors", "n_draws",
-        "window", "iters", "tops_burn", "energy_chunk", "fixed", "spb",
-        "n_tab", "n_meta", "off_draw", "off_class", "off_key", "m_draw",
-        "m_lut", "m_b2e", "equal_betas", "top_exact", "even_odd", "traces",
-        "tab_in_smem",
+        "window", "iters", "tops_burn", "energy_chunk", "fixed", "span",
+        "lanes", "lane_shift", "warps_per_group", "groups_per_block",
+        "n_tab", "n_meta", "off_class", "off_key", "off_span",
+        "m_draw", "m_lut", "m_b2e", "m_span", "m_blk", "m_bcol", "n_blk",
+        "equal_betas", "top_exact", "even_odd", "traces", "tab_in_smem",
+        "smem",
     )] + [(n, ctypes.c_float) for n in (
         "p_logical", "w0", "w1", "w2", "inv_chunk",
     )] + [(n, ctypes.c_uint32) for n in ("key0", "key1", "fixed_word")]
@@ -489,13 +497,6 @@ def kernel_words(nq: int) -> int:
     )
 
 
-def max_threads(nw: int) -> int:
-    """Threads per block the kernel is bounded to at ``nw`` words per plane
-    (csrc/ladder_window.cu::kMaxThreads): fewer threads leave each more
-    registers for its planes."""
-    return 1024 if nw <= 2 else 512 if nw <= 4 else 256
-
-
 def _words(mask: np.ndarray, nw: int) -> np.ndarray:
     """(nq,) 0/1 mask -> (nw,) uint64 bit words (bit q of word q // 64)."""
     out = np.zeros(nw, np.uint64)
@@ -510,24 +511,52 @@ def _xz(m: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return (m & 1) ^ ((m >> 1) & 1), (m >> 1) & 1
 
 
+def _pack_span(words, cx: int, cz: int) -> int:
+    """A stabilizer's entry in the spanned-word table: the count of words
+    its support spans (bits 0-3), the qubits its op flips in the X plane
+    (bits 4-7) and in the Z plane (bits 8-11), and the word indices (4
+    bits each from bit 12)."""
+    v = len(words) | (cx << 4) | (cz << 8)
+    for m, w in enumerate(words):
+        v |= w << (12 + 4 * m)
+    return v
+
+
+def unpack_span(v: int):
+    """(word indices, cx, cz) of a packed spanned-word entry."""
+    n = v & 15
+    return [(v >> (12 + 4 * m)) & 15 for m in range(n)], (v >> 4) & 15, (v >> 8) & 15
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_tables(spec: CodeSpec):
-    """(u64 table, int32 meta, offsets) the kernel reads: per stabilizer
-    (ordered by color) its support and op X/Z masks; per logical-draw
-    position the X/Z planes of its x- and z-mask; per class bit its A/B
-    masks; per hash component and coefficient bit the qubits whose
-    coefficient has that bit; color starts, draw starts, op LUT and
-    bits_to_eq."""
+    """(u64 table, int32 meta, offsets) the kernels read: per stabilizer
+    (ordered by color) its support and op X/Z masks over all words (the
+    sweep kernel's); per logical-draw position the X/Z planes of its x- and
+    z-mask; per class bit its A/B masks; per hash component and coefficient
+    bit the qubits whose coefficient has that bit; per stabilizer its
+    support and op X/Z masks on only the words its support spans, ``span``
+    triples each (zero-padded).  Meta: color starts, draw starts, op LUT,
+    per stabilizer its packed spanned words (``unpack_span``), per color
+    its first Philox block of a sweep use's draws (one block per four
+    stabilizers), per such block its color, and bits_to_eq last.  The
+    window kernel reads the table from ``off_draw`` on."""
     nq = spec.nq
     nw = kernel_words(nq)
     tab, meta = [], []
     color_start = [0]
+    spans = []  # per stabilizer: [(word, support, X op, Z op)], cx, cz
     for sel, xop, zop in _color_tables(spec):
         for row in sel:
             on = row.astype(bool)
-            tab += [_words(on, nw), _words(on & (xop > 0), nw),
-                    _words(on & (zop > 0), nw)]
+            dense = (_words(on, nw), _words(on & (xop > 0), nw),
+                     _words(on & (zop > 0), nw))
+            tab += list(dense)
+            spans.append(([(w, dense[0][w], dense[1][w], dense[2][w])
+                           for w in range(nw) if dense[0][w]],
+                          int((on & (xop > 0)).sum()), int((on & (zop > 0)).sum())))
         color_start.append(color_start[-1] + sel.shape[0])
+    n_per_color = np.diff(color_start)
     off_draw = len(tab) * nw
     draw_start = [0]
     for d in spec.logical_draws:
@@ -541,58 +570,120 @@ def kernel_tables(spec: CodeSpec):
     off_key = len(tab) * nw
     for coef in key_coefficients(nq):
         tab += [_words((coef >> k) & 1, nw) for k in range(_KEY_BITS)]
+    off_span = len(tab) * nw
+    span = max(len(s) for s, _, _ in spans)
+    span += span == 3  # the kernel's entry counts are 1, 2 and 4
+    for s, _, _ in spans:
+        ent = np.zeros(3 * span, np.uint64)
+        for m, (_, su, xs, zs) in enumerate(s):
+            ent[3 * m: 3 * m + 3] = (su, xs, zs)
+        tab.append(ent)
     meta += color_start
     m_draw = len(meta)
     meta += draw_start
     m_lut = len(meta)
     for d in spec.logical_draws:
         meta += [int(v) for v in np.asarray(d.op_lut).reshape(-1)]
+    m_span = len(meta)
+    meta += [_pack_span([w for w, *_ in s], cx, cz) for s, cx, cz in spans]
+    m_blk = len(meta)
+    blk = np.concatenate([[0], np.cumsum(-(-n_per_color // 4))])
+    meta += [int(v) for v in blk]
+    m_bcol = len(meta)
+    meta += [c for c, n in enumerate(np.diff(blk)) for _ in range(n)]
     m_b2e = len(meta)
     meta += [int(v) for v in spec.bits_to_eq]
     tab_np = np.concatenate(tab).view(np.int64)
     meta_np = np.asarray(meta, np.int32)
     offs = dict(n_tab=len(tab_np), n_meta=len(meta_np), off_draw=off_draw,
-                off_class=off_class, off_key=off_key, m_draw=m_draw,
-                m_lut=m_lut, m_b2e=m_b2e, n_colors=len(color_start) - 1,
+                off_class=off_class, off_key=off_key, off_span=off_span,
+                span=span, m_draw=m_draw, m_lut=m_lut, m_span=m_span,
+                m_blk=m_blk, m_bcol=m_bcol, n_blk=int(blk[-1]), m_b2e=m_b2e,
+                n_colors=len(color_start) - 1, w_max=int(n_per_color.max()),
                 nw=nw)
     return tab_np, meta_np, offs
 
 
-def smem_bytes(offs, Nc: int, K: int, spb: int, equal_betas: bool,
-               tab_in_smem: bool) -> int:
-    """Dynamic shared memory of one block (csrc/ladder_window.cu::Smem)."""
-    slots = spb * Nc
+def window_table_words(offs) -> int:
+    """64-bit words of the table the window kernel reads (from
+    ``off_draw`` on: the sweep kernel's dense stabilizer masks stay out)."""
+    return offs["n_tab"] - offs["off_draw"]
+
+
+def group_bytes(offs, Nc: int, K: int, equal_betas: bool, iters: int,
+                n_draws: int) -> int:
+    """Shared memory of one syndrome's group
+    (csrc/ladder_window.cu::Layout): its Nc chains published for the
+    exchange, twice (by step parity), the step's log-uniforms of every
+    sweep and its other draws, and the per-rung permutation, flag and
+    counts, swap counts and class histogram, rounded up to 8 bytes."""
     n_cnt = 1 if equal_betas else 3
-    return (8 * offs["n_tab"] * int(tab_in_smem)
-            + 8 * 2 * slots * 2 * offs["nw"]
-            + 4 * offs["n_meta"] + 4 * 3 * Nc
-            + 4 * 2 * slots * n_cnt + 4 * 2 * slots + 4 * slots
-            + 4 * spb * (Nc - 1) + 4 * spb * K)
+    n4 = (iters * Nc * 4 * offs["n_blk"] + (Nc - 1) + 2 * iters
+          + 3 * iters * n_draws + 2 * Nc + Nc * n_cnt + (Nc - 1) + K)
+    return -(-(8 * 2 * Nc * 2 * offs["nw"] + 4 * n4) // 8) * 8
 
 
-def block_shape(offs, Nc: int, K: int, spb: int, equal_betas: bool):
-    """(syndromes per block, tables in shared memory?) for a wanted ``spb``:
-    at most the thread bound and what shared memory holds.  The tables go
-    to shared memory when one syndrome's ladder fits beside them, else the
-    kernel reads them from device memory (toric d=19: 208 KB of
-    stabilizer masks)."""
-    fit = lambda s, tab: smem_bytes(offs, Nc, K, s, equal_betas, tab) <= SMEM_LIMIT
-    tab_in_smem = fit(1, True)
-    spb = max(1, min(spb, max_threads(offs["nw"]) // Nc))
-    while spb > 1 and not fit(spb, tab_in_smem):
-        spb -= 1
-    if not fit(spb, tab_in_smem):
+def smem_bytes(offs, Nc: int, K: int, groups: int, equal_betas: bool,
+               iters: int, n_draws: int, tab_in_smem: bool) -> int:
+    """Dynamic shared memory of one block of ``groups`` groups
+    (csrc/ladder_window.cu::Layout)."""
+    return (8 * window_table_words(offs) * int(tab_in_smem)
+            + groups * group_bytes(offs, Nc, K, equal_betas, iters, n_draws)
+            + 4 * offs["n_meta"] + 4 * 3 * Nc)
+
+
+def lanes_per_rung(offs, Nc: int) -> int:
+    """Lanes that split a rung's proposals: a power of two, about one lane
+    per four stabilizers of the widest color, at most 8 (toric d=5: 4, so
+    a syndrome's five rungs fit one warp; xzzx d=13: 8)."""
+    want = min(8, -(-offs["w_max"] // 4))
+    return 1 << max(0, want - 1).bit_length()
+
+
+class BlockShape(NamedTuple):
+    lanes: int  # lanes per rung
+    warps_per_group: int  # warps of one syndrome's group
+    groups_per_block: int
+    threads: int  # threads per block
+    tab_in_smem: bool  # tables in shared memory (else device memory)
+    smem: int  # dynamic shared memory per block, bytes
+
+
+def block_shape(offs, Nc: int, K: int, B: int, n_sm: int, equal_betas: bool,
+                iters: int, n_draws: int) -> BlockShape:
+    """The launch of one window: ``lanes_per_rung`` lanes per rung, a
+    syndrome's Nc * lanes threads padded to whole warps, and
+    groups per block spread so that the batch covers about every SM once,
+    within the thread bound, the named barriers of multi-warp groups and
+    227 KB of shared memory.  The tables go to shared memory when one
+    group fits beside them, else the kernel reads them from device memory
+    (toric d=19: 85 KB of tables fit beside a 19-rung group of 125 KB, not
+    beside a 25-rung one)."""
+    L = lanes_per_rung(offs, Nc)
+    if L & (L - 1) or not 1 <= L <= 32:
+        raise ValueError(f"lanes={L}: expected a power of two up to 32")
+    wpg = -(-Nc * L // 32)
+    cap = MAX_THREADS // (32 * wpg)
+    if wpg > 1:
+        cap = min(cap, MAX_NAMED_BARRIERS)
+    if cap < 1:
+        raise ValueError(f"Nc={Nc} x lanes={L} exceeds {MAX_THREADS} threads")
+    smem = functools.partial(smem_bytes, offs, Nc, K, equal_betas=equal_betas,
+                             iters=iters, n_draws=n_draws)
+    tab_in_smem = smem(1, tab_in_smem=True) <= SMEM_LIMIT
+    gpb = max(1, min(cap, -(-B // n_sm)))
+    while gpb > 1 and smem(gpb, tab_in_smem=tab_in_smem) > SMEM_LIMIT:
+        gpb -= 1
+    if smem(gpb, tab_in_smem=tab_in_smem) > SMEM_LIMIT:
         raise ValueError(f"one syndrome's ladder (Nc={Nc}, {offs['nw']} words "
                          f"per plane) does not fit in shared memory")
-    return spb, tab_in_smem
+    return BlockShape(L, wpg, gpb, 32 * wpg * gpb, tab_in_smem,
+                      smem(gpb, tab_in_smem=tab_in_smem))
 
 
-def _syndromes_per_block(B: int, Nc: int, device: torch.device) -> int:
-    """Spread the batch over about one block per SM: the window is
-    latency-bound, so thin blocks on every SM beat full ones on a few."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    cap = max(1, min(MAX_SPB, 1024 // Nc))
-    return max(1, min(cap, -(-B // n_sm)))
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
@@ -618,6 +709,51 @@ def _kernel_entry():
     return fn
 
 
+def _layout_fields(spec: CodeSpec, B: int, Nc: int, iters: int,
+                   equal_betas: bool, device: torch.device):
+    """(BlockShape, the ``_Params`` fields that set the kernel's shape and
+    shared-memory layout) of a window launch on ``device``."""
+    _, _, offs = kernel_tables(spec)
+    K, n_draws = spec.n_classes, len(spec.logical_draws)
+    shape = block_shape(offs, Nc, K, B, _sm_count(device), equal_betas, iters,
+                        n_draws)
+    base = offs["off_draw"]  # the window kernel's table starts there
+    return shape, dict(
+        B=B, Nc=Nc, nq=spec.nq, nw=offs["nw"], K=K, n_bits=spec.n_class_bits,
+        n_colors=offs["n_colors"], n_draws=n_draws, iters=iters,
+        span=offs["span"], lanes=shape.lanes,
+        lane_shift=shape.lanes.bit_length() - 1,
+        warps_per_group=shape.warps_per_group,
+        groups_per_block=shape.groups_per_block,
+        n_tab=window_table_words(offs), n_meta=offs["n_meta"],
+        off_class=offs["off_class"] - base, off_key=offs["off_key"] - base,
+        off_span=offs["off_span"] - base, m_draw=offs["m_draw"],
+        m_lut=offs["m_lut"], m_b2e=offs["m_b2e"], m_span=offs["m_span"],
+        m_blk=offs["m_blk"], m_bcol=offs["m_bcol"], n_blk=offs["n_blk"],
+        equal_betas=int(equal_betas), tab_in_smem=int(shape.tab_in_smem),
+        smem=shape.smem,
+    )
+
+
+def launch_plan(spec: CodeSpec, B: int, Nc: int, iters: int,
+                equal_betas: bool, device="cuda"):
+    """(BlockShape, blocks of it one SM holds at once) of a window launch
+    at this shape on a CUDA ``device``: the occupancy calculator's answer
+    for the built kernel's registers, threads and shared memory."""
+    from . import _build
+
+    device = torch.device(device)
+    shape, layout = _layout_fields(spec, B, Nc, iters, equal_betas, device)
+    fn = _build.load("ladder_window").mqt_ladder_window_resident_blocks
+    fn.argtypes = [ctypes.POINTER(_Params)]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        n = fn(ctypes.byref(_Params(**layout)))
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed for {shape}")
+    return shape, n
+
+
 def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
             weights, *, window, iters, p_logical, tops_burn, energy_chunk,
             top_exact, equal_betas, exchange, track_traces, fixed,
@@ -640,7 +776,7 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
     tab_np, meta_np, offs = kernel_tables(spec)
     if device not in device_tables:
         device_tables[device] = (
-            torch.as_tensor(tab_np, device=device),
+            torch.as_tensor(tab_np[offs["off_draw"]:], device=device),
             torch.as_tensor(meta_np, device=device),
         )
     tab, meta = device_tables[device]
@@ -660,21 +796,12 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
         )
     if B == 0:
         return out
-    spb, tab_in_smem = block_shape(offs, Nc, K,
-                                   _syndromes_per_block(B, Nc, device),
-                                   equal_betas)
+    shape, layout = _layout_fields(spec, B, Nc, iters, equal_betas, device)
     P = _Params(
-        B=B, Nc=Nc, nq=nq, nw=offs["nw"], K=K, n_bits=spec.n_class_bits,
-        n_colors=offs["n_colors"], n_draws=len(spec.logical_draws),
-        window=window, iters=iters, tops_burn=tops_burn,
-        energy_chunk=energy_chunk, fixed=int(fixed is not None), spb=spb,
-        n_tab=offs["n_tab"], n_meta=offs["n_meta"], off_draw=offs["off_draw"],
-        off_class=offs["off_class"], off_key=offs["off_key"],
-        m_draw=offs["m_draw"], m_lut=offs["m_lut"], m_b2e=offs["m_b2e"],
-        equal_betas=int(equal_betas), top_exact=int(top_exact),
-        even_odd=int(exchange == "even_odd"), traces=int(track_traces),
-        tab_in_smem=int(tab_in_smem),
-        p_logical=p_logical, w0=w[0], w1=w[1], w2=w[2],
+        **layout, window=window, tops_burn=tops_burn,
+        energy_chunk=energy_chunk, fixed=int(fixed is not None),
+        top_exact=int(top_exact), even_odd=int(exchange == "even_odd"),
+        traces=int(track_traces), p_logical=p_logical, w0=w[0], w1=w[1], w2=w[2],
         inv_chunk=float(np.float32(1.0 / energy_chunk)),
         key0=int(seed) & MASK32, key1=(int(seed) >> 32) & MASK32,
         fixed_word=fixed or 0,
@@ -692,7 +819,7 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
     if err != 0:
         raise RuntimeError(
             f"ladder_window kernel launch failed: cudaError {err} "
-            f"(B={B}, Nc={Nc}, nq={nq}, nw={offs['nw']}, spb={spb})"
+            f"(B={B}, Nc={Nc}, nq={nq}, nw={offs['nw']}, {shape})"
         )
     ladder_window_counts.launches += 1
     return out
@@ -750,7 +877,10 @@ def make_ladder_window(
         raise ValueError(
             f"exchange={exchange!r}: expected 'sequential' or 'even_odd'"
         )
-    kernel_words(spec.nq)  # raises for codes beyond the largest instantiation
+    offs = kernel_tables(spec)[2]  # raises for codes beyond the largest plane
+    if (offs["nw"], offs["span"]) not in KERNEL_SHAPES:
+        raise ValueError(f"no window kernel for {offs['nw']} words per plane "
+                         f"and {offs['span']} spanned words per stabilizer")
     kw = dict(window=window, iters=iters, p_logical=float(p_logical),
               tops_burn=tops_burn, energy_chunk=energy_chunk,
               top_exact=top_exact, equal_betas=equal_betas, exchange=exchange,

@@ -12,8 +12,8 @@
     untouched) and the same word in the port (``rng=<int>``), the mix
     proposes a real logical; the top ladder's betas are large enough that
     it both accepts and rejects, and every output must still be equal.
-(c) The kernel's launch shape: words per plane, threads per block and the
-    shared-memory-aware syndromes per block.
+(c) The kernel's launch shape: words per plane, lanes per rung, warps per
+    syndrome and the shared-memory-aware syndromes per block.
 """
 
 import numpy as np
@@ -164,34 +164,49 @@ def test_fixed_word_draws_and_rng_validation():
             lw.make_ladder_window(spec, 3, 8, 1, 0.5, 2, 4, rng=bad)
 
 
-@pytest.mark.parametrize("family,d,nw,threads", [
-    ("toric", 3, 1, 1024), ("toric", 5, 1, 1024), ("xzzx", 13, 3, 512),
-    ("toric", 9, 3, 512), ("toric", 13, 6, 256), ("toric", 17, 12, 256),
-    ("toric", 19, 12, 256),
+@pytest.mark.parametrize("family,d,nw,lanes", [
+    ("toric", 3, 1, 1), ("toric", 5, 1, 4), ("xzzx", 13, 3, 8),
+    ("toric", 9, 3, 8), ("toric", 13, 6, 8), ("toric", 17, 12, 8),
+    ("toric", 19, 12, 8),
 ])
-def test_kernel_words_and_threads(family, d, nw, threads):
+def test_kernel_words_and_threads(family, d, nw, lanes):
+    """Words per plane, lanes per rung (about one per four stabilizers of
+    the widest color, at most 8), and a group of Nc * lanes threads padded
+    to whole warps within the block's thread bound."""
     spec = get_spec(family, d)
     assert lw.kernel_words(spec.nq) == nw
-    assert lw.max_threads(nw) == threads
     _, _, offs = lw.kernel_tables(spec)
     assert offs["nw"] == nw
+    assert lw.lanes_per_rung(offs, d) == lanes
+    shape = lw.block_shape(offs, d, spec.n_classes, 2048, 132, True, 2,
+                           len(spec.logical_draws))
+    assert shape.lanes == lanes
+    assert shape.warps_per_group == -(-d * lanes // 32)
+    assert shape.threads == 32 * shape.warps_per_group * shape.groups_per_block
+    assert shape.threads <= lw.MAX_THREADS
 
 
 def test_block_shape_fits_shared_memory():
-    """Syndromes per block stay within the thread bound and 227 KB of
-    shared memory; toric d=19's 208 KB of stabilizer masks leave no room
-    for a ladder, so its tables are read from device memory."""
+    """Groups per block stay within the thread bound, the named barriers
+    and 227 KB of shared memory; toric d=19's 85 KB of tables fit beside
+    a 19-rung group but leave no room for a 25-rung one, whose tables are
+    then read from device memory."""
     for family, d, Nc, want_tab in (("toric", 5, 5, True), ("xzzx", 13, 13, True),
-                                    ("toric", 13, 13, True), ("toric", 19, 19, False)):
+                                    ("toric", 13, 13, True), ("toric", 19, 19, True),
+                                    ("toric", 19, 25, False)):
         spec = get_spec(family, d)
         _, _, offs = lw.kernel_tables(spec)
+        nd = len(spec.logical_draws)
         for eq in (True, False):
-            spb, tab_in_smem = lw.block_shape(offs, Nc, spec.n_classes, 32, eq)
-            assert tab_in_smem == want_tab, (family, d)
-            assert 1 <= spb and spb * Nc <= lw.max_threads(offs["nw"])
-            assert lw.smem_bytes(offs, Nc, spec.n_classes, spb, eq,
-                                 tab_in_smem) <= lw.SMEM_LIMIT
-    # a wanted 32 at toric d=5 stays 32 (160 threads, a few KB)
-    offs = lw.kernel_tables(get_spec("toric", 5))[2]
-    assert lw.block_shape(offs, 5, 16, 32, True) == (32, True)
+            shape = lw.block_shape(offs, Nc, spec.n_classes, 2048, 132, eq, 2, nd)
+            assert shape.tab_in_smem == want_tab, (family, d)
+            assert 1 <= shape.groups_per_block and shape.threads <= lw.MAX_THREADS
+            assert shape.smem == lw.smem_bytes(
+                offs, Nc, spec.n_classes, shape.groups_per_block,
+                eq, 2, nd, want_tab) <= lw.SMEM_LIMIT
+    # the production shape: one warp per syndrome, 16 syndromes per block
+    spec = get_spec("toric", 5)
+    offs = lw.kernel_tables(spec)[2]
+    shape = lw.block_shape(offs, 5, 16, 2048, 132, True, 2, 2)
+    assert shape[:5] == (4, 1, 16, 512, True)
 

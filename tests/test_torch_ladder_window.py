@@ -289,10 +289,11 @@ def test_draw_layout():
 
 
 def test_kernel_tables_cover_the_spec():
-    """The kernel's packed tables: one (support, X op, Z op) triple per
+    """The kernels' packed tables: one (support, X op, Z op) triple per
     stabilizer, four planes per logical-draw position, two per class
-    bit, six per hash component (one per coefficient bit), and the
-    bits_to_eq map at the end of the metadata."""
+    bit, six per hash component (one per coefficient bit), ``span``
+    one-word triples per stabilizer on the words its support spans, and
+    the bits_to_eq map at the end of the metadata."""
     for family, d in (("toric", 5), ("planar", 3), ("xzzx", 3)):
         spec = spec_from_jax(jax_get_spec(family, d))
         tab, meta, offs = kernel_tables(spec)
@@ -301,6 +302,8 @@ def test_kernel_tables_cover_the_spec():
         n_pos = sum(dr.x_masks.shape[0] for dr in spec.logical_draws)
         assert offs["off_class"] == offs["off_draw"] + 4 * nw * n_pos
         assert offs["off_key"] == offs["off_class"] + 2 * nw * spec.n_class_bits
-        assert offs["n_tab"] == len(tab) == offs["off_key"] + 4 * 6 * nw
+        assert offs["off_span"] == offs["off_key"] + 4 * 6 * nw
+        assert offs["n_tab"] == len(tab) == (
+            offs["off_span"] + 3 * offs["span"] * spec.n_stabs)
         np.testing.assert_array_equal(meta[offs["m_b2e"]:], spec.bits_to_eq)
         assert meta[offs["n_colors"]] == spec.n_stabs
