@@ -21,16 +21,19 @@ d=5, B=1024, p=0.1, p_sampling=0.25, droplets=4, steps=450), and prints:
 5. one window of each against the batch, 64 to 8192, at the default lanes;
 6. syndromes/s of three STDC decodes in a row, and one STDC decode under
    torch.profiler (as in 3), split into its sampling loop and its
-   reduction, each span ended by a device synchronise;
+   reduction, each span ended by a device synchronise; then one launch of
+   the recording sampler (450 steps) against the lanes per chain (1, 2, 4,
+   8) at the main path's 65,536 chains and at 2,048, and against the batch
+   (2,048 to 65,536 chains) at the plan's lanes, with its launch;
 7. one PTEQ_alpha decode at the biased path's shape (xzzx d=13, Nc=13,
    B=512, eta=10, p=0.20 as its alpha equivalent, max_steps=32955, the
    production window settings; chip_smoke.py phase 12) unprofiled and
    then under torch.profiler (as in 3), with the host's share of the
    window loop: the part of the wall time in which the device is idle.
 
-Window times are CUDA-event means over 3 launches after one warm-up, with
-the launch (lanes, threads and syndromes per block, resident warps per SM)
-beside each.
+Window times are CUDA-event means over 3 launches after one warm-up
+(sampler times over 5), with the launch (lanes, threads and syndromes or
+chains per block, resident warps per SM) beside each.
 Needs a CUDA device; imports no jax.
 """
 
@@ -46,20 +49,24 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import mcmc_qec_tpu_torch.ops.ladder_window as lw
+import mcmc_qec_tpu_torch.ops.sweep as sw
 from chip_smoke import (
     BIASED_MAIN,
     PROD,
     STDC_MAIN,
+    _random_states,
     _sync_time,
     _time_ms,
     launch_line,
     phase_device,
+    sampler_launch_line,
     stdc_halves,
 )
 from mcmc_qec_tpu_torch.decoders import PTEQ, STDC, PTEQ_alpha, PTEQConfig
 from mcmc_qec_tpu_torch.mcmc.ladder import (
     beta_ladder_alpha,
     beta_ladder_depolarizing,
+    betas_depolarizing,
     init_ladder,
 )
 from mcmc_qec_tpu_torch.models import get_spec
@@ -159,6 +166,29 @@ def window_ms(cell, B, lanes=None, seed=5):
         lw.lanes_per_rung = default
 
 
+def sampler_ms(R, lanes=None):
+    """ms of one recording-sampler launch over ``R`` chains of toric d=5
+    (the STDC main path's 450 steps of one sweep, equal betas), with
+    ``lanes`` per chain or the plan's, and its launch."""
+    spec = get_spec("toric", 5)
+    states = _random_states(spec, R, seed=9)
+    b = torch.as_tensor(betas_depolarizing(STDC_MAIN["p_sampling"]),
+                        dtype=torch.float32, device="cuda")
+    steps = STDC_MAIN["steps"]
+    seeds = torch.randint(0, 2**31 - 1, (steps,),
+                          generator=torch.Generator().manual_seed(8))
+    default = sw.lanes_per_chain
+    try:
+        if lanes is not None:
+            sw.lanes_per_chain = lambda offs, B, n_sm: lanes
+        rec = sw.make_recording_sweep(spec, steps, 1, equal_betas=True)
+        rec(states, seeds, b)
+        return (_time_ms(lambda: rec(states, seeds, b), 5),
+                sampler_launch_line(spec, R, True))
+    finally:
+        sw.lanes_per_chain = default
+
+
 def main() -> int:
     phase_device()
     spec = get_spec("toric", 5)
@@ -194,6 +224,19 @@ def main() -> int:
     print(f"STDC split: sampling {t_sample * 1e3:.1f} ms, reduction "
           f"{t_reduce * 1e3:.1f} ms, sampling share "
           f"{t_sample / (t_sample + t_reduce):.3f}", flush=True)
+    # the recording sampler against the lanes per chain at the main path's
+    # 65,536 chains and at the h2h decodes' 2,048 (64 syndromes x 16
+    # classes x 2 droplets), then against the batch at the plan's lanes
+    R_MAIN = STDC_MAIN["B"] * spec.n_classes * STDC_MAIN["droplets"]
+    for R in (R_MAIN, 2048):
+        for lanes in (1, 2, 4, 8):
+            ms, launch = sampler_ms(R, lanes)
+            print(f"sampler toric d=5 R={R} lanes={lanes}: {ms:.3f} ms | "
+                  f"{launch}", flush=True)
+    for R in (2048, 8192, 16384, 32768, R_MAIN):
+        ms, launch = sampler_ms(R)
+        print(f"sampler toric d=5 R={R:5d} plan's lanes: {ms:.3f} ms | {launch}",
+              flush=True)
 
     m = BIASED_MAIN
     spec = get_spec("xzzx", m["d"])

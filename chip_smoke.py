@@ -13,12 +13,18 @@ kernel against its plain PyTorch version on the card:
   reference; one window timed against one of the plain version at the
   main path's shape, outputs equal, with its launch (lanes, threads and
   syndromes per block, resident warps per SM).
-- K1, the colored sweep (csrc/sweep.cu): kernel vs plain version (both
-  acceptance branches, toric d=5 ragged, planar d=3, toric d=13); STDC at
-  the shape of the repo's ``stdc_decoder_syndromes_per_sec_d5`` key through
-  the kernel, with the split between sampling and reduction; STDC and STRC
-  on the 64 cached syndromes against the reference and against PTEQ; one
-  launch timed against the plain version at the main path's shape.
+- K1, the colored sweep (csrc/sweep.cu), in both its modes: sweeps with
+  states in and out, and the counting decoders' whole recording sampler in
+  one launch.  Kernel vs plain version (both acceptance branches, toric
+  d=5 ragged, planar d=3, toric d=13 to d=19, 1 and 3 sweeps per step);
+  STDC at the shape of the repo's ``stdc_decoder_syndromes_per_sec_d5`` key
+  through one sampler launch, with the split between sampling and
+  reduction and the same percentages as the per-step loop the sampler
+  replaces; STDC and STRC on the 64 cached syndromes against the reference
+  and against PTEQ; one sweep, 100 sweeps and the 450-step sampler timed
+  at the main path's shape against the plain versions (and the sampler
+  against the per-step loop), with the launch (lanes and chains per warp,
+  resident warps per SM).
 - K2's other branches (general-beta sweep, Metropolis logical mix,
   even_odd exchange, traces): kernel vs plain version at 1, 3, 6 and 12
   words per plane, with the tables in device memory (toric d=19 at 25
@@ -60,6 +66,7 @@ from mcmc_qec_tpu_torch.decoders import (
     exact_mld,
 )
 from mcmc_qec_tpu_torch.decoders.pteq import _shortest_scan, init_shortest
+from mcmc_qec_tpu_torch.decoders.counting import SampleStream, sample_classes
 from mcmc_qec_tpu_torch.decoders.stdc import _class_seeds, _get_stdc_fn
 from mcmc_qec_tpu_torch.mcmc.ladder import (
     beta_ladder_alpha,
@@ -89,7 +96,15 @@ from mcmc_qec_tpu_torch.ops.ladder_window import (
     launch_plan,
     make_ladder_window,
 )
-from mcmc_qec_tpu_torch.ops.sweep import make_sweep, sweep_counts, sweep_reference
+import mcmc_qec_tpu_torch.ops.sweep as sw
+from mcmc_qec_tpu_torch.ops.pauli import count_errors_xyz, make_hash_mults, pack_key
+from mcmc_qec_tpu_torch.ops.sweep import (
+    make_recording_sweep,
+    make_sweep,
+    sample_reference,
+    sweep_counts,
+    sweep_reference,
+)
 
 KERNELS = ("ladder_window", "sweep")
 ROOT = Path(__file__).resolve().parent
@@ -140,11 +155,11 @@ H2H_STDC_PTEQ_MAX_TV = 0.15
 # Philox4x32-10 is 10 rounds of two mul.hi and two mul.lo (40 IMAD) per
 # block of four draws.  The precise logf of a proposal that may be rejected
 # depends on the data and is not counted, so the bound is a lower bound.
-# The sweep kernel's proposal costs two 64-bit popcounts per word of the
-# plane with equal betas and six with general betas (the X, Y and Z counts,
-# before and after); the window kernel's only on the words the
-# stabilizer's support spans, two with equal betas and four with general
-# betas (``_window_popc_per_sweep``).
+# Both kernels' proposals popcount only the words the stabilizer's support
+# spans, two with equal betas and four with general betas
+# (``_popc_per_sweep``); the recording sampler adds three per word of the
+# plane and step for the counts and two multiplies per qubit and step for
+# the hash (``sampler_bound``).
 HBM_BYTES_PER_S = 3.35e12
 POPC_PER_CLK_SM = 16
 IMAD_PER_CLK_SM = 64
@@ -217,14 +232,17 @@ def _card_rates():
     return torch.cuda.get_device_properties(0).multi_processor_count, mhz * 1e6
 
 
-def bound_ms(n_bytes: float, popc64: float, philox_blocks: float):
+def bound_ms(n_bytes: float, popc64: float, philox_blocks: float,
+             imad: float = 0.0):
     """(least ms, "bytes" or "operations") for work that moves ``n_bytes``
-    and issues ``popc64`` 64-bit popcounts and ``philox_blocks`` Philox
-    blocks, from the rates above and this card's SM count and clock."""
+    and issues ``popc64`` 64-bit popcounts, ``philox_blocks`` Philox blocks
+    and ``imad`` other 32-bit multiplies, from the rates above and this
+    card's SM count and clock."""
     n_sm, clock = _card_rates()
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = max(popc64 * POPC_PER_64BIT / (POPC_PER_CLK_SM * n_sm * clock),
-                philox_blocks * IMAD_PER_PHILOX / (IMAD_PER_CLK_SM * n_sm * clock))
+                (philox_blocks * IMAD_PER_PHILOX + imad)
+                / (IMAD_PER_CLK_SM * n_sm * clock))
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -234,8 +252,8 @@ def _philox_blocks_per_sweep(spec) -> int:
     return sum(-(-sel.shape[0] // 4) for sel, _, _ in _color_tables(spec))
 
 
-def _window_popc_per_sweep(spec, equal_betas: bool) -> int:
-    """64-bit popcounts the window kernel's sweep of one chain needs: per
+def _popc_per_sweep(spec, equal_betas: bool) -> int:
+    """64-bit popcounts the kernels' sweep of one chain needs: per
     stabilizer and word its support spans (summed from the kernel's
     spanned-word table), two with equal betas (the error count on the
     support before and after) and four with general betas (the overlaps of
@@ -485,7 +503,7 @@ def phase_timing():
     _, _, n_xblocks = _rng_layout(spec, Nc, iters)
     blocks = (B * Nc * W * iters * _philox_blocks_per_sweep(spec)
               + B * W * 3 * n_xblocks)
-    popc = B * Nc * W * iters * _window_popc_per_sweep(spec, True)
+    popc = B * Nc * W * iters * _popc_per_sweep(spec, True)
     bound, bound_by = bound_ms(
         _nbytes(ls.state, ls.flag, ls.tops0, eq, sb, betas, *kern_out),
         popc, blocks)
@@ -526,25 +544,77 @@ def compare_sweep(family, d, B, n_sweeps, betas, equal_betas, seed):
     return float((kern.int() - plain.int()).abs().max())
 
 
+def compare_outputs_equal(tag, kern, plain, states):
+    """The recording kernel's (states, keys, counts) against the plain
+    sampler's: every entry equal and the chains moved; returns the largest
+    absolute difference."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, b in zip(("states", "keys", "counts"), kern, plain):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{tag}: {name} {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+        n_bad = int((a != b).sum())
+        check(n_bad == 0, f"{tag}: {name} differs in {n_bad} entries")
+        worst = max(worst, float((a.double() - b.double()).abs().max()))
+    check(not torch.equal(kern[0], states), f"{tag}: the chains never moved")
+    return worst
+
+
+def compare_sampler(family, d, B, steps, iters, betas, equal_betas, seed):
+    """The recording kernel vs the plain sampler on the card, same inputs
+    and per-step seeds."""
+    spec = get_spec(family, d)
+    states = _random_states(spec, B, seed)
+    b = torch.as_tensor(betas, dtype=torch.float32, device="cuda")
+    seeds = torch.randint(0, 2**31 - 1, (steps,),
+                          generator=torch.Generator().manual_seed(seed))
+    kern = make_recording_sweep(spec, steps, iters, equal_betas)(states, seeds, b)
+    plain = sample_reference(spec, states, seeds, b, iters, equal_betas)
+    tag = (f"sampler {family} d={d} B={B} steps={steps} iters={iters} "
+           f"equal_betas={equal_betas}")
+    return compare_outputs_equal(tag, kern, plain, states)
+
+
 def phase_sweep_parity() -> float:
     with np.errstate(divide="ignore"):
         inf_y = betas_xyz(0.1, 0.0, 0.1)  # beta_y = inf: NaN rejects
+    general = betas_xyz(0.05, 0.02, 0.1)
     cases = [
         ("toric", 5, 1000, np.full(3, 0.9), True),
-        ("toric", 5, 1000, betas_xyz(0.05, 0.02, 0.1), False),
+        ("toric", 5, 1000, general, False),
         ("toric", 5, 1000, inf_y, False),
         ("planar", 3, 1000, np.full(3, 0.9), True),
-        ("planar", 3, 1000, betas_xyz(0.05, 0.02, 0.1), False),
+        ("planar", 3, 1000, general, False),
         ("toric", 13, 1000, np.full(3, 0.9), True),
-        ("toric", 13, 1000, betas_xyz(0.05, 0.02, 0.1), False),
+        ("toric", 13, 1000, general, False),
+        ("toric", 19, 256, np.full(3, 0.9), True),
     ]
     worst = 0.0
     for i, (family, d, B, betas, eq) in enumerate(cases):
         worst = max(worst, compare_sweep(family, d, B, 3, betas, eq, seed=40 + i))
+    # the recording mode: toric d=5 with a ragged last block (B=257: 64
+    # chains per block) over two whole tiles of steps and a part, planar
+    # d=3, toric d=13 (tables in shared memory), d=15 (8 words) and d=19
+    # (12 words; both with their tables in device memory)
+    n = 0
+    for family, d, B, steps in (("toric", 5, 257, 2 * sw.TILE_STEPS + 5),
+                                ("planar", 3, 257, 9), ("toric", 13, 64, 5),
+                                ("toric", 15, 64, 5), ("toric", 19, 40, 4)):
+        for eq in (True, False):
+            for iters in (1, 3):
+                worst = max(worst, compare_sampler(
+                    family, d, B, steps, iters, np.full(3, 0.9) if eq else general,
+                    eq, seed=60 + n))
+                n += 1
+    worst = max(worst, compare_sampler("toric", 5, 257, 9, 1, inf_y, False, seed=99))
     print(f"phase 7 sweep kernel vs plain on the card: toric d=5 B=1000 "
           f"(equal, general, general with beta_y=inf), planar d=3 and toric "
-          f"d=13 (equal, general), n_sweeps=3: all states equal, max abs err "
-          f"{worst}", flush=True)
+          f"d=13 (equal, general), toric d=19 B=256 (equal), n_sweeps=3: all "
+          f"states equal; recording sampler, {n + 1} cases (toric d=5 B=257 "
+          f"ragged, {2 * sw.TILE_STEPS + 5} steps; planar d=3 B=257; toric "
+          f"d=13, d=15 and d=19 (12 words); equal and general betas x 1 and 3 "
+          f"sweeps per step; general with beta_y=inf): states, keys and "
+          f"counts equal; max abs err {worst}", flush=True)
     return worst
 
 
@@ -556,24 +626,66 @@ def _sync_time(fn):
     return out, time.perf_counter() - t0
 
 
-def stdc_halves(spec, states, seed):
+def loop_sampler(spec, steps, iters_per_step=1, equal_betas=False):
+    """The counting sampler as the parent commit ran it, from the public
+    functions: one ``make_sweep`` launch per recording step, then
+    ``pack_key`` and ``count_errors_xyz`` into the stream's buffers.  The
+    same contract and the same draws as ``make_recording_sweep``."""
+    sweep = make_sweep(spec, iters_per_step, equal_betas)
+    m = torch.as_tensor(make_hash_mults(spec).astype(np.int64), device="cuda")
+
+    def fn(states, seeds, betas):
+        R = states.shape[0]
+        keys = torch.empty((R, steps, 2), dtype=torch.int64, device="cuda")
+        nxyz = torch.empty((R, steps, 3), dtype=torch.int32, device="cuda")
+        for t, seed in enumerate(torch.as_tensor(seeds).tolist()):
+            states = sweep(states, seed, betas)
+            keys[:, t] = pack_key(spec, states, m)
+            nxyz[:, t] = count_errors_xyz(states)
+        return states, keys, nxyz
+
+    return fn
+
+
+def _as_sampler(rec, steps):
+    """A ``make_sampler``-style ``sample(states, seed, betas)`` around a
+    recording function (decoders/counting.py::make_sampler's seeds)."""
+
+    def sample(states, seed, betas):
+        seeds = torch.randint(0, 2**31 - 1, (steps,),
+                              generator=torch.Generator().manual_seed(int(seed)))
+        lead, nq = states.shape[:-1], states.shape[-1]
+        out, keys, nxyz = rec(states.reshape(-1, nq).contiguous(), seeds, betas)
+        return out.reshape(states.shape), SampleStream(
+            keys.reshape(lead + (steps, 2)), nxyz.reshape(lead + (steps, 3)))
+
+    return sample
+
+
+def stdc_halves(spec, states, seed, sampler=None):
     """The STDC main path's two halves, the sampling loop and the
     reduction (dedup and Z), each timed to a synchronise: (percentages,
-    sampling s, reduction s)."""
-    fn = _get_stdc_fn(spec, STDC_MAIN["droplets"], STDC_MAIN["steps"], True,
-                      "off", equal_betas=True)
+    sampling s, reduction s).  ``sampler`` replaces the decoder's own
+    (the per-step loop, for the comparison)."""
+    D, steps = STDC_MAIN["droplets"], STDC_MAIN["steps"]
+    fn = _get_stdc_fn(spec, D, steps, True, "off", equal_betas=True)
     seeds = _class_seeds(spec, states)
     bs, be = (torch.as_tensor(betas_depolarizing(STDC_MAIN[k]),
                               dtype=torch.float32, device="cuda")
               for k in ("p_sampling", "p"))
-    stream, t_sample = _sync_time(lambda: fn.sample(seeds, seed, bs))
+    if sampler is None:
+        sample = lambda: fn.sample(seeds, seed, bs)
+    else:
+        sample = lambda: sample_classes(spec, sampler, seeds, seed, bs, D, steps, True)
+    stream, t_sample = _sync_time(sample)
     (distr, _), t_reduce = _sync_time(lambda: fn.reduce(stream, be))
     return distr.cpu().numpy(), t_sample, t_reduce
 
 
 def phase_stdc_main_path():
-    """STDC at toric d=5, B=1024 through the sweep kernel (one launch per
-    recording step), then the same decode's two halves timed apart."""
+    """STDC at toric d=5, B=1024 through the sweep kernel (one recording
+    launch per decode), then the same decode's two halves timed apart, and
+    the decode again with the per-step loop as its sampler."""
     spec = get_spec("toric", 5)
     B, p, ps = STDC_MAIN["B"], STDC_MAIN["p"], STDC_MAIN["p_sampling"]
     D, steps = STDC_MAIN["droplets"], STDC_MAIN["steps"]
@@ -588,8 +700,8 @@ def phase_stdc_main_path():
     distr, dt = _sync_time(lambda: STDC(spec, states, p, ps, droplets=D,
                                         steps=steps, seed=3, device="cuda"))
     launches, plain = sweep_counts.launches, sweep_counts.plain_calls
-    check(launches > 0, "STDC never launched the sweep kernel")
-    check(plain == 0, f"STDC ran the plain sweep {plain} times")
+    check(launches == 1, f"STDC made {launches} sweep kernel launches, not 1")
+    check(plain == 0, f"STDC ran the plain sampler {plain} times")
     K = spec.n_classes
     check(distr.shape == (B, K), f"distribution {distr.shape}")
     check(bool(np.isfinite(distr).all()), "non-finite percentages")
@@ -599,13 +711,21 @@ def phase_stdc_main_path():
     d2, t_sample, t_reduce = stdc_halves(spec, states, seed=3)
     check(bool(np.allclose(d2, distr, atol=1e-4)),
           "the two halves do not reproduce the decode")
+    loop = _as_sampler(loop_sampler(spec, steps, 1, True), steps)
+    stdc_halves(spec, states, seed=1, sampler=loop)  # warm-up
+    d3, t_loop, _ = stdc_halves(spec, states, seed=3, sampler=loop)
+    n_bad = int((d3 != distr).sum())
+    check(n_bad == 0, f"the decode's percentages differ from the per-step "
+                      f"loop's in {n_bad} entries")
     props = B * K * D * steps * spec.n_stabs
     print(f"phase 8 STDC toric d=5 B={B} p={p} p_sampling={ps} droplets={D} "
           f"steps={steps}: {B / dt:.1f} syn/s ({dt:.3f} s), {props / dt:.4g} "
           f"proposals/s, sweep launches {launches}, truth recovered "
           f"{recovered:.3f}; split: sampling {t_sample * 1e3:.1f} ms, "
           f"reduction {t_reduce * 1e3:.1f} ms (sampling share "
-          f"{t_sample / (t_sample + t_reduce):.3f})", flush=True)
+          f"{t_sample / (t_sample + t_reduce):.3f}); per-step loop as the "
+          f"sampler: {t_loop * 1e3:.1f} ms, percentages equal to the "
+          f"decode's", flush=True)
     return launches
 
 
@@ -646,11 +766,44 @@ def phase_counting_quality(pteq_distr) -> None:
     check(not fails, "; ".join(fails))
 
 
+def sampler_launch_line(spec, R, equal_betas) -> str:
+    """The sweep kernel's launch at this shape: lanes per chain, chains per
+    warp and block, and the warps one SM holds (launched, and the occupancy
+    calculator's limit)."""
+    plan, resident = sw.launch_plan(spec, R, True, equal_betas)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-R // plan.chains_per_block)
+    wpb = sw.SWEEP_THREADS // 32
+    held = min(resident, -(-blocks // n_sm))
+    return (f"L={plan.lanes} lanes per chain, {plan.chains_per_warp} chains per "
+            f"warp, {plan.chains_per_block} per block of {sw.SWEEP_THREADS} "
+            f"threads, {blocks} blocks, {held * wpb} warps per SM resident (up "
+            f"to {resident * wpb} by occupancy), tables in "
+            f"{'shared' if plan.tab_in_smem else 'device'} memory, {plan.smem} B "
+            f"shared memory per block")
+
+
+def sampler_bound(spec, R, steps, iters, equal_betas, n_bytes):
+    """(least ms, bound_by) of the recording sampler: ``bound_ms`` of the
+    bytes moved (states in and out, seeds, the stream written), the
+    popcounts (per proposal two per spanned word with equal betas, four
+    with general betas; three per word of the plane per step for the
+    counts), the Philox blocks and the hash's two multiplies per qubit and
+    step."""
+    nw = kernel_words(spec.nq)
+    popc = R * steps * (iters * _popc_per_sweep(spec, equal_betas) + 3 * nw)
+    blocks = R * steps * iters * _philox_blocks_per_sweep(spec)
+    return bound_ms(n_bytes, popc, blocks, imad=R * steps * 2 * spec.nq)
+
+
 def phase_sweep_timing():
-    """One launch of the sweep kernel at the STDC main path's shape
-    (1024 syndromes x 16 classes x 4 droplets = 65,536 chains of toric d=5,
-    one sweep, equal betas) and with 100 sweeps, each against the plain
-    version; outputs must be equal."""
+    """At the STDC main path's shape (1024 syndromes x 16 classes x 4
+    droplets = 65,536 chains of toric d=5, equal betas): one launch of the
+    sweep kernel with one sweep and with 100 sweeps, each against the
+    plain version; then the recording sampler's one launch for the whole
+    450-step loop against the per-step loop it replaces (the parent
+    commit's path) and against the plain sampler.  Outputs must be
+    equal."""
     spec = get_spec("toric", 5)
     R = STDC_MAIN["B"] * spec.n_classes * STDC_MAIN["droplets"]
     states = _random_states(spec, R, seed=9)
@@ -668,10 +821,9 @@ def phase_sweep_timing():
         check(n_bad == 0, f"n_sweeps={n_sweeps}: kernel and plain version "
                           f"differ in {n_bad} entries")
         err = float((out.int() - plain_out[0].int()).abs().max())
-        nw = -(-spec.nq // 64)
         bound, bound_by = bound_ms(
             _nbytes(states, out, b),
-            2 * nw * R * n_sweeps * spec.n_stabs,
+            R * n_sweeps * _popc_per_sweep(spec, True),
             R * n_sweeps * _philox_blocks_per_sweep(spec))
         res[n_sweeps] = dict(ms=ms, plain_ms=plain_ms, err=err,
                              bound_ms=bound, bound_by=bound_by)
@@ -682,6 +834,36 @@ def phase_sweep_timing():
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
               for n, r in res.items())
           + "; all states equal", flush=True)
+
+    steps = STDC_MAIN["steps"]
+    seeds = torch.randint(0, 2**31 - 1, (steps,),
+                          generator=torch.Generator().manual_seed(8))
+    rec = make_recording_sweep(spec, steps, 1, equal_betas=True)
+    loop = loop_sampler(spec, steps, 1, equal_betas=True)
+    kern = rec(states, seeds, b)  # warm-up, kept for the comparison
+    ms = _time_ms(lambda: rec(states, seeds, b), 5)
+    loop(states, seeds, b)  # warm-up
+    loop_out = []
+    loop_ms = _time_ms(lambda: loop_out.append(loop(states, seeds, b)), 1)
+    plain_out = []
+    plain_ms = _time_ms(lambda: plain_out.append(sample_reference(
+        spec, states, seeds, b, 1, equal_betas=True)), 1)
+    err = max(compare_outputs_equal("sampler vs plain, 65,536 chains", kern,
+                                    plain_out[0], states),
+              compare_outputs_equal("sampler vs per-step loop, 65,536 chains",
+                                    kern, loop_out[0], states))
+    n_bytes = _nbytes(states, seeds, *kern)
+    bound, bound_by = sampler_bound(spec, R, steps, 1, True, n_bytes)
+    stream_ms = _nbytes(*kern[1:]) / HBM_BYTES_PER_S * 1e3
+    print(f"phase 10 recording sampler, toric d=5, 65,536 chains, {steps} steps "
+          f"of one sweep, equal betas, one launch: kernel {ms:.3f} ms, per-step "
+          f"loop {loop_ms:.1f} ms ({loop_ms / ms:.1f}x), plain sampler "
+          f"{plain_ms:.1f} ms ({plain_ms / ms:.1f}x); states, keys and counts "
+          f"equal to both; bound {bound:.4f} ms ({bound_by}; the stream's "
+          f"{_nbytes(*kern[1:]) / 1e6:.1f} MB alone {stream_ms:.4f} ms); "
+          f"launch: {sampler_launch_line(spec, R, True)}", flush=True)
+    res["sampler"] = dict(ms=ms, plain_ms=plain_ms, loop_ms=loop_ms, err=err,
+                          bound_ms=bound, bound_by=bound_by)
     return res
 
 
@@ -918,7 +1100,7 @@ def phase_general_timing():
     _, _, n_xblocks = _rng_layout(spec, Nc, iters)
     blocks = (B * Nc * W * iters * _philox_blocks_per_sweep(spec)
               + B * W * (_N_EXTRA_USES - 1) * n_xblocks)
-    popc = B * Nc * W * iters * _window_popc_per_sweep(spec, False)
+    popc = B * Nc * W * iters * _popc_per_sweep(spec, False)
     n_bytes = _nbytes(*args[:5], betas, *kern_out)
     bound, bound_by = bound_ms(n_bytes, popc, blocks)
     # the count before the kernel took only spanned words: 6 popcounts on
@@ -988,11 +1170,23 @@ def main() -> int:
         "source": "mcmc_qec_tpu_torch/csrc/sweep.cu",
         "replaces": "mcmc_qec_tpu/ops/pallas_sweep.py:42",
         "launches": k1_launches,
-        "max_abs_err": max(k1_err, *(r["err"] for r in k1.values())),
+        "max_abs_err": max(k1_err, k1[1]["err"], k1[100]["err"]),
         "ms": k1_main["ms"],
         "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"],
         "bound_by": k1_main["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "sweep_sampler",
+        "route": "cuda",
+        "source": "mcmc_qec_tpu_torch/csrc/sweep.cu",
+        "replaces": "mcmc_qec_tpu/ops/pallas_sweep.py:42",
+        "launches": k1_launches,
+        "max_abs_err": max(k1_err, k1["sampler"]["err"]),
+        "ms": k1["sampler"]["ms"],
+        "plain_ms": k1["sampler"]["plain_ms"],
+        "bound_ms": k1["sampler"]["bound_ms"],
+        "bound_by": k1["sampler"]["bound_by"],
         "library_ms": None,
     }, {
         "name": "ladder_window_general",

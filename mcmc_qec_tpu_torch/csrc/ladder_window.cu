@@ -74,6 +74,7 @@
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
+#include "sweep.cuh"
 
 namespace mqt {
 
@@ -297,49 +298,17 @@ __device__ __forceinline__ void draw_phase(const WindowParams& P, const int32_t*
   }
 }
 
-// Word w of a rung's planes, w known only at run time: a select over the
-// NW registers (no local-memory array).
-template <int NW>
-__device__ __forceinline__ uint64_t pick(const uint64_t (&a)[NW], int w) {
-  if constexpr (NW == 1) return a[0];  // the word index is 0
-  uint64_t v = a[0];
-#pragma unroll
-  for (int q = 1; q < NW; ++q)
-    if (w == q) v = a[q];
-  return v;
-}
-
-template <int NW>
-__device__ __forceinline__ void xor_at(uint64_t (&a)[NW], int w, uint64_t v) {
-  if constexpr (NW == 1) {
-    a[0] ^= v;
-    return;
-  }
-#pragma unroll
-  for (int q = 0; q < NW; ++q)
-    if (w == q) a[q] ^= v;
-}
-
 // One color on a rung whose L lanes each hold the rung's planes (X, Z).
 // Lane l decides stabilizers j = l, l + L, ... < n on the planes as they
-// stood before the color and XORs the accepted ones' op masks into its
-// flips; an XOR butterfly of shuffles over the rung's lanes then gives
-// every lane all the color's flips, which it applies.  Every lane of the
-// warp calls this (a padding lane with n = 0): the shuffles run on the
-// whole warp, and offsets below L keep each exchange inside a rung's
-// aligned lanes.  (Shuffles masked per rung let the warp split into one
-// group per rung, which then run one after another.)  The supports are
-// disjoint, so this equals the sequential visit (the TPU kernel's parallel
-// accept).  ``stab`` holds per stabilizer ``S`` (support, X op, Z op)
-// words on the words ``span`` lists (zero-padded); ``du`` the color's log
-// u.  Equal betas: the total count changes by popc(new OR plane & supp) -
-// popc(old OR plane & supp) and logr = -(beta * dN)
-// (ops/pallas_ladder.py:440-452).  General betas: the X and Z totals
-// change by cx - 2 popc(x & xs) and cz - 2 popc(z & zs) (cx, cz: the op's
-// qubits in each plane), the Y count by popc(new x & new z & supp) -
-// popc(x & z & supp), and logr = -((bx*dN_x + by*dN_y) + bz*dN_z), each
-// product and sum rounded on its own, in the TPU kernel's order; an
-// infinite beta times a zero change is NaN, which rejects.
+// stood before the color (sweep.cuh::proposal_logr) and XORs the accepted
+// ones' op masks into its flips; an XOR butterfly of shuffles over the
+// rung's lanes then gives every lane all the color's flips, which it
+// applies.  Every lane of the warp calls this (a padding lane with n = 0):
+// the shuffles run on the whole warp, and offsets below L keep each
+// exchange inside a rung's aligned lanes.  The supports are disjoint, so
+// this equals the sequential visit (the TPU kernel's parallel accept).
+// ``stab`` holds per stabilizer ``S`` (support, X op, Z op) words on the
+// words ``span`` lists (zero-padded); ``du`` the color's log u.
 template <int NW, int S, bool EQ>
 __device__ __forceinline__ void sweep_color(uint64_t (&X)[NW], uint64_t (&Z)[NW],
                                             const uint64_t* stab, const int32_t* span, int c0,
@@ -351,58 +320,16 @@ __device__ __forceinline__ void sweep_color(uint64_t (&X)[NW], uint64_t (&Z)[NW]
   for (int j = l; j < n; j += L) {
     const int s = c0 + j;
     const float u = du[j];
-    const uint32_t sp = (uint32_t)span[s];
-    const uint64_t* e = stab + (size_t)s * 3 * S;
     int wm[S];
     uint64_t xm[S], zm[S];
-    int d0 = 0, tx = 0, tz = 0;  // dN (equal betas) or dN_y and the overlaps
-#pragma unroll
-    for (int m = 0; m < S; ++m) {
-      wm[m] = (sp >> (12 + 4 * m)) & 15;
-      const uint64_t su = e[3 * m];
-      xm[m] = e[3 * m + 1];
-      zm[m] = e[3 * m + 2];
-      const uint64_t x = pick(X, wm[m]), z = pick(Z, wm[m]);
-      if constexpr (EQ) {
-        d0 += __popcll(((x ^ xm[m]) | (z ^ zm[m])) & su) - __popcll((x | z) & su);
-      } else {
-        tx += __popcll(x & xm[m]);
-        tz += __popcll(z & zm[m]);
-        d0 += __popcll((x ^ xm[m]) & (z ^ zm[m]) & su) - __popcll(x & z & su);
-      }
-    }
-    float logr;
-    if constexpr (EQ) {
-      logr = -(bx * (float)d0);
-    } else {
-      const int cx = (int)((sp >> 4) & 15), cz = (int)((sp >> 8) & 15);
-      const int d1 = (cx - 2 * tx) - d0, d3 = (cz - 2 * tz) - d0;
-      logr = -__fadd_rn(__fadd_rn(__fmul_rn(bx, (float)d1), __fmul_rn(by, (float)d0)),
-                        __fmul_rn(bz, (float)d3));
-    }
+    const float logr = proposal_logr<NW, S, EQ>(X, Z, stab + (size_t)s * 3 * S,
+                                                (uint32_t)span[s], bx, by, bz, wm, xm, zm);
     // every uniform is < 1, so log u < 0 and logr >= 0 accepts: the same
     // decision as the plain version's comparison; a padded entry's masks
     // are zero and flip nothing
-    if (logr >= 0.f || u < logr) {
-#pragma unroll
-      for (int m = 0; m < S; ++m) {
-        xor_at(fX, wm[m], xm[m]);
-        xor_at(fZ, wm[m], zm[m]);
-      }
-    }
+    if (logr >= 0.f || u < logr) add_flip<NW, S>(fX, fZ, wm, xm, zm);
   }
-  for (int k = 1; k < L; k <<= 1) {
-#pragma unroll
-    for (int q = 0; q < NW; ++q) {
-      fX[q] ^= __shfl_xor_sync(0xffffffffu, fX[q], k);
-      fZ[q] ^= __shfl_xor_sync(0xffffffffu, fZ[q], k);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < NW; ++q) {
-    X[q] ^= fX[q];
-    Z[q] ^= fZ[q];
-  }
+  apply_flips<NW>(X, Z, fX, fZ, L);
 }
 
 // Word w of the XOR of mix round ``it``'s gated logical masks

@@ -1,81 +1,111 @@
-// One color of a conflict-free colored Metropolis sweep on one chain held
-// as NW-word X/Z bit planes (bit q of X[q / 64] is the X component of
-// qubit q).  The sweep kernel sweep.cu's, in both acceptance forms (the
-// window kernel decides a color across lanes instead: ladder_window.cu).
+// One proposal of a conflict-free colored Metropolis sweep on a chain held
+// as NW-word X/Z bit planes (bit q of X[q / 64] is the X component of qubit
+// q), read only on the words its stabilizer's support spans.  Shared by the
+// sweep kernel (sweep.cu) and the window kernel (ladder_window.cu).
 #pragma once
 
 #include <cstdint>
 
-#include "philox.cuh"
-
 namespace mqt {
 
-// ``stab`` holds the color's ``n`` stabilizers, each as three NW-word masks:
-// support, X component of its op, Z component of its op.  Stabilizers of one
-// color share no qubit, so visiting them one after another equals the TPU
-// kernel's parallel accept of the whole color.  A flip changes the total
-// error count by popc(new OR plane & supp) - popc(old OR plane & supp); it is
-// accepted iff logf(u) < -(beta * dN) in f32 (equal per-Pauli betas,
-// ops/pallas_ladder.py:440-452, ops/pallas_sweep.py:149-156).  Draw j of
-// ``rng`` is the stabilizer's uniform.
+// Word w of a chain's planes, w known only at run time: a select over the
+// NW registers (no local-memory array).
 template <int NW>
-__device__ __forceinline__ void sweep_color(uint64_t (&X)[NW], uint64_t (&Z)[NW],
-                                            const uint64_t* stab, int n, float beta,
-                                            DrawStream& rng) {
-  for (int j = 0; j < n; ++j) {
-    const uint64_t* e = stab + 3 * NW * j;
-    int dn = 0;
+__device__ __forceinline__ uint64_t pick(const uint64_t (&a)[NW], int w) {
+  if constexpr (NW == 1) return a[0];  // the word index is 0
+  uint64_t v = a[0];
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const uint64_t s = e[w], xs = e[NW + w], zs = e[2 * NW + w];
-      dn += __popcll(((X[w] ^ xs) | (Z[w] ^ zs)) & s) - __popcll((X[w] | Z[w]) & s);
-    }
-    const uint32_t bits = rng(j);
-    const float logr = -(beta * (float)dn);
-    // every uniform is < 1, so logf(u) < 0 and logr >= 0 accepts without
-    // the logarithm: the same decision as the plain version's comparison
-    if (logr >= 0.f || logf(uniform24(bits)) < logr) {
+  for (int q = 1; q < NW; ++q)
+    if (w == q) v = a[q];
+  return v;
+}
+
+template <int NW>
+__device__ __forceinline__ void xor_at(uint64_t (&a)[NW], int w, uint64_t v) {
+  if constexpr (NW == 1) {
+    a[0] ^= v;
+    return;
+  }
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        X[w] ^= e[NW + w];
-        Z[w] ^= e[2 * NW + w];
-      }
+  for (int q = 0; q < NW; ++q)
+    if (w == q) a[q] ^= v;
+}
+
+// logr of flipping one stabilizer on the planes (X, Z).  ``e`` holds its
+// ``S`` (support, X op, Z op) words on the words ``sp`` lists (packed by
+// ops/ladder_window.py::_pack_span, zero-padded); the words and the op's
+// masks come back in wm, xm, zm for the caller to XOR in if it accepts.
+// Equal betas: the total count changes by popc(new OR plane & supp) -
+// popc(old OR plane & supp) and logr = -(beta * dN)
+// (ops/pallas_ladder.py:440-452, ops/pallas_sweep.py:149-156).  General
+// betas: the X and Z totals change by cx - 2 popc(x & xs) and cz - 2 popc(z
+// & zs) (cx, cz: the op's qubits in each plane), the Y count by popc(new x
+// & new z & supp) - popc(x & z & supp), and logr = -((bx*dN_x + by*dN_y) +
+// bz*dN_z), each product and sum rounded on its own (no contraction into a
+// fused multiply-add), in the TPU kernels' order; an infinite beta times a
+// zero change is NaN, which rejects (ops/pallas_sweep.py:157-169).
+template <int NW, int S, bool EQ>
+__device__ __forceinline__ float proposal_logr(const uint64_t (&X)[NW], const uint64_t (&Z)[NW],
+                                               const uint64_t* e, uint32_t sp, float bx, float by,
+                                               float bz, int (&wm)[S], uint64_t (&xm)[S],
+                                               uint64_t (&zm)[S]) {
+  int d0 = 0, tx = 0, tz = 0;  // dN (equal betas) or dN_y and the overlaps
+#pragma unroll
+  for (int m = 0; m < S; ++m) {
+    wm[m] = (sp >> (12 + 4 * m)) & 15;
+    const uint64_t su = e[3 * m];
+    xm[m] = e[3 * m + 1];
+    zm[m] = e[3 * m + 2];
+    const uint64_t x = pick(X, wm[m]), z = pick(Z, wm[m]);
+    if constexpr (EQ) {
+      d0 += __popcll(((x ^ xm[m]) | (z ^ zm[m])) & su) - __popcll((x | z) & su);
+    } else {
+      tx += __popcll(x & xm[m]);
+      tz += __popcll(z & zm[m]);
+      d0 += __popcll((x ^ xm[m]) & (z ^ zm[m]) & su) - __popcll(x & z & su);
     }
+  }
+  if constexpr (EQ) {
+    return -(bx * (float)d0);
+  } else {
+    const int cx = (int)((sp >> 4) & 15), cz = (int)((sp >> 8) & 15);
+    const int d1 = (cx - 2 * tx) - d0, d3 = (cz - 2 * tz) - d0;
+    return -__fadd_rn(__fadd_rn(__fmul_rn(bx, (float)d1), __fmul_rn(by, (float)d0)),
+                      __fmul_rn(bz, (float)d3));
   }
 }
 
-// The same color with general per-Pauli betas (ops/pallas_sweep.py:157-169):
-// per stabilizer the changes dN_x, dN_y, dN_z of the X-only, Y and Z-only
-// counts on its support, and logr = -((bx*dN_x + by*dN_y) + bz*dN_z) in f32
-// with every product and sum rounded on its own (no contraction into a
-// fused multiply-add), in the TPU kernel's order.  IEEE rules hold: an
-// infinite beta times a zero change is NaN, and a NaN logr rejects (both
-// comparisons are false), as in the TPU kernel.
+// XOR the op masks a proposal returned into the flip words (fX, fZ).
+template <int NW, int S>
+__device__ __forceinline__ void add_flip(uint64_t (&fX)[NW], uint64_t (&fZ)[NW],
+                                         const int (&wm)[S], const uint64_t (&xm)[S],
+                                         const uint64_t (&zm)[S]) {
+#pragma unroll
+  for (int m = 0; m < S; ++m) {
+    xor_at(fX, wm[m], xm[m]);
+    xor_at(fZ, wm[m], zm[m]);
+  }
+}
+
+// Hand every lane of an aligned group of L lanes the XOR of the group's
+// flips and apply them.  Every lane of the warp calls this: the shuffles
+// run on the whole warp, and offsets below L keep each exchange inside a
+// group's lanes (shuffles masked per group let the warp split into one
+// group after another).
 template <int NW>
-__device__ __forceinline__ void sweep_color_xyz(uint64_t (&X)[NW], uint64_t (&Z)[NW],
-                                                const uint64_t* stab, int n, float bx,
-                                                float by, float bz, DrawStream& rng) {
-  for (int j = 0; j < n; ++j) {
-    const uint64_t* e = stab + 3 * NW * j;
-    int d1 = 0, d2 = 0, d3 = 0;
+__device__ __forceinline__ void apply_flips(uint64_t (&X)[NW], uint64_t (&Z)[NW],
+                                            uint64_t (&fX)[NW], uint64_t (&fZ)[NW], int L) {
+  for (int k = 1; k < L; k <<= 1) {
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const uint64_t s = e[w], x = X[w], z = Z[w];
-      const uint64_t nx = x ^ e[NW + w], nz = z ^ e[2 * NW + w];
-      d1 += __popcll(nx & ~nz & s) - __popcll(x & ~z & s);
-      d2 += __popcll(nx & nz & s) - __popcll(x & z & s);
-      d3 += __popcll(~nx & nz & s) - __popcll(~x & z & s);
+    for (int q = 0; q < NW; ++q) {
+      fX[q] ^= __shfl_xor_sync(0xffffffffu, fX[q], k);
+      fZ[q] ^= __shfl_xor_sync(0xffffffffu, fZ[q], k);
     }
-    const uint32_t bits = rng(j);
-    const float logr = -__fadd_rn(__fadd_rn(__fmul_rn(bx, (float)d1), __fmul_rn(by, (float)d2)),
-                                  __fmul_rn(bz, (float)d3));
-    if (logr >= 0.f || logf(uniform24(bits)) < logr) {
+  }
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        X[w] ^= e[NW + w];
-        Z[w] ^= e[2 * NW + w];
-      }
-    }
+  for (int q = 0; q < NW; ++q) {
+    X[q] ^= fX[q];
+    Z[q] ^= fZ[q];
   }
 }
 

@@ -25,18 +25,12 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
 
 from ..models.base import CodeSpec
 from ..ops.engines import resolve_engine
-from ..ops.pauli import (
-    apply_stabilizers_uniform,
-    count_errors_xyz,
-    make_hash_mults,
-    pack_key,
-)
-from ..ops.sweep import make_sweep
+from ..ops.pauli import apply_stabilizers_uniform
+from ..ops.sweep import make_recording_sweep
 
 _NO_VALID = ("validity masks (the conv_mult early-stop rule, "
              "conv_mult_valid_mask) are not ported yet: ROADMAP.md queue 1")
@@ -54,31 +48,23 @@ def make_sampler(spec: CodeSpec, steps: int, iters_per_step: int = 1,
     """Build ``sample(states, seed, betas) -> (states, SampleStream)``.
 
     Each of ``steps`` recording steps runs ``iters_per_step`` colored sweeps
-    over every chain (one launch of the sweep kernel on a CUDA tensor) and
-    records the current chains into preallocated buffers on the states'
-    device.  ``states``: (..., nq) u8; stream axes (..., steps).  Per-step
-    kernel seeds come from a CPU ``torch.Generator`` seeded with ``seed``,
-    so the loop never waits for the device.  ``betas`` (3,) f32: pass a
-    tensor on the device (a host array is copied once per call)."""
+    over every chain and records the chains' content keys and per-Pauli
+    counts on the states' device: on a CUDA tensor the whole loop is one
+    launch of the sweep kernel (``ops/sweep.py::make_recording_sweep``), on
+    a CPU tensor its plain version.  ``states``: (..., nq) u8; stream axes
+    (..., steps).  Per-step kernel seeds come from a CPU
+    ``torch.Generator`` seeded with ``seed``, so nothing waits for the
+    device.  ``betas`` (3,) f32: pass a tensor on the device (a host array
+    is copied once per call)."""
     resolve_engine(engine, "counting")
-    sweep = make_sweep(spec, n_sweeps=iters_per_step, equal_betas=equal_betas)
-    mults = make_hash_mults(spec)
+    sampler = make_recording_sweep(spec, steps, iters_per_step, equal_betas)
 
     def sample(states: torch.Tensor, seed: int, betas):
-        device = states.device
         batch_shape, nq = states.shape[:-1], states.shape[-1]
         flat = states.reshape(-1, nq).contiguous()
-        R = flat.shape[0]
-        betas_d = torch.as_tensor(betas, dtype=torch.float32, device=device)
-        m = torch.as_tensor(mults.astype(np.int64), device=device)
-        keys = torch.empty((R, steps, 2), dtype=torch.int64, device=device)
-        nxyz = torch.empty((R, steps, 3), dtype=torch.int32, device=device)
         gen = torch.Generator().manual_seed(int(seed))
-        seeds = torch.randint(0, 2**31 - 1, (steps,), generator=gen).tolist()
-        for t in range(steps):
-            flat = sweep(flat, seeds[t], betas_d)
-            keys[:, t] = pack_key(spec, flat, m)
-            nxyz[:, t] = count_errors_xyz(flat)
+        seeds = torch.randint(0, 2**31 - 1, (steps,), generator=gen)
+        flat, keys, nxyz = sampler(flat, seeds, betas)
         return flat.reshape(states.shape), SampleStream(
             keys.reshape(batch_shape + (steps, 2)),
             nxyz.reshape(batch_shape + (steps, 3)),

@@ -2,10 +2,10 @@
 
 Counterpart of ``mcmc_qec_tpu/decoders/stdc.py`` (materialised path).  For
 every syndrome, all (class x droplet) chains run in one batch at the
-sampling temperature: each recording step is one launch of the colored
-sweep kernel (``ops/sweep.py``) over every chain, the visits are recorded
-on the device as content keys and per-Pauli counts
-(``decoders/counting.py``), and Z_E = sum over unique chains of
+sampling temperature: the whole sampling loop, one colored sweep per
+recording step with the visits recorded as content keys and per-Pauli
+counts, is one launch of the sweep kernel (``ops/sweep.py``,
+``decoders/counting.py::make_sampler``), and Z_E = sum over unique chains of
 exp(-beta_err . n_xyz) comes from a sort and a segment logsumexp.
 
 All four reference variants are one engine with two beta vectors:

@@ -19,4 +19,10 @@ from .pauli import (
     to_class,
 )
 from .philox import philox4x32
-from .sweep import make_sweep, sweep_counts, sweep_reference
+from .sweep import (
+    make_recording_sweep,
+    make_sweep,
+    sample_reference,
+    sweep_counts,
+    sweep_reference,
+)

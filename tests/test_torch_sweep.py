@@ -178,12 +178,17 @@ def test_cpu_sweep_runs_plain_version_only():
 
 
 def test_kernel_refuses_codes_above_six_words():
-    """The kernel is built for up to 6 words per plane (toric d=13 has
-    nq=338); the wrapper refuses toric d=17 (nq=578) before any launch."""
+    """The kernel is built for up to 12 words per plane (toric d=19 has
+    nq=722; the limit was 6 words before the kernel read only the words a
+    stabilizer spans); the wrapper refuses toric d=21 (nq=882) before any
+    launch, in both modes."""
     from mcmc_qec_tpu_torch.ops.sweep import MAX_WORDS, _launch
 
-    assert -(-jax_get_spec("toric", 13).nq // 64) <= MAX_WORDS
-    spec = spec_from_jax(jax_get_spec("toric", 17))
+    assert MAX_WORDS == 12
+    assert -(-jax_get_spec("toric", 19).nq // 64) <= MAX_WORDS
+    spec = spec_from_jax(jax_get_spec("toric", 21))
     states = torch.zeros((2, spec.nq), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="words per plane"):
-        _launch(spec, states, 1, torch.zeros(3), 1, True, {})
+    for seeds in (None, torch.zeros(3, dtype=torch.int64)):
+        with pytest.raises(NotImplementedError, match="words per plane"):
+            _launch(spec, states, torch.zeros(3), steps=3, iters=1,
+                    equal_betas=True, seeds=seeds, device_tables={})
