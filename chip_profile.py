@@ -29,7 +29,15 @@ d=5, B=1024, p=0.1, p_sampling=0.25, droplets=4, steps=450), and prints:
    B=512, eta=10, p=0.20 as its alpha equivalent, max_steps=32955, the
    production window settings; chip_smoke.py phase 12) unprofiled and
    then under torch.profiler (as in 3), with the host's share of the
-   window loop: the part of the wall time in which the device is idle.
+   window loop: the part of the wall time in which the device is idle;
+8. STDC at the reference's default budget, streamed (toric d=9, B=1024,
+   droplets=10, steps=20000, stream="auto": 49 windows of 409 steps;
+   chip_smoke.py phase 16) unprofiled and under torch.profiler: busy and
+   host share, and the device ms split between the sweep kernel (one
+   launch a window), the merge's sorts and its elementwise, gather and
+   reduction kernels; then the same budget with conv_mult=2.0 at B=128,
+   with the conv_mult automaton's device ms per window (CUDA events,
+   ``decoders/streaming.py::stream_timing``).
 
 Window times are CUDA-event means over 3 launches after one warm-up
 (sampler times over 5), with the launch (lanes, threads and syndromes or
@@ -54,6 +62,7 @@ from chip_smoke import (
     BIASED_MAIN,
     PROD,
     STDC_MAIN,
+    STREAM_MAIN,
     _random_states,
     _sync_time,
     _time_ms,
@@ -63,6 +72,7 @@ from chip_smoke import (
     stdc_halves,
 )
 from mcmc_qec_tpu_torch.decoders import PTEQ, STDC, PTEQ_alpha, PTEQConfig
+from mcmc_qec_tpu_torch.decoders.streaming import stream_timing
 from mcmc_qec_tpu_torch.mcmc.ladder import (
     beta_ladder_alpha,
     beta_ladder_depolarizing,
@@ -100,9 +110,9 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
-def profile_decode(spec, states, run=None, name="PTEQ") -> None:
+def profile_decode(spec, states, run=None, name="PTEQ"):
     """One decode (``run(spec, states) -> (result, seconds)``, PTEQ by
-    default) under torch.profiler."""
+    default) under torch.profiler; returns {kernel name: [ms, count]}."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, dt = (run or decode)(spec, states)
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -116,6 +126,64 @@ def profile_decode(spec, states, run=None, name="PTEQ") -> None:
         by_name[e.name][1] += 1
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  {ms:10.3f} ms x {n:4d}  {name[:90]}", flush=True)
+    return by_name
+
+
+def kernel_split(by_name) -> str:
+    """Device ms by kind: the sweep kernel, sorts (cub radix and merge
+    sorts), copies, and the rest (elementwise, gather/scatter, reductions:
+    the merge's rank, sentinel and dedup kernels and the occupancy)."""
+    kinds = defaultdict(float)
+    for name, (ms, _) in by_name.items():
+        low = name.lower()
+        if "sweep_kernel" in low:
+            kinds["sweep kernel"] += ms
+        elif "sort" in low or "radix" in low:
+            kinds["sorts"] += ms
+        elif "memcpy" in low or "memset" in low:
+            kinds["copies"] += ms
+        else:
+            kinds["elementwise/gather/reduce"] += ms
+    return ", ".join(f"{k} {v:.1f} ms" for k, v in
+                     sorted(kinds.items(), key=lambda kv: -kv[1]))
+
+
+def stream_decode(spec, states, conv_mult=0.0):
+    """STDC at the reference's default budget (stream='auto')."""
+    m = STREAM_MAIN
+    return _sync_time(lambda: STDC(
+        spec, states, m["p"], m["p_sampling"], droplets=m["droplets"],
+        steps=m["steps"], seed=3, conv_mult=conv_mult, device="cuda"))
+
+
+def profile_stream() -> None:
+    """Section 8: the streamed STDC at the reference budget."""
+    m = STREAM_MAIN
+    spec = get_spec("toric", m["d"])
+    gen = torch.Generator(device="cuda").manual_seed(2028)
+    states = sample_depolarizing(gen, spec, m["p"], (m["B"],), device="cuda")
+    STDC(spec, states[: m["warm_B"]], m["p"], m["p_sampling"],
+         droplets=m["droplets"], steps=m["steps"], seed=1, stream=True,
+         device="cuda")
+    _, dt = stream_decode(spec, states)
+    print(f"streamed STDC toric d={m['d']} B={m['B']} droplets="
+          f"{m['droplets']} steps={m['steps']}: {m['B'] / dt:.2f} syn/s "
+          f"({dt:.2f} s)", flush=True)
+    by_name = profile_decode(spec, states, stream_decode, "streamed STDC")
+    print(f"streamed STDC device split: {kernel_split(by_name)}", flush=True)
+    Bc = m["conv_mult_B"]
+    stream_timing.enabled = True
+    try:
+        stream_timing.reset()
+        _, dt = stream_decode(spec, states[:Bc], conv_mult=2.0)
+        split = stream_timing.ms()
+        n = stream_timing.windows
+    finally:
+        stream_timing.enabled = False
+    print(f"streamed STDC conv_mult=2.0 B={Bc}: {Bc / dt:.2f} syn/s "
+          f"({dt:.2f} s), {n} windows; device ms per window: "
+          + ", ".join(f"{k} {v / n:.2f}" for k, v in split.items()),
+          flush=True)
 
 
 def stdc_decode(spec, states):
@@ -257,6 +325,7 @@ def main() -> int:
           f"converged {res.converged.mean():.4f}, buckets {list(res.buckets)}",
           flush=True)
     profile_decode(spec, states, alpha_decode, "PTEQ_alpha")
+    profile_stream()
     return 0
 
 

@@ -33,6 +33,14 @@ kernel against its plain PyTorch version on the card:
   failure rate; biased, alpha and even_odd PTEQ and the shortest-chain
   decoder at d=3 against the exact posterior; one general-branch window
   timed against the plain version at that cell's shape.
+- The counting decoders' bounded-memory streaming reduction, one K1
+  recording launch per stream window with the chains carried between
+  windows: STDC, STRC and STDC with conv_mult streamed against the
+  materialised decode at the bench key's shape; STDC at the reference's
+  default budget (toric d=9, B=1024, droplets=10 x steps=20000, 49 windows)
+  with its device-time split, peak memory and overflow bound, and one of
+  its window launches against the plain sampler; PTEQ with per-window
+  metrics against the same decode without them.
 
 Each phase prints one line; any failed phase exits non-zero.  The line
 before the last is a JSON record of the kernels (launches on the main
@@ -45,9 +53,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -67,7 +77,20 @@ from mcmc_qec_tpu_torch.decoders import (
 )
 from mcmc_qec_tpu_torch.decoders.pteq import _shortest_scan, init_shortest
 from mcmc_qec_tpu_torch.decoders.counting import SampleStream, sample_classes
-from mcmc_qec_tpu_torch.decoders.stdc import _class_seeds, _get_stdc_fn
+import mcmc_qec_tpu_torch.decoders.stdc as stdc_mod
+from mcmc_qec_tpu_torch.decoders.stdc import (
+    _class_seeds,
+    _get_stdc_fn,
+    _get_stdc_stream_fn,
+    _pick_stream_window,
+)
+from mcmc_qec_tpu_torch.decoders.streaming import (
+    STREAM_BYTES_PER_SAMPLE,
+    should_stream,
+    stream_deficit_bound,
+    stream_timing,
+)
+from mcmc_qec_tpu_torch.utils.metrics import MetricsLogger
 from mcmc_qec_tpu_torch.mcmc.ladder import (
     beta_ladder_alpha,
     beta_ladder_biased,
@@ -145,6 +168,18 @@ H2H_COUNTING = dict(p=0.15, p_sampling=0.25, droplets=2, steps=10000, seed=1)
 H2H_COUNTING_MAX_TV = 0.35
 H2H_COUNTING_MIN_RECOVERED = 44
 H2H_STDC_PTEQ_MAX_TV = 0.15
+# the streamed STDC/STRC against the materialised decode at STDC_MAIN's
+# shape: 8 windows of 64 steps (the last one 2), capacity 4096 >= the 1800
+# samples of a row, so nothing can be evicted
+STREAM_CHECK = dict(window=64, capacity=4096, conv_mult=2.0, max_diff=1e-3)
+# the reference's default budget (decoders.py:268) at toric d=9; stream
+# "auto" must resolve to the streaming path; peak memory bound
+STREAM_MAIN = dict(d=9, B=1024, p=0.1, p_sampling=0.25, droplets=10,
+                   steps=20000, warm_B=16, conv_mult_B=128, max_peak_gb=40.0,
+                   big_capacity=32768)
+# the materialised stream in the port's form: int64 key halves and int32
+# counts, 28 bytes a sample
+PORT_BYTES_PER_SAMPLE = 28
 
 # The least time the card could take (the larger of the bytes over the
 # memory rate and the operations over their issue rate).  H100 SXM HBM3
@@ -422,11 +457,29 @@ def phase_main_path() -> int:
         check(bool((d[res.converged].sum(axis=1) > 80).all()),
               "a converged row lost more than 20% to uint8 flooring")
     recovered = float(np.mean(d.argmax(axis=1) == truth))
+    # the same decode with a MetricsLogger: one pteq_window record per
+    # window, and the same percentages
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "metrics.jsonl")
+        logger = MetricsLogger(path)
+        ladder_window_counts.reset()
+        res_m, dt_m = _sync_time(lambda: PTEQ(spec, states, p, cfg, seed=7,
+                                              metrics=logger, device="cuda"))
+        logger.close()
+        with open(path) as fh:
+            recs = [json.loads(line) for line in fh]
+    n_rec = sum(r["event"] == "pteq_window" for r in recs)
+    check(np.array_equal(res_m.distribution, d),
+          "PTEQ with metrics changed the percentages")
+    check(n_rec == ladder_window_counts.launches,
+          f"{n_rec} pteq_window records for {ladder_window_counts.launches} "
+          f"windows")
     print(f"phase 4 PTEQ toric d=5 B={B} p={p} max_steps=24000 window=600 "
           f"iters=2 energy_chunk=12: {B / dt:.1f} syn/s ({dt:.2f} s), "
           f"converged {res.converged.mean():.3f}, windows run {launches}, "
-          f"buckets {list(res.buckets)}, truth recovered {recovered:.3f}",
-          flush=True)
+          f"buckets {list(res.buckets)}, truth recovered {recovered:.3f}; "
+          f"with metrics {B / dt_m:.1f} syn/s ({dt_m:.2f} s), {n_rec} "
+          f"pteq_window records, percentages identical", flush=True)
     return launches
 
 
@@ -1118,6 +1171,235 @@ def phase_general_timing():
                 bound_by=bound_by)
 
 
+def _peak(fn):
+    """(fn(), seconds, peak device bytes allocated during it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, dt = _sync_time(fn)
+    return out, dt, torch.cuda.max_memory_allocated()
+
+
+def phase_stream_parity():
+    """STDC, STRC and STDC with conv_mult=2.0 at the STDC main path's shape
+    (toric d=5, B=1024, droplets=4, steps=450), streamed in 8 windows of 64
+    steps against the materialised decode of the same seed: the same
+    samples, so STDC's percentages agree to float32 rounding (and the same
+    argmax wherever the top two classes are apart), STRC's are equal, and
+    conv_mult's agree on every cell whose droplets' key buffers never
+    overflowed.  One sweep-kernel launch per window, no plain call."""
+    spec = get_spec("toric", 5)
+    B, p, ps = STDC_MAIN["B"], STDC_MAIN["p"], STDC_MAIN["p_sampling"]
+    D, steps = STDC_MAIN["droplets"], STDC_MAIN["steps"]
+    W, cap, tol = (STREAM_CHECK[k] for k in ("window", "capacity", "max_diff"))
+    n_win = -(-steps // W)
+    gen = torch.Generator(device="cuda").manual_seed(2027)
+    states = sample_depolarizing(gen, spec, p, (B,), device="cuda")
+    kw = dict(droplets=D, steps=steps, device="cuda")
+    st_kw = dict(stream=True, stream_window=W, stream_capacity=cap)
+    # warm-up of both paths (allocator, sorts), not counted
+    STDC(spec, states, p, ps, seed=1, stream=False, **kw)
+    STDC(spec, states, p, ps, seed=1, **st_kw, **kw)
+    lines = []
+    mat, t_mat, m_mat = _peak(lambda: STDC(spec, states, p, ps, seed=3,
+                                           stream=False, **kw))
+    sweep_counts.reset()
+    streamed, t_str, m_str = _peak(lambda: STDC(spec, states, p, ps, seed=3,
+                                                **st_kw, **kw))
+    launches, plain = sweep_counts.launches, sweep_counts.plain_calls
+    check(launches == n_win, f"streamed STDC made {launches} sweep launches, "
+                             f"not {n_win}")
+    check(plain == 0, f"streamed STDC ran the plain sampler {plain} times")
+    diff = float(np.abs(streamed - mat).max())
+    check(diff <= tol, f"streamed STDC differs from materialised by {diff}")
+    top2 = np.sort(mat, axis=1)[:, -2:]
+    apart = (top2[:, 1] - top2[:, 0]) > 2 * tol
+    n_arg = int((mat.argmax(1) != streamed.argmax(1))[apart].sum())
+    check(n_arg == 0, f"streamed STDC changes the argmax of {n_arg} rows")
+    lines.append(f"STDC max |diff| {diff:.3g} (<= {tol}), argmax equal on "
+                 f"{int(apart.sum())} rows ({B - int(apart.sum())} near-ties), "
+                 f"{launches} sweep launches, streamed {B / t_str:.1f} syn/s "
+                 f"peak {m_str / 1e9:.3f} GB against materialised "
+                 f"{B / t_mat:.1f} syn/s peak {m_mat / 1e9:.3f} GB")
+
+    STRC(spec, states, p, ps, seed=1, **st_kw, **kw)  # warm-up
+    smat, t_smat, m_smat = _peak(lambda: STRC(spec, states, p, ps, seed=3,
+                                              stream=False, **kw))
+    sweep_counts.reset()
+    sstr, t_sstr, m_sstr = _peak(lambda: STRC(spec, states, p, ps, seed=3,
+                                              **st_kw, **kw))
+    check(sweep_counts.launches == n_win and sweep_counts.plain_calls == 0,
+          f"streamed STRC: {sweep_counts.launches} launches, "
+          f"{sweep_counts.plain_calls} plain calls")
+    n_bad = int((sstr != smat).sum())
+    check(n_bad == 0, f"streamed STRC differs from materialised in {n_bad} "
+                      f"entries")
+    lines.append(f"STRC equal, streamed {B / t_sstr:.1f} syn/s peak "
+                 f"{m_sstr / 1e9:.3f} GB against materialised "
+                 f"{B / t_smat:.1f} syn/s peak {m_smat / 1e9:.3f} GB")
+
+    cm = STREAM_CHECK["conv_mult"]
+    seeds = _class_seeds(spec, states)
+    bs, be = (torch.as_tensor(betas_depolarizing(x), dtype=torch.float32,
+                              device="cuda") for x in (ps, p))
+    f_mat = _get_stdc_fn(spec, D, steps, True, "off", cm, equal_betas=True)
+    f_str = _get_stdc_stream_fn(spec, D, steps, True, "off", cm, "auto",
+                                False, True, cap, W)
+    f_mat(seeds, 1, bs, be)  # warm-up
+    f_str(seeds, 1, bs, be)
+    (cmat, _), t_cmat, m_cmat = _peak(lambda: f_mat(seeds, 3, bs, be))
+    out, t_cstr, m_cstr = _peak(lambda: f_str(seeds, 3, bs, be))
+    kovf = out[-1].cpu().numpy()
+    # a cell's kovf moves every percentage of its syndrome (the softmax
+    # over classes), so compare the syndromes without any
+    ok = ~kovf.any(axis=1)
+    cdiff = float(np.abs(out[0].cpu().numpy() - cmat.cpu().numpy())[ok].max())
+    check(ok.any() and cdiff <= tol,
+          f"streamed conv_mult STDC differs by {cdiff} on rows without kovf")
+    lines.append(f"STDC conv_mult={cm} max |diff| {cdiff:.3g} on the "
+                 f"{int(ok.sum())} rows without kovf (kovf in "
+                 f"{int(kovf.sum())} of {kovf.size} cells), streamed "
+                 f"{B / t_cstr:.1f} syn/s peak {m_cstr / 1e9:.3f} GB against "
+                 f"materialised {B / t_cmat:.1f} syn/s peak "
+                 f"{m_cmat / 1e9:.3f} GB")
+    print(f"phase 15 streamed vs materialised, toric d=5 B={B} p={p} "
+          f"p_sampling={ps} droplets={D} steps={steps}, {n_win} windows of "
+          f"{W} (last {steps - (n_win - 1) * W}), capacity {cap}: "
+          + "; ".join(lines), flush=True)
+
+
+def _window_launch(spec, R, W, ps):
+    """One stream window's sweep-kernel launch at the reference budget's
+    shape (R chains, W recording steps, equal betas) against the plain
+    sampler on the same inputs: outputs equal; (ms, plain ms, err, bound,
+    bound_by)."""
+    states = _random_states(spec, R, seed=10)
+    b = torch.as_tensor(betas_depolarizing(ps), dtype=torch.float32,
+                        device="cuda")
+    seeds = torch.randint(0, 2**31 - 1, (W,),
+                          generator=torch.Generator().manual_seed(12))
+    rec = make_recording_sweep(spec, W, 1, equal_betas=True)
+    kern = rec(states, seeds, b)  # warm-up, kept for the comparison
+    ms = _time_ms(lambda: rec(states, seeds, b), 3)
+    plain_out = []
+    plain_ms = _time_ms(lambda: plain_out.append(sample_reference(
+        spec, states, seeds, b, 1, equal_betas=True)), 1)
+    err = compare_outputs_equal(f"window launch, {R} chains x {W} steps",
+                                kern, plain_out[0], states)
+    bound, bound_by = sampler_bound(spec, R, W, 1, True,
+                                    _nbytes(states, seeds, *kern))
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
+                bound_by=bound_by)
+
+
+def phase_stream_main_path():
+    """STDC at the reference's default budget (decoders.py:268): toric d=9,
+    B=1024 syndromes x 16 classes x 10 droplets = 163,840 chains, 20,000
+    steps, stream="auto" (which must pick the streaming path: the
+    materialised stream would be 91.8 GB).  49 windows of 409 steps, each
+    one sweep-kernel launch; prints syn/s, the device ms of the sampling
+    launches against the merges, peak memory, overflowed rows with the
+    worst relative Z-deficit bound, and the truth recovery.  Then the same
+    budget with conv_mult=2.0 at B=128, and one window launch against the
+    plain sampler."""
+    m = STREAM_MAIN
+    spec = get_spec("toric", m["d"])
+    K = spec.n_classes
+    B, p, ps, D, steps = (m[k] for k in ("B", "p", "p_sampling", "droplets",
+                                         "steps"))
+    R = B * K * D
+    W = _pick_stream_window(D, steps)
+    n_win = -(-steps // W)
+    check(should_stream("auto", B * K, D, steps),
+          "stream='auto' does not resolve to streaming at this budget")
+    gen = torch.Generator(device="cuda").manual_seed(2028)
+    states = sample_depolarizing(gen, spec, p, (B,), device="cuda")
+    truth = np_eq_class(spec, states.cpu().numpy())
+    kw = dict(droplets=D, steps=steps, device="cuda")
+    # warm-up at B=16 and the same budget (below 1 GiB, so forced)
+    STDC(spec, states[: m["warm_B"]], p, ps, seed=1, stream=True, **kw)
+    seen = {}
+    warn = stdc_mod.warn_stream_overflow
+
+    def record(overflow, max_kept, min_rank, n_samples, *args, **kwargs):
+        seen.update(overflow=overflow, bound=stream_deficit_bound(
+            overflow, max_kept, min_rank, n_samples))
+        return warn(overflow, max_kept, min_rank, n_samples, *args, **kwargs)
+
+    stdc_mod.warn_stream_overflow = record
+    stream_timing.enabled = True
+    try:
+        stream_timing.reset()
+        sweep_counts.reset()
+        distr, dt, peak = _peak(lambda: STDC(spec, states, p, ps, seed=3, **kw))
+        launches, plain = sweep_counts.launches, sweep_counts.plain_calls
+        windows = stream_timing.windows
+        split = stream_timing.ms()
+        main_seen = dict(seen)
+        # conv_mult at B=128 of the same budget (warm-up: two windows)
+        Bc = m["conv_mult_B"]
+        STDC(spec, states[: m["warm_B"]], p, ps, seed=1, stream=True,
+             conv_mult=2.0, droplets=D, steps=2 * W, device="cuda")
+        stream_timing.reset()
+        _, dt_c, peak_c = _peak(lambda: STDC(spec, states[:Bc], p, ps, seed=3,
+                                             conv_mult=2.0, **kw))
+        split_c = stream_timing.ms()
+        windows_c = stream_timing.windows
+        # what the capacity truncates: the B=128 decode again at 8 times
+        # the default capacity, same seed and samples
+        stream_timing.enabled = False
+        small = STDC(spec, states[:Bc], p, ps, seed=3, **kw)
+        big = STDC(spec, states[:Bc], p, ps, seed=3,
+                   stream_capacity=m["big_capacity"], **kw)
+    finally:
+        stdc_mod.warn_stream_overflow = warn
+        stream_timing.enabled = False
+    check(launches == n_win, f"{launches} sweep launches, not {n_win}")
+    check(windows == n_win, f"{windows} windows, not {n_win}")
+    check(plain == 0, f"the plain sampler ran {plain} times")
+    check(distr.shape == (B, K) and bool(np.isfinite(distr).all()),
+          f"percentages {distr.shape} not finite")
+    check(bool((np.abs(distr.sum(axis=1) - 100.0) < 1e-2).all()),
+          "percentages do not sum to 100")
+    check(peak < m["max_peak_gb"] * 1e9,
+          f"peak memory {peak / 1e9:.2f} GB >= {m['max_peak_gb']} GB")
+    materialised = B * K * D * steps * PORT_BYTES_PER_SAMPLE
+    recovered = float(np.mean(distr.argmax(axis=1) == truth))
+    n_ovf = int(main_seen["overflow"].sum())
+    worst = float(main_seen["bound"].max())
+    n_bad = int((main_seen["bound"] > 1e-9).sum())
+    cap_diff = float(np.abs(small - big).max())
+    cap_arg = int((small.argmax(1) != big.argmax(1)).sum())
+    cap_rec = float(np.mean(big.argmax(axis=1) == truth[:Bc]))
+    win = _window_launch(spec, R, W, ps)
+    print(f"phase 16 STDC at the reference budget, toric d={m['d']} B={B} "
+          f"p={p} p_sampling={ps} droplets={D} steps={steps}, stream='auto' "
+          f"(streams: {STREAM_BYTES_PER_SAMPLE}-byte model above 1 GiB): "
+          f"{B / dt:.2f} syn/s ({dt:.2f} s), {windows} windows of {W}, "
+          f"{launches} sweep launches; device ms: sampling "
+          f"{split.get('sample', 0.0):.1f}, merge {split.get('merge', 0.0):.1f} "
+          f"(per window {split.get('sample', 0.0) / windows:.2f} and "
+          f"{split.get('merge', 0.0) / windows:.2f}); peak "
+          f"{peak / 1e9:.2f} GB (materialised stream alone "
+          f"{materialised / 1e9:.1f} GB); overflowed (syndrome, class) "
+          f"rows {n_ovf} of {B * K}, worst relative Z-deficit bound "
+          f"{worst:.3g} ({n_bad} rows above the warning's 1e-9); truth "
+          f"recovered {recovered:.3f}; conv_mult=2.0 at B={Bc}: "
+          f"{Bc / dt_c:.2f} syn/s ({dt_c:.2f} s), peak {peak_c / 1e9:.2f} GB, "
+          f"per window: sampling {split_c.get('sample', 0.0) / windows_c:.2f} "
+          f"ms, conv_mult automaton "
+          f"{split_c.get('conv_mult', 0.0) / windows_c:.2f} ms, merge "
+          f"{split_c.get('merge', 0.0) / windows_c:.2f} ms; capacity 4096 "
+          f"against {m['big_capacity']} at B={Bc}: max |diff| {cap_diff:.3g} "
+          f"percentage points, argmax changed in {cap_arg} rows, truth "
+          f"recovered {cap_rec:.3f} at {m['big_capacity']}; one window launch "
+          f"({R} chains x {W} steps): kernel {win['ms']:.3f} ms, plain sampler "
+          f"{win['plain_ms']:.1f} ms, states, keys and counts equal, bound "
+          f"{win['bound_ms']:.4f} ms ({win['bound_by']}); launch: "
+          f"{sampler_launch_line(spec, R, True)}", flush=True)
+    win["launches"] = launches
+    return win
+
+
 def main() -> int:
     phase = "device"
     try:
@@ -1148,6 +1430,10 @@ def main() -> int:
         phase_exact_d3()
         phase = "general-branch window timing"
         gen = phase_general_timing()
+        phase = "streamed vs materialised STDC/STRC"
+        phase_stream_parity()
+        phase = "STDC at the reference budget, streamed"
+        k1_win = phase_stream_main_path()
     except PhaseFailed as e:
         print(f"FAILED phase {phase}: {e}", flush=True)
         return 1
@@ -1187,6 +1473,18 @@ def main() -> int:
         "plain_ms": k1["sampler"]["plain_ms"],
         "bound_ms": k1["sampler"]["bound_ms"],
         "bound_by": k1["sampler"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "sweep_sampler_window",
+        "route": "cuda",
+        "source": "mcmc_qec_tpu_torch/csrc/sweep.cu",
+        "replaces": "mcmc_qec_tpu/ops/pallas_sweep.py:42",
+        "launches": k1_win["launches"],
+        "max_abs_err": max(k1_err, k1_win["err"]),
+        "ms": k1_win["ms"],
+        "plain_ms": k1_win["plain_ms"],
+        "bound_ms": k1_win["bound_ms"],
+        "bound_by": k1_win["bound_by"],
         "library_ms": None,
     }, {
         "name": "ladder_window_general",

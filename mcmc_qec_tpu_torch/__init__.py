@@ -8,8 +8,10 @@ alpha noise with shortest-chain tracking (``decoders.PTEQ``,
 fused parallel-tempering window (CUDA kernel ``csrc/ladder_window.cu``,
 every branch); the exact posterior ``decoders.exact_mld``; the counting
 decoders STDC and STRC
-(``decoders.STDC``, ``decoders.STRC``) and their colored Metropolis sweep
-(CUDA kernel ``csrc/sweep.cu``).  The kernels are built with nvcc at first
+(``decoders.STDC``, ``decoders.STRC``), materialised or through the
+bounded-memory streaming reduction (``decoders/streaming.py``), with the
+``conv_mult`` early-stop rule, and their colored Metropolis sweep (CUDA
+kernel ``csrc/sweep.cu``); structured metrics (``utils.metrics``).  The kernels are built with nvcc at first
 use on a CUDA device; entry points run on the card unless the caller asks
 for the CPU.  Importing this package imports neither jax nor triton.
 """

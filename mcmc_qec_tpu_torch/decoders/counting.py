@@ -1,10 +1,10 @@
 """On-device unique-chain counting and occupancy statistics.
 
-Counterpart of ``mcmc_qec_tpu/decoders/counting.py`` for the materialised
-path.  Every chain visit is recorded on the device as a 64-bit content key
-(two 32-bit universal hashes, ``ops/pauli.py::pack_key``, held as int64
-values in [0, 2**32)) plus per-Pauli counts; a sort along the sample axis
-marks first occurrences and segment reductions produce:
+Counterpart of ``mcmc_qec_tpu/decoders/counting.py``.  Every chain visit is
+recorded on the device as a 64-bit content key (two 32-bit universal
+hashes, ``ops/pauli.py::pack_key``, held as int64 values in [0, 2**32))
+plus per-Pauli counts; a sort along the sample axis marks first
+occurrences and segment reductions produce:
 
 - Z_DC       = sum over *unique* chains of exp(-beta_err . n_xyz)   (STDC)
 - m(n), N(n) = total / unique observations per length               (STRC)
@@ -17,13 +17,17 @@ order (time order) equal ``jnp.lexsort``'s.  The float sums of the
 reductions run in torch's order, not XLA's, so log Z agrees with the JAX
 package to float32 rounding, not bit for bit.
 
-Not ported yet (``NotImplementedError``): validity masks (the ``conv_mult``
-early-stop rule, ``conv_mult_valid_mask``) and the other sampler engines.
+A ``valid`` mask (the ``conv_mult`` early-stop rule,
+``conv_mult_valid_mask``) restricts the counts to the un-masked samples.
+The bounded-memory form of the same reductions is ``decoders/streaming.py``.
+Not ported yet (``NotImplementedError``): the ``literal``/``sweep`` sampler
+engines (ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,9 +35,6 @@ from ..models.base import CodeSpec
 from ..ops.engines import resolve_engine
 from ..ops.pauli import apply_stabilizers_uniform
 from ..ops.sweep import make_recording_sweep
-
-_NO_VALID = ("validity masks (the conv_mult early-stop rule, "
-             "conv_mult_valid_mask) are not ported yet: ROADMAP.md queue 1")
 
 
 class SampleStream(NamedTuple):
@@ -43,8 +44,17 @@ class SampleStream(NamedTuple):
     n_xyz: torch.Tensor  # (..., N, 3) int32
 
 
-def make_sampler(spec: CodeSpec, steps: int, iters_per_step: int = 1,
-                 engine: str = "pallas", equal_betas: bool = False):
+def step_seeds(seed: int, steps: int) -> torch.Tensor:
+    """The (steps,) int64 per-step kernel seeds of a sampling loop under
+    ``seed``, drawn on a CPU ``torch.Generator`` so nothing waits for the
+    device.  The streaming path draws the same seeds and hands each window
+    its slice, so both paths sample the same chains."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return torch.randint(0, 2**31 - 1, (steps,), generator=gen)
+
+
+def make_sampler(spec: CodeSpec, steps: int, iters_per_step: int = 5,
+                 engine: str = "literal", equal_betas: bool = False):
     """Build ``sample(states, seed, betas) -> (states, SampleStream)``.
 
     Each of ``steps`` recording steps runs ``iters_per_step`` colored sweeps
@@ -52,25 +62,66 @@ def make_sampler(spec: CodeSpec, steps: int, iters_per_step: int = 1,
     counts on the states' device: on a CUDA tensor the whole loop is one
     launch of the sweep kernel (``ops/sweep.py::make_recording_sweep``), on
     a CPU tensor its plain version.  ``states``: (..., nq) u8; stream axes
-    (..., steps).  Per-step kernel seeds come from a CPU
-    ``torch.Generator`` seeded with ``seed``, so nothing waits for the
-    device.  ``betas`` (3,) f32: pass a tensor on the device (a host array
-    is copied once per call)."""
+    (..., steps).  Per-step kernel seeds are ``step_seeds(seed, steps)``.
+    ``betas`` (3,) f32: pass a tensor on the device (a host array is copied
+    once per call).  The defaults are the JAX package's (counting.py:39);
+    its ``literal`` engine is not ported yet and raises, so the decoders
+    pass ``iters_per_step=1, engine="auto"`` (one colored sweep per
+    recorded step, as the JAX ``sweep``/``pallas`` engines run)."""
     resolve_engine(engine, "counting")
     sampler = make_recording_sweep(spec, steps, iters_per_step, equal_betas)
 
     def sample(states: torch.Tensor, seed: int, betas):
         batch_shape, nq = states.shape[:-1], states.shape[-1]
         flat = states.reshape(-1, nq).contiguous()
-        gen = torch.Generator().manual_seed(int(seed))
-        seeds = torch.randint(0, 2**31 - 1, (steps,), generator=gen)
-        flat, keys, nxyz = sampler(flat, seeds, betas)
+        flat, keys, nxyz = sampler(flat, step_seeds(seed, steps), betas)
         return flat.reshape(states.shape), SampleStream(
             keys.reshape(batch_shape + (steps, 2)),
             nxyz.reshape(batch_shape + (steps, 3)),
         )
 
     return sample
+
+
+@functools.lru_cache(maxsize=None)
+def _recording_sweep(spec: CodeSpec, steps: int, iters_per_step: int,
+                     equal_betas: bool):
+    return make_recording_sweep(spec, steps, iters_per_step, equal_betas)
+
+
+def make_chunk_sampler(spec: CodeSpec, R: int, D: int, betas,
+                       iters_per_step: int = 1, equal_betas: bool = False):
+    """The streaming path's sampler (``streaming.py::streaming_scan``):
+    ``chunk(states (R*D, nq), seeds_w) -> (states, keys (R, D, n, 2),
+    n_xyz (R, D, n, 3))`` runs ``n = len(seeds_w)`` recording steps, one
+    step per seed, over every chain: one launch of the sweep kernel on a
+    CUDA tensor, the plain sampler on a CPU tensor.  The chains keep their
+    row order from window to window, so with the seeds of ``step_seeds``
+    the windows record what one materialised launch records."""
+
+    def chunk(states: torch.Tensor, seeds_w):
+        n = len(seeds_w)
+        sampler = _recording_sweep(spec, n, iters_per_step, equal_betas)
+        states, keys, nxyz = sampler(states, seeds_w, betas)
+        return states, keys.view(R, D, n, 2), nxyz.view(R, D, n, 3)
+
+    return chunk
+
+
+def class_droplets(spec: CodeSpec, class_states: torch.Tensor, seed: int,
+                   droplets: int, randomize: bool):
+    """(states (B, K, droplets, nq), sampling seed): ``droplets`` chains per
+    (syndrome, class) seed of ``class_states`` (B, K, nq), rained first when
+    ``randomize`` (decoders.py:244-246).  The rain and the sampling seed are
+    drawn from ``seed``, the same for the materialised and streamed paths."""
+    B, K, nq = class_states.shape
+    gen = torch.Generator().manual_seed(int(seed))
+    rain_seed, samp_seed = torch.randint(0, 2**62, (2,), generator=gen).tolist()
+    states = class_states[:, :, None, :].expand(B, K, droplets, nq).contiguous()
+    if randomize:
+        rain = torch.Generator(device=states.device).manual_seed(rain_seed)
+        states = apply_stabilizers_uniform(spec, states, rain, 0.5)
+    return states, samp_seed
 
 
 def sample_classes(spec: CodeSpec, sampler, class_states: torch.Tensor,
@@ -81,13 +132,9 @@ def sample_classes(spec: CodeSpec, sampler, class_states: torch.Tensor,
     steps) and merge each (syndrome, class)'s droplets into one stream
     (B, K, droplets * steps, ...), droplet-major as in the JAX decoders.
     ``randomize`` rains every droplet first (decoders.py:244-246)."""
-    B, K, nq = class_states.shape
-    gen = torch.Generator().manual_seed(int(seed))
-    rain_seed, samp_seed = torch.randint(0, 2**62, (2,), generator=gen).tolist()
-    states = class_states[:, :, None, :].expand(B, K, droplets, nq).contiguous()
-    if randomize:
-        rain = torch.Generator(device=states.device).manual_seed(rain_seed)
-        states = apply_stabilizers_uniform(spec, states, rain, 0.5)
+    B, K, _ = class_states.shape
+    states, samp_seed = class_droplets(spec, class_states, seed, droplets,
+                                       randomize)
     _, stream = sampler(states, samp_seed, betas_sampling)
     return SampleStream(stream.keys.reshape(B, K, droplets * steps, 2),
                         stream.n_xyz.reshape(B, K, droplets * steps, 3))
@@ -123,6 +170,70 @@ def chronological_first_occurrence(keys: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(first_sorted).scatter(-1, order, first_sorted)
 
 
+def conv_mult_valid_mask(keys: torch.Tensor, n: torch.Tensor,
+                         conv_mult: float, steps: int,
+                         t: Optional[torch.Tensor] = None,
+                         step_end: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Per-sample validity under the reference's shortest-chain extension
+    rule (counting.py:138-178; decoders.py:249-263): every *new* chain with
+    length <= the running shortest extends the stop point to step *
+    conv_mult; sampling ends at the first step with step >= stop and
+    step*100 >= steps.  ``keys`` (..., N, 2), ``n`` (..., N) lengths;
+    returns (..., N) bool.
+
+    ``t`` optionally gives each sample's step index (default: its position)
+    and ``step_end`` marks each step's last sample, the only samples at
+    which the rule may break (the PT variants record several rungs per
+    step, decoders.py:146-161).
+
+    The JAX package runs the rule as a scan; here it is closed-form, with
+    the same float32 arithmetic: the running shortest before a sample is
+    an exclusive ``cummin`` of n over first occurrences (a first occurrence
+    at or below it is exactly a new shortest), the stop point after a
+    sample is conv_mult times the step of the last new shortest so far (a
+    ``cummax`` of positions), and a sample is valid while no earlier
+    sample broke (an exclusive cumulative OR)."""
+    first = chronological_first_occurrence(keys)
+    N = n.shape[-1]
+    dev = n.device
+    pos = torch.arange(N, device=dev)
+    tf = (pos if t is None else torch.as_tensor(t, device=dev))
+    tf = tf.to(torch.float32).expand(n.shape)
+    init = n.amax(-1, keepdim=True) + 1
+    running = torch.cummin(torch.where(first, n, init), -1).values
+    before = torch.cat([init, running[..., :-1]], -1)
+    new_short = first & (n <= before)
+    last = torch.cummax(torch.where(new_short, pos, -1), -1).values
+    stop = torch.where(last >= 0, tf.gather(-1, last.clamp(min=0)) * conv_mult,
+                       torch.tensor(float(steps), dtype=torch.float32,
+                                    device=dev))
+    breaks = (tf >= stop) & (tf * 100 >= steps)
+    if step_end is not None:
+        breaks = breaks & torch.as_tensor(step_end, device=dev)
+    broken = torch.cumsum(breaks.to(torch.int32), -1) > 0
+    valid = torch.ones_like(broken)
+    valid[..., 1:] = ~broken[..., :-1]
+    return valid
+
+
+def _sorted_first(keys: torch.Tensor, valid: Optional[torch.Tensor]):
+    """(order, first) of a (R, N, 2) stream sorted by key: ``first`` marks
+    each key's first sample, or with ``valid`` (R, N) its first valid
+    sample (counting.py:222-232: valid samples sort ahead within a key,
+    so a key counts iff one of its samples is valid)."""
+    if valid is None:
+        sk, order = torch.sort(_sort_key(keys), dim=-1, stable=True)
+        return order, _first_of_runs(sk)
+    # (key, invalid) lexicographically: stable sort on the minor key, then
+    # stable sort on the major one
+    _, by_valid = torch.sort((~valid).to(torch.uint8), dim=-1, stable=True)
+    k = _sort_key(keys).gather(-1, by_valid)
+    sk, o2 = torch.sort(k, dim=-1, stable=True)
+    order = by_valid.gather(-1, o2)
+    return order, _first_of_runs(sk) & valid.gather(-1, order)
+
+
 def _weighted_length(n_xyz: torch.Tensor, betas) -> torch.Tensor:
     """sum_i beta_i * n_i with 0 * inf := 0 (p_i = 0 handling,
     decoders.py:406-417)."""
@@ -142,16 +253,15 @@ def z_direct_count(
     (counting.py:188-258; decoders.py:317-318, 406-417).  With
     ``shortest_only`` only chains within ~1e-5 of the minimal weighted
     length contribute; ``with_shortest`` returns (log Z, log Z_shortest)
-    from the one sorted stream.  Vectorised over leading axes: returns
-    log Z (...,) f32."""
-    if valid is not None:
-        raise NotImplementedError(_NO_VALID)
+    from the one sorted stream.  ``valid`` (..., N) restricts the count to
+    un-masked samples (the conv_mult rule).  Vectorised over leading axes:
+    returns log Z (...,) f32."""
     lead, N = stream.keys.shape[:-2], stream.keys.shape[-2]
     keys = stream.keys.reshape(-1, N, 2)
     w_all = _weighted_length(stream.n_xyz.reshape(-1, N, 3), betas_error)
-    sk, order = torch.sort(_sort_key(keys), dim=-1, stable=True)
+    order, first = _sorted_first(
+        keys, None if valid is None else valid.reshape(-1, N))
     w = w_all.gather(-1, order)
-    first = _first_of_runs(sk)
     neg = -w
 
     def reduce(mask):
@@ -180,19 +290,19 @@ class OccupancyStats(NamedTuple):
 
 def occupancy_stats(stream: SampleStream, nq: int, valid=None) -> OccupancyStats:
     """m(n), N(n) and shortest/next-shortest lengths (counting.py:270-307;
-    STRC machinery, decoders.py:597-623, 768-827).  int32 outputs."""
-    if valid is not None:
-        raise NotImplementedError(_NO_VALID)
+    STRC machinery, decoders.py:597-623, 768-827), over the samples of
+    ``valid`` (..., N) when given.  int32 outputs."""
     lead, N = stream.keys.shape[:-2], stream.keys.shape[-2]
     keys = stream.keys.reshape(-1, N, 2)
     n_all = stream.n_xyz.reshape(-1, N, 3).sum(-1)  # int64
-    sk, order = torch.sort(_sort_key(keys), dim=-1, stable=True)
-    n = n_all.gather(-1, order)
-    first = _first_of_runs(sk)
+    v = None if valid is None else valid.reshape(-1, N)
+    order, first = _sorted_first(keys, v)
     i32 = torch.int32
     zeros = torch.zeros((keys.shape[0], nq + 2), dtype=i32, device=keys.device)
-    m_n = zeros.scatter_add(-1, n, torch.ones_like(n, dtype=i32))[:, : nq + 1]
-    N_n = zeros.scatter_add(-1, n, first.to(i32))[:, : nq + 1]
+    seen = torch.ones_like(n_all, dtype=i32) if v is None else v.to(i32)
+    m_n = zeros.scatter_add(-1, n_all, seen)[:, : nq + 1]
+    N_n = zeros.scatter_add(-1, n_all.gather(-1, order),
+                            first.to(i32))[:, : nq + 1]
     idx = torch.arange(nq + 1, dtype=i32, device=keys.device)
     has = m_n > 0
     shortest = torch.where(has, idx, nq + 1).amin(-1)

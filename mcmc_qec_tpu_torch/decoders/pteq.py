@@ -25,8 +25,10 @@ and its per-step class and chain-hash traces update the state step by step
 (pteq.py:258-298 of the JAX package); rows are flushed to the host when
 they leave the batch and at the end (pteq.py:443-470, 686-690, 821-842).
 
-Not ported yet (raise ``NotImplementedError``): checkpointing and
-per-window metrics.
+``metrics`` (a ``utils.metrics.MetricsLogger``) gets one ``pteq_window``
+record per window (pteq.py:610-632 of the JAX package), built from the
+summaries the window fetch already brings to the host.  Not ported yet
+(raises ``NotImplementedError``): checkpointing.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from ..mcmc.ladder import (
 from ..models.base import CodeSpec
 from ..ops.engines import resolve_device, resolve_engine
 from ..ops.ladder_window import make_ladder_window
+from ..utils.metrics import effective_sample_size
 from .convergence import EnergyHistory
 
 
@@ -286,12 +289,8 @@ def pteq_run(
     if cfg.ckpt_dir:
         raise NotImplementedError(
             "ckpt_dir: checkpoint/resume is not ported yet (ROADMAP.md queue "
-            "1, 'Pipeline + CLI')"
-        )
-    if metrics is not None:
-        raise NotImplementedError(
-            "metrics: per-window metrics are not ported yet (ROADMAP.md queue "
-            "1, 'Multi-device + utils')"
+            "1 item 5, 'Matching, pipeline, checkpointing, multi-device, CLI "
+            "and benchmark')"
         )
     if not isinstance(init_states, torch.Tensor):
         init_states = torch.as_tensor(np.asarray(init_states, np.uint8))
@@ -363,15 +362,38 @@ def pteq_run(
     steps_done = 0
     n_windows = max(1, cfg.max_steps // cfg.window)
 
-    def process_window(fetch):
-        """Advance the convergence automaton with one window's summaries."""
+    def log_window(w, energies, tops_now, swap_window, W):
+        """The JAX package's ``pteq_window`` record (pteq.py:610-632)."""
+        real = rows >= 0
+        ess = float(np.mean([effective_sample_size(energies[:, b])
+                             for b in np.nonzero(real)[0]])) \
+            if real.any() else 0.0
+        metrics.log(
+            "pteq_window",
+            window=w,
+            steps_done=steps_done,
+            swap_accept_rate=(swap_window[real].mean(axis=0) / W).tolist()
+            if real.any() else [],
+            tops0_rate=float(tops_now[real].mean()) / max(steps_done, 1),
+            energy_ess_per_window=ess,
+            energy_mean=float(energies[:, real].mean()) if real.any() else 0.0,
+            converged=int(converged.sum()),
+            batch_rows=int(Br),
+        )
+
+    def process_window(w, fetch):
+        """Advance the convergence automaton with window ``w``'s
+        summaries."""
         nonlocal steps_done, in_streak
-        energies, burn_any, burn_first, tops_now, _, sb, ec = fetch
+        energies, burn_any, burn_first, tops_now, swap_window, sb, ec = fetch
         newly = (burn_start < 0) & burn_any
         if newly.any():
             burn_start[newly] = steps_done + burn_first[newly]
-        steps_done += energies.shape[0] * C
+        W = energies.shape[0] * C
+        steps_done += W
         hist.append(energies)
+        if metrics is not None:
+            log_window(w, energies, tops_now, swap_window, W)
         if cfg.conv_criteria != "error_based":
             return
         real = rows >= 0
@@ -430,14 +452,14 @@ def pteq_run(
         Br = new_Br
         buckets.append(new_Br)
 
-    for _ in range(n_windows):
+    for w in range(n_windows):
         w_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
         args = (ls, w_seed, betas, eq_count, since_burn, weights)
         out = window_fn(*args, sh) if track_shortest else window_fn(*args)
         ls, eq_count, since_burn = out[:3]
         if track_shortest:
             sh = out[8]
-        process_window(_fetch(out))
+        process_window(w, _fetch(out))
         if converged.all():
             break
         new_Br = compact_to()

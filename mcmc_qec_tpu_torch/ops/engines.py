@@ -19,9 +19,9 @@ import torch
 
 VALID_ENGINES = ("auto", "literal", "sweep", "pallas", "fused")
 
-_LITERAL = ("ROADMAP.md queue 1 item 'The other engines' "
+_LITERAL = ("ROADMAP.md queue 1 item 3, 'The other engines' "
             "(ops/metropolis.py literal stepper)")
-_SWEEP = ("ROADMAP.md queue 1 item 'The other engines' "
+_SWEEP = ("ROADMAP.md queue 1 item 3, 'The other engines' "
           "(ops/dense_sweep.py::make_dense_sweep)")
 
 _PORTED = {"pteq": ("fused", ("auto", "fused")),
@@ -30,7 +30,7 @@ _PORTED = {"pteq": ("fused", ("auto", "fused")),
 _NOT_PORTED = {
     "pteq": {"literal": _LITERAL, "sweep": _SWEEP,
              "pallas": "the PT ladder on the sweep kernel: "
-                       "ROADMAP.md queue 1 item 'The other engines' "
+                       "ROADMAP.md queue 1 item 3, 'The other engines' "
                        "(mcmc/ladder.py::make_ladder_step)"},
     # the JAX counting sampler runs the literal chain update for "fused"
     "counting": {"literal": _LITERAL, "sweep": _SWEEP, "fused": _LITERAL},

@@ -114,7 +114,8 @@ def apply_stabilizers_uniform(spec: CodeSpec, state: torch.Tensor,
 def pack_key(spec: CodeSpec, state: torch.Tensor, mults) -> torch.Tensor:
     """64-bit content key of a chain as two 32-bit universal hashes
     (pauli.py:139-148): (..., 2) int64 holding the JAX uint32 values.
-    Each product is below 2**34 and a sum over nq <= 512 qubits below 2**43,
+    Each product is below 2**34 and a sum over nq <= 768 qubits (the
+    kernels' widest code, toric d=19 at 12 words per plane) below 2**44,
     so the int64 sum is exact and masking it to 32 bits is the JAX uint32
     wraparound.  ``mults`` is the (2, nq) numpy table of
     ``make_hash_mults`` or that table as an int64 tensor on the state's

@@ -169,13 +169,27 @@ def test_z_direct_count_within_tolerance(betas):
 
 
 def test_validity_masks_not_ported_raise():
+    """``valid=`` raised before the streaming slice; it is ported now, so
+    the calls that raised run and agree with the JAX package: an all-true
+    mask gives the maskless result bit for bit, and a random mask the JAX
+    one (log Z within LOGZ_ATOL, occupancy equal)."""
     _, keys, nxyz = _stream(seed=5, lead=(1,), N=20)
-    _, ts = _both(keys, nxyz)
+    js, ts = _both(keys, nxyz)
+    b = np.ones(3, np.float32)
     valid = torch.ones(keys.shape[:-1], dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        tc.z_direct_count(ts, np.ones(3, np.float32), valid=valid)
-    with pytest.raises(NotImplementedError):
-        tc.occupancy_stats(ts, 18, valid=valid)
+    assert torch.equal(tc.z_direct_count(ts, b, valid=valid),
+                       tc.z_direct_count(ts, b))
+    for a, c in zip(tc.occupancy_stats(ts, 18, valid=valid),
+                    tc.occupancy_stats(ts, 18)):
+        assert torch.equal(a, c)
+    v = np.random.RandomState(1).uniform(size=keys.shape[:-1]) < 0.5
+    np.testing.assert_allclose(
+        tc.z_direct_count(ts, b, valid=torch.as_tensor(v)).numpy(),
+        np.asarray(jc.z_direct_count(js, jnp.asarray(b), valid=jnp.asarray(v))),
+        rtol=0, atol=LOGZ_ATOL)
+    for a, c in zip(tc.occupancy_stats(ts, 18, valid=torch.as_tensor(v)),
+                    jc.occupancy_stats(js, 18, valid=jnp.asarray(v))):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
 
 
 def test_sampler_records_every_step():
@@ -187,7 +201,8 @@ def test_sampler_records_every_step():
     s0 = torch.as_tensor(_states(spec, 6, seed=7).reshape(2, 3, spec.nq))
     betas = torch.as_tensor(betas_depolarizing(0.2), dtype=torch.float32)
     steps = 5
-    final, stream = tc.make_sampler(spec, steps, equal_betas=True)(s0, 11, betas)
+    final, stream = tc.make_sampler(spec, steps, iters_per_step=1,
+                                    engine="auto", equal_betas=True)(s0, 11, betas)
     assert stream.keys.shape == (2, 3, steps, 2)
     assert stream.n_xyz.shape == (2, 3, steps, 3)
     sweep = make_sweep(spec, 1, equal_betas=True)

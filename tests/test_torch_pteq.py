@@ -112,7 +112,7 @@ def _run_with(change):
     dict(cfg=dict(engine="sweep")),
     dict(cfg=dict(engine="literal")),
     dict(cfg=dict(ckpt_dir="ckpt")),
-    dict(run=dict(metrics=object())),
+    dict(cfg=dict(engine="pallas")),
 ])
 def test_options_not_ported_raise(change):
     with pytest.raises(NotImplementedError):

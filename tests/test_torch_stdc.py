@@ -2,8 +2,8 @@
 through the plain sweep, against exact posteriors (the patterns and bars of
 tests/test_decoders.py) and against the JAX STDC; plus the slice's
 contract: no kernel launches on the CPU, a CUDA request fails here, the
-options still to port raise, and the package imports neither jax nor
-triton.
+options still to port raise (the ported ones run), and the package
+imports neither jax nor triton.
 
 The port samples one colored sweep per recorded step, as the JAX
 ``sweep``/``pallas`` engines do, so steps are sized as
@@ -181,14 +181,12 @@ def test_cuda_device_fails_without_a_card():
 
 
 @pytest.mark.parametrize("fn,change", [
-    ("STDC", dict(stream=True)),
-    ("STDC", dict(conv_mult=2.0)),
-    ("STDC", dict(metrics=object())),
     ("STDC", dict(engine="literal")),
     ("STDC", dict(engine="sweep")),
-    ("STRC", dict(stream=True)),
-    ("STRC", dict(conv_mult=2.0)),
+    ("STDC", dict(engine="fused")),
+    ("STRC", dict(engine="literal")),
     ("STRC", dict(engine="sweep")),
+    ("STRC", dict(engine="fused")),
 ])
 def test_options_not_ported_raise(fn, change):
     _, spec, s0 = _syndrome_state("planar", 3)
@@ -196,6 +194,28 @@ def test_options_not_ported_raise(fn, change):
     with pytest.raises(NotImplementedError):
         decoder(spec, s0[None], 0.1, 0.25, droplets=2, steps=10,
                 device="cpu", **change)
+
+
+@pytest.mark.parametrize("fn,change", [
+    ("STDC", dict(stream=True)),
+    ("STDC", dict(conv_mult=2.0)),
+    ("STDC", dict(metrics="logger")),
+    ("STRC", dict(stream=True)),
+    ("STRC", dict(conv_mult=2.0)),
+])
+def test_options_ported_since_run(fn, change, tmp_path):
+    """The options the first counting slice refused (the streaming
+    reduction, conv_mult, metrics) now decode to normalised percentages."""
+    from mcmc_qec_tpu_torch.utils.metrics import MetricsLogger
+
+    _, spec, s0 = _syndrome_state("planar", 3)
+    decoder = {"STDC": STDC, "STRC": STRC}[fn]
+    if change.get("metrics"):
+        change = dict(metrics=MetricsLogger(str(tmp_path / "m.jsonl")))
+    distr = decoder(spec, s0[None], 0.1, 0.25, droplets=2, steps=10,
+                    device="cpu", **change)
+    assert distr.shape == (1, spec.n_classes)
+    np.testing.assert_allclose(distr.sum(-1), 100.0, rtol=1e-5)
 
 
 @pytest.mark.parametrize("stream,rows,droplets,steps", [
@@ -216,14 +236,28 @@ def test_stream_knob_rejects_other_strings():
         should_stream("off", 1, 1, 1)
 
 
-def test_auto_stream_above_one_gib_raises():
-    """stream='auto' would switch to the streaming reduction here
-    (16384 rows x 4 droplets x 1e5 steps x 20 B > 1 GiB)."""
+def test_auto_stream_above_one_gib_raises(monkeypatch):
+    """stream='auto' switches to the streaming reduction here (16384 rows
+    x 4 droplets x 1e5 steps x 20 B > 1 GiB).  That path is ported now and
+    too long to run here, so its factory is replaced by one that raises:
+    the decode must reach it, and with stream=False must not."""
+    import mcmc_qec_tpu_torch.decoders.stdc as stdc_mod
+
+    class Streamed(Exception):
+        pass
+
+    def streamed(*args):
+        raise Streamed(args)
+
+    monkeypatch.setattr(stdc_mod, "_get_stdc_stream_fn", streamed)
     _, spec, _ = _syndrome_state("planar", 3)
     seeds = np.zeros((4096, spec.n_classes, spec.nq), np.uint8)
     b = betas_depolarizing(0.1)
-    with pytest.raises(NotImplementedError, match="streaming"):
+    with pytest.raises(Streamed):
         stdc_run(spec, seeds, b, b, droplets=4, steps=100000, device="cpu")
+    small = np.zeros((1, spec.n_classes, spec.nq), np.uint8)
+    distr, _ = stdc_run(spec, small, b, b, droplets=1, steps=4, device="cpu")
+    assert distr.shape == (1, spec.n_classes)
 
 
 @pytest.mark.parametrize("fn", [PTEQ, pteq_run, STDC, stdc_run,

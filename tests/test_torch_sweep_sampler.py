@@ -85,7 +85,8 @@ def test_plain_sampler_equals_the_per_step_loop(family, d, equal_betas, iters):
 
     # make_sampler: the same stream on a (2, 6) batch, one plain call
     sw.sweep_counts.reset()
-    final, stream = make_sampler(spec, steps, iters, equal_betas=equal_betas)(
+    final, stream = make_sampler(spec, steps, iters, engine="auto",
+                                 equal_betas=equal_betas)(
         s0.reshape(2, 6, spec.nq), seed, betas)
     assert (sw.sweep_counts.launches, sw.sweep_counts.plain_calls) == (0, 1)
     assert torch.equal(final.reshape(-1, spec.nq), flat)
