@@ -1,5 +1,5 @@
-"""Where the time of PTEQ decodes and of an STDC decode goes, on one
-NVIDIA GPU.
+"""Where the time of PTEQ decodes, of STDC decodes and of a PTDC decode
+goes, on one NVIDIA GPU.
 
     python3 chip_profile.py
 
@@ -37,7 +37,14 @@ d=5, B=1024, p=0.1, p_sampling=0.25, droplets=4, steps=450), and prints:
    launch a window), the merge's sorts and its elementwise, gather and
    reduction kernels; then the same budget with conv_mult=2.0 at B=128,
    with the conv_mult automaton's device ms per window (CUDA events,
-   ``decoders/streaming.py::stream_timing``).
+   ``decoders/streaming.py::stream_timing``);
+9. PTDC at the JAX pipeline's defaults (toric d=5, B=1024, droplets=4,
+   Nc=5, steps=15625: 3125 ladder steps, streamed; chip_smoke.py phase 18)
+   unprofiled and under torch.profiler: busy and host share, device ms by
+   kernel kind (the sweep kernel, one launch a ladder step; the merge's
+   sorts; the exchange's and the records' elementwise, gather and scatter
+   kernels; copies), and the device kernels and the runtime's launch
+   calls per ladder step.
 
 Window times are CUDA-event means over 3 launches after one warm-up
 (sampler times over 5), with the launch (lanes, threads and syndromes or
@@ -61,6 +68,7 @@ import mcmc_qec_tpu_torch.ops.sweep as sw
 from chip_smoke import (
     BIASED_MAIN,
     PROD,
+    PT_MAIN,
     STDC_MAIN,
     STREAM_MAIN,
     _random_states,
@@ -71,7 +79,7 @@ from chip_smoke import (
     sampler_launch_line,
     stdc_halves,
 )
-from mcmc_qec_tpu_torch.decoders import PTEQ, STDC, PTEQ_alpha, PTEQConfig
+from mcmc_qec_tpu_torch.decoders import PTDC, PTEQ, STDC, PTEQ_alpha, PTEQConfig
 from mcmc_qec_tpu_torch.decoders.streaming import stream_timing
 from mcmc_qec_tpu_torch.mcmc.ladder import (
     beta_ladder_alpha,
@@ -184,6 +192,46 @@ def profile_stream() -> None:
           f"({dt:.2f} s), {n} windows; device ms per window: "
           + ", ".join(f"{k} {v / n:.2f}" for k, v in split.items()),
           flush=True)
+
+
+def profile_ptdc() -> None:
+    """Section 9: PTDC at the JAX pipeline's defaults, streamed."""
+    m = PT_MAIN
+    spec = get_spec("toric", m["d"])
+    gen = torch.Generator(device="cuda").manual_seed(2029)
+    states = sample_depolarizing(gen, spec, m["p"], (m["B"],), device="cuda")
+    n_steps = m["steps"] // m["Nc"]
+    kw = dict(droplets=m["droplets"], Nc=m["Nc"], device="cuda")
+    PTDC(spec, states[: m["warm_B"]], m["p"], steps=m["Nc"] * m["window"],
+         seed=1, stream=True, **kw)
+
+    def run(spec, states):
+        return _sync_time(lambda: PTDC(spec, states, m["p"], steps=m["steps"],
+                                       seed=3, **kw))
+
+    _, dt = run(spec, states)
+    print(f"PTDC toric d={m['d']} B={m['B']} droplets={m['droplets']} "
+          f"Nc={m['Nc']} steps={m['steps']} ({n_steps} ladder steps): "
+          f"{m['B'] / dt:.2f} syn/s ({dt:.2f} s)", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, dt = run(spec, states)
+    ev = prof.events()
+    dev = [e for e in ev if e.device_type == DeviceType.CUDA]
+    busy = busy_ms(dev)
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name][1] += 1
+    calls = sum(e.name in ("cudaLaunchKernel", "cudaMemcpyAsync",
+                           "cudaMemsetAsync") for e in ev)
+    print(f"profiled PTDC decode: wall {dt * 1e3:.1f} ms, device busy "
+          f"{busy:.1f} ms, busy share {busy / (dt * 1e3):.3f}, host share "
+          f"{1 - busy / (dt * 1e3):.3f}; {len(dev) / n_steps:.1f} device "
+          f"kernels and copies and {calls / n_steps:.1f} runtime launch calls "
+          f"per ladder step", flush=True)
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"  {ms:10.3f} ms x {n:6d}  {name[:90]}", flush=True)
+    print(f"PTDC device split: {kernel_split(by_name)}", flush=True)
 
 
 def stdc_decode(spec, states):
@@ -326,6 +374,7 @@ def main() -> int:
           flush=True)
     profile_decode(spec, states, alpha_decode, "PTEQ_alpha")
     profile_stream()
+    profile_ptdc()
     return 0
 
 

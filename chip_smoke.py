@@ -41,6 +41,15 @@ kernel against its plain PyTorch version on the card:
   with its device-time split, peak memory and overflow bound, and one of
   its window launches against the plain sampler; PTEQ with per-window
   metrics against the same decode without them.
+- K1 at a row of betas per chain, the PT ladder step's launch: kernel vs
+  plain version (toric d=5 at 327,680 chains, planar d=3 ragged, toric
+  d=13 and d=19), and one row per chain equal to the shared row; PTDC and
+  PTRC at the JAX pipeline's defaults (toric d=5, B=1024, droplets=4,
+  Nc=5, 3125 ladder steps, streamed), one sweep launch per ladder step and
+  no plain call, with the device-time split of sweeps, exchanges and
+  merges; single_temp at the same shape; PTDC, PTRC, single_temp, STDC on
+  the sweep engine and PTEQ on the unfused sweep engine against the exact
+  posterior at d=3.
 
 Each phase prints one line; any failed phase exits non-zero.  The line
 before the last is a JSON record of the kernels (launches on the main
@@ -66,7 +75,9 @@ import numpy as np
 import torch
 
 from mcmc_qec_tpu_torch.decoders import (
+    PTDC,
     PTEQ,
+    PTRC,
     STDC,
     STRC,
     PTEQ_alpha,
@@ -74,7 +85,9 @@ from mcmc_qec_tpu_torch.decoders import (
     PTEQ_biased,
     PTEQConfig,
     exact_mld,
+    single_temp,
 )
+import mcmc_qec_tpu_torch.decoders.ptdc as ptdc_mod
 from mcmc_qec_tpu_torch.decoders.pteq import _shortest_scan, init_shortest
 from mcmc_qec_tpu_torch.decoders.counting import SampleStream, sample_classes
 import mcmc_qec_tpu_torch.decoders.stdc as stdc_mod
@@ -177,6 +190,25 @@ STREAM_CHECK = dict(window=64, capacity=4096, conv_mult=2.0, max_diff=1e-3)
 STREAM_MAIN = dict(d=9, B=1024, p=0.1, p_sampling=0.25, droplets=10,
                    steps=20000, warm_B=16, conv_mult_B=128, max_peak_gb=40.0,
                    big_capacity=32768)
+# PTDC and PTRC at the JAX pipeline's defaults (pipeline/config.py:18-36):
+# toric d=5, p_error=0.1, p_sampling = p_error, droplets=4, Nc=d, steps =
+# 5 d**5 = 15625 (3125 ladder steps); B=1024 gives 16,384 (syndrome, class)
+# rows and 327,680 chains a sweep; stream="auto" streams both.  The
+# warm-up runs one stream window at B=16; single_temp at the same shape
+# records the pipeline's steps; truth recovery must reach 0.8.
+PT_MAIN = dict(d=5, B=1024, p=0.1, droplets=4, Nc=5, steps=15625, warm_B=16,
+               window=256, min_recovered=0.8, capacity_B=64)
+# the JAX tests' d=3 syndromes (tests/test_decoders.py:35-40: the JAX
+# sampler at PRNGKey(5), p=0.1, and PRNGKey(11), p=0.08), held as data so
+# that nothing of JAX runs on the card
+D3_SYNDROMES = {
+    "planar p=0.1": ("planar", [0, 0, 0, 2, 0, 0, 3, 1, 0, 0, 3, 0, 0, 0, 0, 0,
+                                0, 0]),
+    "planar p=0.08": ("planar", [0, 3, 0, 0, 0, 0, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                 0, 0]),
+    "toric p=0.1": ("toric", [0, 0, 0, 2, 0, 0, 3, 1, 0, 0, 3, 0, 0, 0, 0, 2,
+                              0, 0]),
+}
 # the materialised stream in the port's form: int64 key halves and int32
 # counts, 28 bytes a sample
 PORT_BYTES_PER_SAMPLE = 28
@@ -1400,6 +1432,314 @@ def phase_stream_main_path():
     return win
 
 
+# ---------------------------------------------------------------------------
+# The PT ladder step on K1 with a row of betas per chain (PTDC, PTRC,
+# single_temp, the unfused engines)
+# ---------------------------------------------------------------------------
+
+
+def _chain_rows(R, Nc, p, seed):
+    """(R, 3) f32 betas on the card: the rows of a depolarizing ladder at
+    ``p`` with Nc rungs, one picked at random for each chain."""
+    rng = np.random.RandomState(seed)
+    ladder = beta_ladder_depolarizing(p, Nc).astype(np.float32)
+    return torch.as_tensor(ladder[rng.randint(0, Nc, R)], device="cuda")
+
+
+def compare_per_chain(family, d, R, steps, iters, seed):
+    """K1's general branch at a row of betas per chain against its plain
+    versions on the same inputs and draws: the recording sampler (states,
+    keys, counts) and the sweep (states), all equal; and with every chain
+    on the first chain's row, the per-chain launch equals the shared-row
+    launch.  Returns the largest absolute difference."""
+    spec = get_spec(family, d)
+    states = _random_states(spec, R, seed)
+    b = _chain_rows(R, 5, 0.1, seed)
+    seeds = torch.randint(0, 2**62, (steps,),
+                          generator=torch.Generator().manual_seed(seed))
+    rec = make_recording_sweep(spec, steps, iters, equal_betas=False)
+    tag = f"per-chain betas {family} d={d} R={R} steps={steps} iters={iters}"
+    worst = compare_outputs_equal(tag, rec(states, seeds, b), sample_reference(
+        spec, states, seeds, b, iters, False), states)
+    kern = make_sweep(spec, iters, False)(states, seed, b)
+    plain = sweep_reference(spec, states, seed, b, iters)
+    n_bad = int((kern != plain).sum())
+    check(n_bad == 0, f"{tag}: sweep differs from plain in {n_bad} entries")
+    one = b[:1].expand(R, 3).contiguous()
+    for a, c in zip(rec(states, seeds, one), rec(states, seeds, b[0])):
+        check(torch.equal(a, c), f"{tag}: one row per chain differs from the "
+                                 f"shared row")
+    return worst
+
+
+def phase_per_chain_parity() -> float:
+    """K1 at a row of betas per chain (the PT ladder's launch) against its
+    plain versions, bit for bit: toric d=5 at the PTDC main path's 327,680
+    chains (one step of one sweep, the ladder step's launch), planar d=3
+    with a ragged last block, toric d=13 and d=19 (tables in device
+    memory)."""
+    m = PT_MAIN
+    R = m["B"] * 16 * m["droplets"] * m["Nc"]
+    cases = [("toric", 5, R, 1, 1), ("planar", 3, 257, 5, 1),
+             ("toric", 13, 1000, 3, 2), ("toric", 19, 256, 2, 1)]
+    worst = 0.0
+    for i, (family, d, n, steps, iters) in enumerate(cases):
+        worst = max(worst, compare_per_chain(family, d, n, steps, iters,
+                                             seed=120 + i))
+    print(f"phase 17 sweep kernel at a row of betas per chain vs plain: "
+          f"{'; '.join(f'{f} d={d} R={n} steps={st} iters={it}' for f, d, n, st, it in cases)}"
+          f": recording sampler (states, keys, counts) and sweep equal, one "
+          f"row per chain equal to the shared row; max abs err {worst}",
+          flush=True)
+    return worst
+
+
+def _per_chain_launch(spec, R, seed=130):
+    """The PT ladder step's K1 launch (one recording step of one sweep,
+    general branch, a row of betas per chain) at R chains, timed against
+    the plain sampler on the same inputs: outputs equal; (ms, plain ms,
+    err, bound, bound_by)."""
+    states = _random_states(spec, R, seed)
+    b = _chain_rows(R, 5, 0.1, seed)
+    seeds = torch.randint(0, 2**62, (1,),
+                          generator=torch.Generator().manual_seed(seed)).cuda()
+    rec = make_recording_sweep(spec, 1, 1, equal_betas=False)
+    kern = rec(states, seeds, b)  # warm-up, kept for the comparison
+    ms = _time_ms(lambda: rec(states, seeds, b), 50)
+    plain_out = []
+    plain_ms = _time_ms(lambda: plain_out.append(sample_reference(
+        spec, states, seeds, b, 1, False)), 1)
+    err = compare_outputs_equal(f"ladder-step launch, {R} chains", kern,
+                                plain_out[0], states)
+    bound, bound_by = sampler_bound(spec, R, 1, 1, False,
+                                    _nbytes(states, b, seeds, *kern))
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
+                bound_by=bound_by)
+
+
+def _ladder_states(m, seed):
+    spec = get_spec("toric", m["d"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    states = sample_depolarizing(gen, spec, m["p"], (m["B"],), device="cuda")
+    return spec, states, np_eq_class(spec, states.cpu().numpy())
+
+
+def _pt_decode(name, fn, spec, states, m):
+    """One decode of ``fn`` (PTDC or PTRC) at the main path's budget with
+    the stream timing on: (percentages, seconds, peak bytes, sweep
+    launches, plain calls, stream windows, {part: device ms}, what its
+    truncation warning saw)."""
+    kw = dict(droplets=m["droplets"], Nc=m["Nc"], device="cuda")
+    # warm-up: one stream window at B=16 (allocator, sorts, first launches)
+    fn(spec, states[: m["warm_B"]], m["p"], steps=m["Nc"] * m["window"],
+       seed=1, stream=True, **kw)
+    seen = {}
+    if name == "PTDC":
+        warn = ptdc_mod.warn_stream_overflow
+
+        def record(overflow, max_kept, min_rank, n_samples, *a, **k):
+            seen.update(rows=int(np.asarray(overflow).sum()), bound=float(
+                stream_deficit_bound(overflow, max_kept, min_rank,
+                                     n_samples).max()))
+            return warn(overflow, max_kept, min_rank, n_samples, *a, **k)
+
+        attr = "warn_stream_overflow"
+    else:
+        warn = ptdc_mod._warn_occupancy_truncation
+
+        def record(trunc_bad, *a, **k):
+            seen.update(cells=int(np.asarray(trunc_bad).sum()))
+            return warn(trunc_bad, *a, **k)
+
+        attr = "_warn_occupancy_truncation"
+    setattr(ptdc_mod, attr, record)
+    stream_timing.enabled = True
+    try:
+        stream_timing.reset()
+        sweep_counts.reset()
+        distr, dt, peak = _peak(lambda: fn(spec, states, m["p"],
+                                           steps=m["steps"], seed=3, **kw))
+        launches, plain = sweep_counts.launches, sweep_counts.plain_calls
+        windows, split = stream_timing.windows, stream_timing.ms()
+    finally:
+        setattr(ptdc_mod, attr, warn)
+        stream_timing.enabled = False
+    return distr, dt, peak, launches, plain, windows, split, seen
+
+
+def phase_pt_main_path():
+    """PTDC and PTRC at the JAX pipeline's defaults (PT_MAIN), stream
+    "auto" (which must stream): one sweep-kernel launch per ladder step
+    (3125), no plain call; syn/s after a warm-up, the device-time split of
+    the ladder steps' sweeps and exchanges, the windows' record copies and
+    the merges (CUDA events), peak memory, what the capacity truncated,
+    and the truth recovery (at least PT_MAIN["min_recovered"]); the first
+    64 syndromes again with buffers that never overflow, against the
+    default capacities; then one ladder-step launch at 327,680 chains
+    against the plain sampler."""
+    m = PT_MAIN
+    spec, states, truth = _ladder_states(m, 2029)
+    B, K, D, Nc = m["B"], spec.n_classes, m["droplets"], m["Nc"]
+    n_steps = m["steps"] // Nc
+    n_win = -(-n_steps // m["window"])
+    check(should_stream("auto", B * K, D * Nc, n_steps),
+          "stream='auto' does not resolve to streaming at this budget")
+    lines, out = [], {}
+    for name, fn in (("PTDC", PTDC), ("PTRC", PTRC)):
+        distr, dt, peak, launches, plain, windows, split, seen = _pt_decode(
+            name, fn, spec, states, m)
+        check(launches == n_steps, f"{name}: {launches} sweep launches, not "
+                                   f"{n_steps}")
+        check(plain == 0, f"{name}: the plain sampler ran {plain} times")
+        check(windows == n_win, f"{name}: {windows} windows, not {n_win}")
+        check(distr.shape == (B, K) and distr.dtype == np.uint8,
+              f"{name}: percentages {distr.shape} {distr.dtype}")
+        tot = distr.astype(int).sum(1)
+        check(bool(((tot >= 100 - K) & (tot <= 100)).all()),
+              f"{name}: percentages sum to {tot.min()}..{tot.max()}")
+        rec = float(np.mean(distr.argmax(1) == truth))
+        check(rec >= m["min_recovered"], f"{name}: truth recovered {rec:.3f}")
+        out[name] = dict(launches=launches, distr=distr)
+        parts = ", ".join(f"{k} {split.get(k, 0.0):.1f}" for k in
+                          ("sweep", "exchange", "sample", "merge"))
+        lines.append(
+            f"{name} {B / dt:.2f} syn/s ({dt:.2f} s), {launches} sweep "
+            f"launches ({launches / n_steps:.0f} per ladder step), {windows} "
+            f"windows, device ms: {parts} (sample = the windows' ladder "
+            f"steps and record copies; event spans, so a part's host launch "
+            f"gaps count in it); peak {peak / 1e9:.2f} GB; {seen}; truth "
+            f"recovered {rec:.3f}")
+    agree = float(np.mean(out["PTDC"]["distr"].argmax(1)
+                          == out["PTRC"]["distr"].argmax(1)))
+    # what the default capacities truncate: the first syndromes again with
+    # buffers above a row's samples (PTDC 62,500 a (syndrome, class), PTRC
+    # 12,500 a rung), which never overflow
+    Bc = m["capacity_B"]
+    cap = []
+    for name, fn, big in (("PTDC", PTDC, 65536), ("PTRC", PTRC, 16384)):
+        full = fn(spec, states[:Bc], m["p"], droplets=D, Nc=Nc,
+                  steps=m["steps"], seed=3, stream_capacity=big,
+                  device="cuda").astype(int)
+        small = out[name]["distr"][:Bc].astype(int)
+        cap.append(f"{name} at capacity {big}: max |diff| "
+                   f"{int(np.abs(full - small).max())} points, argmax changed "
+                   f"in {int((full.argmax(1) != small.argmax(1)).sum())} rows, "
+                   f"truth recovered {float(np.mean(full.argmax(1) == truth[:Bc])):.3f} "
+                   f"(default capacity "
+                   f"{float(np.mean(small.argmax(1) == truth[:Bc])):.3f})")
+    R = B * K * D * Nc
+    launch = _per_chain_launch(spec, R)
+    print(f"phase 18 PTDC and PTRC at the JAX pipeline's defaults, toric "
+          f"d={m['d']} B={B} p={m['p']} p_sampling={m['p']} droplets={D} "
+          f"Nc={Nc} steps={m['steps']} ({n_steps} ladder steps, {R} chains), "
+          f"stream='auto' (streams), windows of {m['window']}: "
+          + "; ".join(lines) + f"; PTDC and PTRC argmax agree on {agree:.3f}; "
+          f"the first {Bc} syndromes again: " + "; ".join(cap) + "; "
+          f"one ladder-step launch ({R} chains, one sweep, a row of betas per "
+          f"chain): kernel {launch['ms']:.4f} ms, plain sampler "
+          f"{launch['plain_ms']:.1f} ms, states, keys and counts equal, bound "
+          f"{launch['bound_ms']:.4f} ms ({launch['bound_by']}); launch: "
+          f"{sampler_launch_line(spec, R, False)}", flush=True)
+    launch["launches"] = out["PTDC"]["launches"]
+    return launch
+
+
+def _launches_per_step(fn, steps) -> str:
+    """CUDA kernels and copies a run of ``fn`` starts per recorded step, from
+    torch.profiler's device events (and the runtime's launch calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.events()
+    dev = sum(e.device_type == DeviceType.CUDA for e in ev)
+    calls = sum(e.name in ("cudaLaunchKernel", "cudaMemcpyAsync",
+                           "cudaMemsetAsync") for e in ev)
+    return (f"{dev / steps:.1f} device kernels and copies, {calls / steps:.1f} "
+            f"runtime launch calls per recorded step")
+
+
+def phase_single_temp_main_path():
+    """single_temp at the PTDC main path's shape (toric d=5, B=1024, 16,384
+    class chains) and the pipeline's steps (max_iters=15625): syn/s, and
+    the launches per recorded step from a profiled run of 50 steps; the
+    scores finite and the decision (argmin) recovering the truth at least
+    PT_MAIN["min_recovered"] of the time."""
+    m = PT_MAIN
+    spec, states, truth = _ladder_states(m, 2030)
+    single_temp(spec, states[: m["warm_B"]], m["p"], 20, seed=1, device="cuda")
+    per_step = _launches_per_step(
+        lambda: single_temp(spec, states, m["p"], 51, seed=2, device="cuda"), 51)
+    scores, dt = _sync_time(lambda: single_temp(spec, states, m["p"],
+                                                m["steps"], seed=3,
+                                                device="cuda"))
+    check(scores.shape == (m["B"], spec.n_classes)
+          and bool(np.isfinite(scores).all()), "single_temp scores not finite")
+    rec = float(np.mean(scores.argmin(1) == truth))
+    check(rec >= m["min_recovered"], f"single_temp: truth recovered {rec:.3f}")
+    print(f"phase 19 single_temp toric d={m['d']} B={m['B']} p={m['p']} "
+          f"max_iters={m['steps']} (5 literal proposals a step, "
+          f"{m['B'] * spec.n_classes} chains): {m['B'] / dt:.2f} syn/s "
+          f"({dt:.2f} s, {dt / m['steps'] * 1e3:.3f} ms a recorded step); "
+          f"{per_step}; truth recovered {rec:.3f}", flush=True)
+
+
+def phase_exact_slice_d3():
+    """The slice's decoders on the card against the exact posterior, on
+    the JAX tests' d=3 syndromes and to their bars: PTDC (TV < 0.05, same
+    argmax), PTRC (same argmax), single_temp (argmin = exact argmax), STDC
+    on the sweep engine (TV < 0.03) and PTEQ on the unfused sweep engine
+    (argmax among the top two, TV < 0.2) (tests/test_decoders.py:175-195,
+    226-249)."""
+    def syndrome(key):
+        family, s = D3_SYNDROMES[key]
+        return get_spec(family, 3), np.asarray(s, np.uint8)
+
+    def exact_of(spec, s0, p):
+        return exact_mld(spec, s0[None], betas_depolarizing(p))[0]
+
+    parts, fails = [], []
+
+    def tv_check(name, distr, exact, bar, argmax=True):
+        d = np.asarray(distr, float) / 100.0
+        tv = float(0.5 * np.abs(d - exact).sum())
+        same = int(d.argmax()) == int(exact.argmax())
+        parts.append(f"{name} TV {tv:.4f} argmax {'equal' if same else 'DIFFERS'}")
+        if (bar is not None and tv >= bar) or (argmax and not same):
+            fails.append(f"{name}: TV {tv:.4f}, argmax equal {same}")
+
+    spec, s0 = syndrome("planar p=0.1")
+    exact = exact_of(spec, s0, 0.1)
+    kw = dict(p_sampling=0.25, droplets=2, steps=8000, device="cuda")
+    tv_check("PTDC", PTDC(spec, s0[None], 0.1, **kw)[0], exact, 0.05)
+    tv_check("PTRC", PTRC(spec, s0[None], 0.1, **kw)[0], exact, None)
+    tv_check("STDC sweep", STDC(spec, s0[None], 0.1, 0.25, droplets=4,
+                                steps=1500, engine="sweep",
+                                device="cuda")[0], exact, 0.03, argmax=False)
+    spec, s0 = syndrome("planar p=0.08")
+    exact = exact_of(spec, s0, 0.08)
+    scores = single_temp(spec, s0[None], 0.08, max_iters=3000, device="cuda")[0]
+    same = int(scores.argmin()) == int(exact.argmax())
+    parts.append(f"single_temp argmin {'equal' if same else 'DIFFERS'}")
+    if not same:
+        fails.append("single_temp's argmin differs from the exact argmax")
+    spec, s0 = syndrome("toric p=0.1")
+    exact = exact_of(spec, s0, 0.1)
+    res = PTEQ(spec, np.tile(s0[None], (8, 1)), 0.1, PTEQConfig(
+        max_steps=8000, window=200, TOPS=30, SEQ=4, iters=2, engine="sweep"),
+        seed=3, device="cuda")
+    mean = res.distribution.mean(axis=0)
+    tv_check("PTEQ sweep", mean, exact, 0.2, argmax=False)
+    if int(mean.argmax()) not in np.argsort(exact)[-2:].tolist():
+        fails.append("PTEQ sweep: argmax not among the exact top two")
+    print(f"phase 20 d=3 exact checks of the slice's decoders on the card: "
+          f"{'; '.join(parts)}", flush=True)
+    check(not fails, "; ".join(fails))
+
+
 def main() -> int:
     phase = "device"
     try:
@@ -1434,6 +1774,14 @@ def main() -> int:
         phase_stream_parity()
         phase = "STDC at the reference budget, streamed"
         k1_win = phase_stream_main_path()
+        phase = "sweep kernel at per-chain betas vs plain"
+        pc_err = phase_per_chain_parity()
+        phase = "PTDC/PTRC main path"
+        k1_pt = phase_pt_main_path()
+        phase = "single_temp main path"
+        phase_single_temp_main_path()
+        phase = "d=3 exact checks of the slice's decoders"
+        phase_exact_slice_d3()
     except PhaseFailed as e:
         print(f"FAILED phase {phase}: {e}", flush=True)
         return 1
@@ -1485,6 +1833,18 @@ def main() -> int:
         "plain_ms": k1_win["plain_ms"],
         "bound_ms": k1_win["bound_ms"],
         "bound_by": k1_win["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "sweep_per_chain",
+        "route": "cuda",
+        "source": "mcmc_qec_tpu_torch/csrc/sweep.cu",
+        "replaces": "mcmc_qec_tpu/ops/pallas_sweep.py:42",
+        "launches": k1_pt["launches"],
+        "max_abs_err": max(pc_err, k1_pt["err"]),
+        "ms": k1_pt["ms"],
+        "plain_ms": k1_pt["plain_ms"],
+        "bound_ms": k1_pt["bound_ms"],
+        "bound_by": k1_pt["bound_by"],
         "library_ms": None,
     }, {
         "name": "ladder_window_general",

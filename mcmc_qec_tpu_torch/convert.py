@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .decoders.pteq import ShortestState
-from .mcmc.ladder import LadderState
+from .mcmc.ladder import LadderState, PermLadderState
 from .models.base import CodeSpec, LogicalDraw
 
 
@@ -53,6 +53,27 @@ def ladder_state_from_numpy(state, flag, tops0, device) -> LadderState:
 def ladder_state_to_numpy(ls: LadderState) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(state, flag, tops0) numpy arrays of a LadderState."""
     return tuple(t.detach().cpu().numpy() for t in ls)
+
+
+def perm_ladder_state_from_numpy(state, flag, tops0, pos,
+                                 device) -> PermLadderState:
+    """PermLadderState on ``device`` from numpy (B, Nc, nq) u8 states in
+    physical order, (B, Nc) per-chain flags, (B,) tops0 and (B, Nc) rung
+    positions (the fields of the JAX package's ``PermLadderState``, in its
+    order; ``pos`` is held as int64)."""
+    return PermLadderState(
+        state=torch.as_tensor(np.asarray(state, np.uint8), device=device),
+        flag=torch.as_tensor(np.asarray(flag, np.int32), device=device),
+        tops0=torch.as_tensor(np.asarray(tops0, np.int32), device=device),
+        pos=torch.as_tensor(np.asarray(pos, np.int64), device=device),
+    )
+
+
+def perm_ladder_state_to_numpy(pls: PermLadderState) -> Tuple[np.ndarray, ...]:
+    """(state, flag, tops0, pos) numpy arrays of a PermLadderState, ``pos``
+    as int32 like the JAX package's."""
+    state, flag, tops0, pos = (t.detach().cpu().numpy() for t in pls)
+    return state, flag, tops0, pos.astype(np.int32)
 
 
 def shortest_state_from_numpy(val, cnt, nuq, ovf, keys, device) -> ShortestState:

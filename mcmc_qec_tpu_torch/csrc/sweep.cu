@@ -15,7 +15,10 @@
 // Pallas call records them.  The plain PyTorch versions are
 // ops/sweep.py::sweep_reference and ::sample_reference; every version draws
 // the same Philox4x32-10 bits (layout in the ops/sweep.py docstring), so
-// they agree trajectory for trajectory.
+// they agree trajectory for trajectory.  The betas are one (3,) row for the
+// launch (the counting decoders) or one row per chain (the PT ladder step of
+// mcmc/ladder.py, where each chain runs at its rung's temperature: PTDC,
+// PTRC, the unfused PTEQ window, ops/dense_sweep.py::make_dense_sweep).
 //
 // What bounds it on this card: at the counting decoders' main path (65,536
 // chains of toric d=5, 450 steps of one sweep) the proposals' popcounts
@@ -78,13 +81,14 @@ struct SweepParams {
   int32_t B, nq, nw, span, n_colors, n_stabs, steps, iters, equal_betas, record;
   int32_t lanes, chains_per_block, tile_steps, region_bytes, tab_in_smem, smem;
   uint32_t key0, key1;
+  int32_t beta_stride;  // 0: one (3,) row for the launch; 3: a row per chain
 };
 
 // Must match ops/sweep.py::_Buffers.
 struct SweepBuffers {
   const uint8_t* state_in;  // (B, nq) Pauli values 0..3
   uint8_t* state_out;       // (B, nq)
-  const float* betas;       // (3,) beta_x, beta_y, beta_z
+  const float* betas;       // (3,) or (B, 3) beta_x, beta_y, beta_z
   const uint64_t* tab;      // (n_stabs, span, 3) spanned-word masks, by color
   const int32_t* meta;      // color starts (n_colors + 1), packed spans (n_stabs)
   const uint2* mults;       // (nq,) pack_key's two multipliers per qubit
@@ -248,7 +252,10 @@ __global__ void __launch_bounds__(kSweepThreads, NW <= 2 ? 4 : (NW <= 6 ? 2 : 1)
   __syncwarp();  // the region now stages the recording
 
   const uint32_t b = (uint32_t)(b0 + cw);
-  const float bx = buf.betas[0], by = buf.betas[1], bz = buf.betas[2];
+  // the chain's betas, loaded once for the launch (a padding chain of a
+  // ragged warp reads the warp's first row)
+  const float* brow = buf.betas + (size_t)P.beta_stride * (cw < rows ? b0 + cw : b0);
+  const float bx = brow[0], by = brow[1], bz = brow[2];
   // per chain of the warp: T steps of (h0, h1) and T packed counts, each
   // run padded by one word so that the chains' lane-0 writes of a step
   // fall in distinct banks
@@ -321,6 +328,7 @@ inline bool plan_ok(const SweepParams& P) {
   const int L = P.lanes;
   if (L < 1 || L > 32 || (L & (L - 1)) || P.chains_per_block * L != kSweepThreads) return false;
   if (P.tile_steps < 1 || P.iters < 0 || P.steps < 1) return false;
+  if (P.beta_stride != 0 && P.beta_stride != 3) return false;
   const size_t cpw = 32 / L;
   if ((size_t)P.region_bytes < cpw * P.nq) return false;
   if (P.record && (size_t)P.region_bytes < cpw * 4 * (3 * (size_t)P.tile_steps + 2)) return false;

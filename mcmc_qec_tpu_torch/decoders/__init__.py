@@ -1,4 +1,4 @@
-from .exact import exact_mld
+from .exact import exact_mld, orbit
 from .pteq import (
     PTEQ,
     PTEQ_alpha,
@@ -8,6 +8,8 @@ from .pteq import (
     PTEQResult,
     pteq_run,
 )
+from .ptdc import PTDC, PTRC
+from .single_temp import single_temp
 from .stdc import (
     STDC,
     STDC_general_noise,

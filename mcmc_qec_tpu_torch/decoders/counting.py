@@ -20,8 +20,8 @@ package to float32 rounding, not bit for bit.
 A ``valid`` mask (the ``conv_mult`` early-stop rule,
 ``conv_mult_valid_mask``) restricts the counts to the un-masked samples.
 The bounded-memory form of the same reductions is ``decoders/streaming.py``.
-Not ported yet (``NotImplementedError``): the ``literal``/``sweep`` sampler
-engines (ROADMAP.md queue 1 item 3).
+The samplers record through the sweep kernel's recording launch
+(``pallas``, ``sweep``) or the literal update (``literal``, ``fused``).
 """
 
 from __future__ import annotations
@@ -29,11 +29,18 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models.base import CodeSpec
 from ..ops.engines import resolve_engine
-from ..ops.pauli import apply_stabilizers_uniform
+from ..ops.metropolis import make_chain_update
+from ..ops.pauli import (
+    apply_stabilizers_uniform,
+    count_errors_xyz,
+    make_hash_mults,
+    pack_key,
+)
 from ..ops.sweep import make_recording_sweep
 
 
@@ -53,23 +60,65 @@ def step_seeds(seed: int, steps: int) -> torch.Tensor:
     return torch.randint(0, 2**31 - 1, (steps,), generator=gen)
 
 
+def _literal_recording(spec: CodeSpec, iters_per_step: int):
+    """``fn(states (N, nq) u8, seeds, betas) -> (states, keys (N, steps, 2)
+    int64, counts (N, steps, 3) int32)`` on the literal engine: per seed,
+    ``iters_per_step`` proposals drawn from a generator on the states'
+    device seeded with it (``ops/metropolis.py``), then the chains'
+    ``pack_key`` and ``count_errors_xyz`` (counting.py:91-107)."""
+    update = make_chain_update(spec, iters_per_step)
+    mults = make_hash_mults(spec).astype(np.int64)
+
+    def fn(states: torch.Tensor, seeds, betas):
+        seeds = torch.as_tensor(seeds, dtype=torch.int64).cpu().tolist()
+        device = states.device
+        N, steps = states.shape[0], len(seeds)
+        m = torch.as_tensor(mults, device=device)
+        keys = torch.empty((N, steps, 2), dtype=torch.int64, device=device)
+        counts = torch.empty((N, steps, 3), dtype=torch.int32, device=device)
+        for s, seed in enumerate(seeds):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            states = update(states, gen, betas)
+            keys[:, s] = pack_key(spec, states, m)
+            counts[:, s] = count_errors_xyz(states)
+        return states, keys, counts
+
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _recording(spec: CodeSpec, steps: int, iters_per_step: int, engine: str,
+               equal_betas: bool):
+    """The recording loop of a resolved counting ``engine``: the sweep
+    kernel's recording launch for ``pallas`` (equal betas as given) and
+    ``sweep`` (the per-Pauli form, as the JAX dense sweep always takes),
+    the literal update for ``literal`` and ``fused`` (counting.py:91-92)."""
+    if engine in ("pallas", "sweep"):
+        return make_recording_sweep(spec, steps, iters_per_step,
+                                    equal_betas and engine == "pallas")
+    return _literal_recording(spec, iters_per_step)
+
+
 def make_sampler(spec: CodeSpec, steps: int, iters_per_step: int = 5,
                  engine: str = "literal", equal_betas: bool = False):
-    """Build ``sample(states, seed, betas) -> (states, SampleStream)``.
+    """Build ``sample(states, seed, betas) -> (states, SampleStream)``
+    (counting.py:39-107).
 
-    Each of ``steps`` recording steps runs ``iters_per_step`` colored sweeps
-    over every chain and records the chains' content keys and per-Pauli
-    counts on the states' device: on a CUDA tensor the whole loop is one
-    launch of the sweep kernel (``ops/sweep.py::make_recording_sweep``), on
-    a CPU tensor its plain version.  ``states``: (..., nq) u8; stream axes
-    (..., steps).  Per-step kernel seeds are ``step_seeds(seed, steps)``.
-    ``betas`` (3,) f32: pass a tensor on the device (a host array is copied
-    once per call).  The defaults are the JAX package's (counting.py:39);
-    its ``literal`` engine is not ported yet and raises, so the decoders
-    pass ``iters_per_step=1, engine="auto"`` (one colored sweep per
-    recorded step, as the JAX ``sweep``/``pallas`` engines run)."""
-    resolve_engine(engine, "counting")
-    sampler = make_recording_sweep(spec, steps, iters_per_step, equal_betas)
+    Each of ``steps`` recording steps runs ``iters_per_step`` updates over
+    every chain and records the chains' content keys and per-Pauli counts
+    on the states' device.  ``pallas`` and ``sweep`` (one update is one
+    colored sweep): on a CUDA tensor the whole loop is one launch of the
+    sweep kernel (``ops/sweep.py::make_recording_sweep``), on a CPU tensor
+    its plain version.  ``literal`` and ``fused`` (one update is one
+    random-stabilizer proposal): the literal update, plain torch.
+    ``states``: (..., nq) u8; stream axes (..., steps).  Per-step seeds are
+    ``step_seeds(seed, steps)``.  ``betas`` (3,) f32: pass a tensor on the
+    device (a host array is copied once per call).  The defaults are the
+    JAX package's (counting.py:39); the decoders pass one sweep per
+    recorded step off the literal engine, five proposals on it
+    (stdc.py:55)."""
+    engine = resolve_engine(engine, "counting")
+    sampler = _recording(spec, steps, iters_per_step, engine, equal_betas)
 
     def sample(states: torch.Tensor, seed: int, betas):
         batch_shape, nq = states.shape[:-1], states.shape[-1]
@@ -83,25 +132,21 @@ def make_sampler(spec: CodeSpec, steps: int, iters_per_step: int = 5,
     return sample
 
 
-@functools.lru_cache(maxsize=None)
-def _recording_sweep(spec: CodeSpec, steps: int, iters_per_step: int,
-                     equal_betas: bool):
-    return make_recording_sweep(spec, steps, iters_per_step, equal_betas)
-
-
 def make_chunk_sampler(spec: CodeSpec, R: int, D: int, betas,
-                       iters_per_step: int = 1, equal_betas: bool = False):
+                       iters_per_step: int = 1, equal_betas: bool = False,
+                       engine: str = "pallas"):
     """The streaming path's sampler (``streaming.py::streaming_scan``):
     ``chunk(states (R*D, nq), seeds_w) -> (states, keys (R, D, n, 2),
     n_xyz (R, D, n, 3))`` runs ``n = len(seeds_w)`` recording steps, one
-    step per seed, over every chain: one launch of the sweep kernel on a
-    CUDA tensor, the plain sampler on a CPU tensor.  The chains keep their
-    row order from window to window, so with the seeds of ``step_seeds``
-    the windows record what one materialised launch records."""
+    step per seed, over every chain, on the resolved counting ``engine``:
+    one launch of the sweep kernel on a CUDA tensor, the plain sampler on a
+    CPU tensor (or the literal update).  The chains keep their row order
+    from window to window, so with the seeds of ``step_seeds`` the windows
+    record what one materialised call records."""
 
     def chunk(states: torch.Tensor, seeds_w):
         n = len(seeds_w)
-        sampler = _recording_sweep(spec, n, iters_per_step, equal_betas)
+        sampler = _recording(spec, n, iters_per_step, engine, equal_betas)
         states, keys, nxyz = sampler(states, seeds_w, betas)
         return states, keys.view(R, D, n, 2), nxyz.view(R, D, n, 3)
 

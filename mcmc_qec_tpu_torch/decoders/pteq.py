@@ -4,11 +4,16 @@ Torch counterpart of ``mcmc_qec_tpu/decoders/pteq.py``: ``PTEQ``
 (depolarizing), ``PTEQ_biased``, ``PTEQ_alpha`` and
 ``PTEQ_alpha_with_shortest`` (decoders.py:25-105,
 decoders_biasednoise.py:28-237) over ``pteq_run``.  The ladder runs on
-``device``, batched over syndromes, one fused
-window of ``cfg.window`` steps per call (``ops/ladder_window.py``: the CUDA
-kernel on a CUDA device, its plain PyTorch version on the CPU); the host
-sees each window's summaries in one transfer and runs the convergence
-automaton at window granularity.
+``device``, batched over syndromes, one window of ``cfg.window`` steps
+per call; the host sees each window's summaries in one transfer and runs
+the convergence automaton at window granularity.  The window is fused
+(``engine="auto"``/``"fused"``: ``ops/ladder_window.py``, the CUDA kernel
+on a CUDA device, its plain PyTorch version on the CPU) or a loop of
+unfused ladder steps (``mcmc/ladder.py::make_ladder_step``) with the same
+outputs: ``"sweep"`` (the sweep kernel's general branch at a row of betas
+per chain, then the top-rung logical mix), ``"literal"`` and ``"pallas"``
+(the literal update, as the JAX package runs both, pteq.py:309-312 and
+ladder.py:156-157).
 
 Semantics kept from the JAX decoder (and through it from the reference,
 decoders.py:25-105): convergence is checked once per window, every syndrome
@@ -45,10 +50,13 @@ from ..mcmc.ladder import (
     beta_ladder_biased,
     beta_ladder_depolarizing,
     init_ladder,
+    make_ladder_step,
 )
 from ..models.base import CodeSpec
 from ..ops.engines import resolve_device, resolve_engine
-from ..ops.ladder_window import make_ladder_window
+from ..ops.ladder_window import _weighted, make_ladder_window
+from ..ops.metropolis import _log_uniform
+from ..ops.pauli import make_hash_mults, pack_key
 from ..utils.metrics import effective_sample_size
 from .convergence import EnergyHistory
 
@@ -68,8 +76,8 @@ class PTEQConfig:
     p_logical: float = 0.5
     window: int = 100
     conv_criteria: str = "error_based"
-    # "auto" and "fused" run the fused window; the other engines are not
-    # ported yet (ops/engines.py)
+    # "auto" and "fused" run the fused window; "sweep", "literal" and
+    # "pallas" a loop of unfused ladder steps (ops/engines.py)
     engine: str = "auto"
     # "sequential" (the reference's top->bottom sweep) or "even_odd" (all
     # even pairs, then all odd pairs)
@@ -221,6 +229,11 @@ def _get_window_fn(spec: CodeSpec, Nc: int, cfg: PTEQConfig,
            equal_betas, cfg.shortest_unique_cap, cfg.exchange)
     if key in _WINDOW_CACHE:
         return _WINDOW_CACHE[key]
+    if engine != "fused":
+        fn = _unfused_window(spec, Nc, cfg, track_shortest, top_exact_accept,
+                             engine)
+        _WINDOW_CACHE[key] = fn
+        return fn
     # tracking needs per-step energies and traces from the window
     Ck = 1 if track_shortest else C
     fused = make_ladder_window(spec, Nc, cfg.window, cfg.iters, cfg.p_logical,
@@ -244,6 +257,73 @@ def _get_window_fn(spec: CodeSpec, Nc: int, cfg: PTEQConfig,
         return (LadderState(st, fl, tp), eq, sb, en, ba, bf, tp, sw) + extras
 
     _WINDOW_CACHE[key] = window
+    return window
+
+
+def _unfused_window(spec: CodeSpec, Nc: int, cfg: PTEQConfig,
+                    track_shortest: bool, top_exact_accept: bool,
+                    engine: str):
+    """The window as a loop of ``cfg.window`` unfused ladder steps
+    (pteq.py:309-378), with the fused window's signature and outputs:
+    ``eq_count`` and ``since_burn`` advanced by the post-burn steps, the
+    bottom rung's energies (chunk means), ``burn_any``/``burn_first``,
+    ``tops0``, the window's accepted swaps per rung pair and, with
+    ``track_shortest``, the ``ShortestState`` updated step by step from
+    the bottom chain's ``pack_key`` (two halves, zero-padded to KEY_W).
+
+    The window seed feeds a CPU generator that draws each step's sweep
+    seed and the seed of one generator on the device, which draws the
+    window's exchange uniforms at once and every other draw of the steps.
+    ``"pallas"`` runs the literal update, as the JAX package's
+    ``make_ladder_step`` does for it (ladder.py:156-157)."""
+    ladder_step = make_ladder_step(
+        spec, Nc, cfg.iters, cfg.p_logical,
+        engine="literal" if engine == "pallas" else engine,
+        top_exact_accept=top_exact_accept, exchange=cfg.exchange)
+    W, C = cfg.window, cfg.energy_chunk
+    mults = {}
+
+    def window(ls: LadderState, seed: int, betas, eq_count, since_burn,
+               weights, sh: Optional[ShortestState] = None):
+        device = ls.state.device
+        B = ls.state.shape[0]
+        cpu = torch.Generator().manual_seed(int(seed))
+        seeds = torch.randint(0, 2**62, (W + 1,), generator=cpu).tolist()
+        gen = torch.Generator(device=device).manual_seed(seeds[-1])
+        logu_swap = _log_uniform((W, Nc - 1, B), gen, device)
+        w = torch.as_tensor(np.asarray(weights, np.float32), device=device)
+        eq_count = eq_count.clone()
+        since_burn = since_burn.clone()
+        swap_sum = torch.zeros((B, Nc - 1), dtype=torch.int32, device=device)
+        energies = torch.empty((W, B), dtype=torch.float32, device=device)
+        burned = torch.empty((W, B), dtype=torch.int32, device=device)
+        rows = torch.arange(B, device=device)
+        if track_shortest and device not in mults:
+            mults[device] = torch.as_tensor(
+                make_hash_mults(spec).astype(np.int64), device=device)
+        for t in range(W):
+            ls, beq, n0, acc = ladder_step(ls, seeds[t], betas, gen,
+                                           logu_swap[t])
+            b_t = (ls.tops0 >= cfg.tops_burn).to(torch.int32)
+            eq_count.index_put_((rows, beq.long()), b_t, accumulate=True)
+            since_burn += b_t
+            swap_sum += acc
+            energies[t] = _weighted(w, n0)
+            burned[t] = b_t
+            if track_shortest:
+                kk = pack_key(spec, ls.state[:, 0], mults[device])
+                kk = torch.where(kk >= 2**31, kk - 2**32, kk).to(torch.int32)
+                kk = torch.cat([kk, torch.zeros_like(kk)], -1)
+                sh = _shortest_update(sh, beq, kk, energies[t], b_t)
+        hit = burned > 0
+        burn_any = hit.any(0)
+        burn_first = hit.to(torch.int32).argmax(0).to(torch.int32)
+        if C > 1:
+            energies = energies.view(W // C, C, B).mean(1)
+        extras = (sh,) if track_shortest else ()
+        return (ls, eq_count, since_burn, energies, burn_any, burn_first,
+                ls.tops0, swap_sum) + extras
+
     return window
 
 

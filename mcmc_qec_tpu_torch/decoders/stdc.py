@@ -19,6 +19,12 @@ n_xyz) comes from a sort and a segment logsumexp.  Two paths:
   samples; the streamed Z equals the materialised one whenever the buffer
   never overflows.
 
+``engine``: ``"auto"``/``"pallas"`` (the sweep kernel, the total-count
+branch when the sampling betas are equal), ``"sweep"`` (the sweep kernel's
+per-Pauli branch) or ``"literal"``/``"fused"`` (the literal update, five
+proposals per recorded step for ``"literal"``, one for ``"fused"``, as the
+JAX package runs them).
+
 All four reference variants are one engine with two beta vectors:
  - STDC:                    betas_sampling = depolarizing(p_sampling),
                             betas_err = depolarizing(p_error)
@@ -30,8 +36,7 @@ Equal sampling betas take the sweep kernel's total-count branch.
 ``metrics`` logs one ``stdc_run`` record of unique-discovery saturation.
 
 Every entry point runs on ``device`` ("cuda" by default; "cpu" runs the
-plain sweep).  Not ported yet (``NotImplementedError``, ROADMAP.md queue 1
-item 3): the ``literal``/``sweep`` engines.
+plain sweep).
 """
 
 from __future__ import annotations
@@ -65,6 +70,13 @@ from .streaming import (
     warn_conv_mult_overflow,
     warn_stream_overflow,
 )
+
+
+def _iters(engine: str) -> int:
+    """Updates per recorded step of a resolved counting engine: five
+    proposals on the literal engine, one colored sweep otherwise
+    (stdc.py:55, strc.py:84)."""
+    return 5 if engine == "literal" else 1
 
 
 def _mode(shortest_mode) -> str:
@@ -101,9 +113,10 @@ def _get_stdc_fn(spec: CodeSpec, droplets: int, steps: int, randomize: bool,
     turn."""
     shortest_mode = _mode(shortest_mode)
     engine = resolve_engine(engine, "counting")
-    # one colored sweep per recorded step (stdc.py:55: iters=1 off literal)
-    sampler = make_sampler(spec, steps, iters_per_step=1, engine=engine,
-                           equal_betas=equal_betas)
+    # one colored sweep per recorded step, five proposals on the literal
+    # engine (stdc.py:55)
+    sampler = make_sampler(spec, steps, iters_per_step=_iters(engine),
+                           engine=engine, equal_betas=equal_betas)
 
     def sample(class_states, seed, betas_sampling):
         return sample_classes(spec, sampler, class_states, seed,
@@ -158,15 +171,15 @@ def _get_stdc_stream_fn(spec: CodeSpec, droplets: int, steps: int,
     the buffer never overflows; otherwise only chains of Boltzmann weight
     < exp(-max_kept) are dropped (streaming.py's invariant)."""
     shortest_mode = _mode(shortest_mode)
-    resolve_engine(engine, "counting")
+    engine = resolve_engine(engine, "counting")
 
     def run(class_states, seed, betas_sampling, betas_error):
         B, K, nq = class_states.shape
         R = B * K
         states, samp_seed = class_droplets(spec, class_states, seed,
                                            droplets, randomize)
-        chunk = make_chunk_sampler(spec, R, droplets, betas_sampling, 1,
-                                   equal_betas)
+        chunk = make_chunk_sampler(spec, R, droplets, betas_sampling,
+                                   _iters(engine), equal_betas, engine)
         seeds = step_seeds(samp_seed, steps).to(class_states.device)
         _, st, cm = streaming_scan(
             chunk, states.reshape(R * droplets, nq), seeds,

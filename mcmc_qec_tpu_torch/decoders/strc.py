@@ -20,9 +20,8 @@ chains, exact below its truncation length).  With the same seed both
 paths see the same samples, so without truncation their percentages are
 equal.  ``conv_mult`` is the reference's early-stop rule.
 
-Runs on ``device`` ("cuda" by default).  Not ported yet
-(``NotImplementedError``, ROADMAP.md queue 1 item 3): the
-``literal``/``sweep`` engines.
+Runs on ``device`` ("cuda" by default), on every counting engine
+(``decoders/stdc.py``).
 """
 
 from __future__ import annotations
@@ -45,7 +44,7 @@ from .counting import (
     sample_classes,
     step_seeds,
 )
-from .stdc import _as_states, _class_seeds, _pick_stream_window
+from .stdc import _as_states, _class_seeds, _iters, _pick_stream_window
 from .streaming import (
     CONV_MULT_UNIQUE_CAP,
     occupancy_from_stream,
@@ -102,7 +101,7 @@ def _get_strc_stream_fn(spec: CodeSpec, droplets: int, steps: int,
     total length, so they are exact below the truncation rank, in
     particular at the shortest and next-shortest lengths the Z estimate
     reads unless ``trunc_bad`` flags the cell."""
-    resolve_engine(engine, "counting")
+    engine = resolve_engine(engine, "counting")
     nq = spec.nq
 
     def run(class_states, seed, betas_sampling, beta_s, beta_e):
@@ -111,7 +110,8 @@ def _get_strc_stream_fn(spec: CodeSpec, droplets: int, steps: int,
         states, samp_seed = class_droplets(spec, class_states, seed,
                                            droplets, randomize)
         # STRC's sampling chain is depolarizing: equal betas
-        chunk = make_chunk_sampler(spec, R, droplets, betas_sampling, 1, True)
+        chunk = make_chunk_sampler(spec, R, droplets, betas_sampling,
+                                   _iters(engine), True, engine)
         seeds = step_seeds(samp_seed, steps).to(class_states.device)
         _, st, cm = streaming_scan(
             chunk, states.reshape(R * droplets, nq), seeds,
@@ -149,8 +149,8 @@ def _get_strc_fn(spec: CodeSpec, droplets: int, steps: int, randomize: bool,
     engine = resolve_engine(engine, "counting")
     # STRC always samples with a depolarizing (equal-beta) chain
     # (decoders.py:835-949), so the total-count branch is always valid
-    sampler = make_sampler(spec, steps, iters_per_step=1, engine=engine,
-                           equal_betas=True)
+    sampler = make_sampler(spec, steps, iters_per_step=_iters(engine),
+                           engine=engine, equal_betas=True)
     nq = spec.nq
 
     def run(class_states, seed, betas_sampling, beta_s, beta_e):

@@ -237,7 +237,8 @@ class StreamTiming:
     """Device time of ``streaming_scan``'s parts, summed over windows:
     ``sample`` (the chunk sampler, one sweep-kernel launch a window),
     ``conv_mult`` (the early-stop automaton) and ``merge`` (rank, sentinel,
-    sort-merge, occupancy).  Off unless ``enabled``; on a CUDA device it
+    sort-merge, occupancy); the PT samplers' ladder steps add ``sweep``
+    and ``exchange`` within ``sample`` (``decoders/ptdc.py``).  Off unless ``enabled``; on a CUDA device it
     records CUDA events around each part (no synchronisation until
     ``ms()``); elsewhere it records nothing."""
 
@@ -298,6 +299,8 @@ def streaming_scan(
     n_xyz (R, D, n, 3) int32)`` records one sample per droplet for each of
     the ``n = len(seeds_w)`` per-step seeds of the window, ``seeds[w*window
     : (w+1)*window]`` (the last window gets the steps that remain).
+    ``states`` is the chunk sampler's to carry (the chains, or a PT
+    ladder's tuple of tensors).
     Droplets are independent chains feeding the same row buffer: the
     droplet fan-in of STDC/STRC, or ladder rungs for PTDC.  ``rank_fn``
     maps n_xyz (..., 3) to the f32 rank (...).
@@ -316,7 +319,10 @@ def streaming_scan(
     half = steps // 2
     st = cm = None
     tm = stream_timing
-    dev = states.device if isinstance(states, torch.Tensor) else None
+    # the chain state: a tensor, a tuple of them (a PT ladder's) or
+    # anything else (the samples then give the device)
+    first = states[0] if isinstance(states, tuple) and states else states
+    dev = first.device if isinstance(first, torch.Tensor) else None
     for w in range(n_windows):
         s0 = w * window
         s1 = min(steps, s0 + window)

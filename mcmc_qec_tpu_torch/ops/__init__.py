@@ -1,9 +1,11 @@
+from .dense_sweep import make_dense_sweep
 from .engines import VALID_ENGINES, resolve_device, resolve_engine
 from .ladder_window import (
     ladder_window_counts,
     ladder_window_reference,
     make_ladder_window,
 )
+from .metropolis import make_chain_stepper, make_chain_update, make_sweep_stepper
 from .pauli import (
     all_class_states,
     anticommute,
@@ -15,6 +17,7 @@ from .pauli import (
     eq_class,
     make_hash_mults,
     pack_key,
+    random_logical,
     syndrome,
     to_class,
 )

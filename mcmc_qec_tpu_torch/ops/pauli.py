@@ -1,9 +1,10 @@
 """Batched Pauli-state operations on torch tensors.
 
-Counterpart of ``mcmc_qec_tpu/ops/pauli.py`` for the functions the PTEQ
-and counting slices use.  All functions take *flat* uint8 states
-``(..., nq)`` on any device; the spec's numpy tables are moved to the
-state's device per call.  Everything is elementwise or a gather (no matmul:
+Counterpart of ``mcmc_qec_tpu/ops/pauli.py``, with the random-logical
+draws split out (``draw_logicals``, ``logical_masks``) so that the literal
+engine and the ladder's top-rung mix share them.  All functions take
+*flat* uint8 states ``(..., nq)`` on any device; the spec's numpy tables
+are moved to the state's device per call.  Everything is elementwise or a gather (no matmul:
 torch has no integer matmul on CUDA, and a float one may run in TF32), so
 results are exact on every device.
 """
@@ -109,6 +110,49 @@ def apply_stabilizers_uniform(spec: CodeSpec, state: torch.Tensor,
     for s in range(spec.n_stabs):
         out ^= sel[..., s : s + 1].to(torch.uint8) * masks[s]
     return out
+
+
+def draw_logicals(spec: CodeSpec, shape, generator: torch.Generator,
+                  device) -> torch.Tensor:
+    """(*shape, n_draws, 3) int64 uniform random-logical indices: per draw
+    of ``spec.logical_draws`` an op in [0, 4) and an X and a Z position
+    (pauli.py:127-131), from ``generator`` (on ``device``)."""
+    cols = []
+    for drw in spec.logical_draws:
+        for hi in (4, drw.x_masks.shape[0], drw.z_masks.shape[0]):
+            cols.append(torch.randint(0, hi, tuple(shape), generator=generator,
+                                      device=device))
+    return torch.stack(cols, -1).view(*shape, len(spec.logical_draws), 3)
+
+
+def logical_masks(spec: CodeSpec, idx: torch.Tensor) -> torch.Tensor:
+    """(..., nq) uint8 mask of the logicals ``idx`` (..., n_draws, 3) picks
+    (op, X position, Z position per draw): the XOR over draws of the X mask
+    at its position if the op has an X part and the Z mask at its position
+    if it has a Z part (pauli.py:126-134)."""
+    device = idx.device
+    mask = None
+    for i, drw in enumerate(spec.logical_draws):
+        op, xp, zp = idx[..., i, 0], idx[..., i, 1], idx[..., i, 2]
+        lut = torch.as_tensor(np.asarray(drw.op_lut, np.uint8), device=device)
+        do = lut[op]  # (..., 2)
+        xm = torch.as_tensor(drw.x_masks, device=device)[xp] * do[..., 0:1]
+        zm = torch.as_tensor(drw.z_masks, device=device)[zp] * do[..., 1:2]
+        m = xm ^ zm
+        mask = m if mask is None else mask ^ m
+    return mask
+
+
+def random_logical(spec: CodeSpec, state: torch.Tensor,
+                   generator: torch.Generator | None = None,
+                   idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Apply a uniformly random logical to each state of the batch (the
+    randomized warm start, generate_data.py:130-133; pauli.py:122-135).
+    The draws come from ``generator`` (on the state's device), or ``idx``
+    (*batch, n_draws, 3) gives them (``draw_logicals``' layout)."""
+    if idx is None:
+        idx = draw_logicals(spec, state.shape[:-1], generator, state.device)
+    return state ^ logical_masks(spec, idx.to(state.device))
 
 
 def pack_key(spec: CodeSpec, state: torch.Tensor, mults) -> torch.Tensor:

@@ -6,7 +6,7 @@ K1).  One kernel, ``csrc/sweep.cu``, serves two wrappers:
 
 - ``make_sweep(spec, n_sweeps, equal_betas)`` returns a function with the
   contract of ``make_pallas_sweep``'s ``raw`` (pallas_sweep.py:191):
-  ``fn(states (B, nq) u8, seed int, betas (3,) f32) -> states``;
+  ``fn(states (B, nq) u8, seed int, betas (3,) or (B, 3) f32) -> states``;
 - ``make_recording_sweep(spec, steps, iters_per_step, equal_betas)`` returns
   ``fn(states (B, nq) u8, seeds (steps,) int64, betas) -> (states, keys
   (B, steps, 2) int64, counts (B, steps, 3) int32)``: ``steps`` steps of
@@ -28,7 +28,10 @@ stabilizer of a color proposes its flip, and the flip is accepted iff
 error-count change (``equal_betas``, the fast branch valid when the three
 betas are equal) or ``logr = -((beta_x dN_x + beta_y dN_y) + beta_z dN_z)``
 on the per-Pauli changes.  An infinite beta times a zero change is NaN,
-which rejects, as in the TPU kernel.
+which rejects, as in the TPU kernel.  The betas are one (3,) row shared by
+every chain, as the TPU kernel takes them, or a (B, 3) row per chain: the
+PT ladder's sweep, where each chain runs at its rung's temperature
+(``mcmc/ladder.py``, ``ops/dense_sweep.py``).
 
 Randomness: the uniform of stabilizer ``j`` of color ``c`` in sweep ``t``
 for chain ``b`` is ``u = (w >> 8) * 2**-24 + 1e-12`` (the compiled TPU
@@ -102,28 +105,40 @@ def stab_width(spec: CodeSpec) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _beta_columns(betas, B: int, device):
+    """(beta_x, beta_y, beta_z) of (3,) betas as f32 scalars, or of (B, 3)
+    betas as (B, 1) columns, to broadcast over a color's (B, W) changes."""
+    b = torch.as_tensor(betas, dtype=torch.float32, device=device)
+    if tuple(b.shape) == (3,):
+        return b.unbind()
+    if tuple(b.shape) == (B, 3):
+        return b.split(1, dim=1)
+    raise ValueError(f"betas must have shape (3,) or ({B}, 3), got "
+                     f"{tuple(b.shape)}")
+
+
 def sweep_reference(spec: CodeSpec, states: torch.Tensor, seed: int, betas,
                     n_sweeps: int, equal_betas: bool = False,
                     logu: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of ``n_sweeps`` sweeps on the device of
     ``states`` (B, nq) u8.  Per color, every chain's stabilizers are
     evaluated at once through per-qubit lookups and the accepted flips are
-    XORed in.  ``logu`` (n_sweeps, n_colors, B, W_max) f32, if given,
-    replaces the Philox uniforms' logarithms (parity tests only)."""
+    XORed in.  ``betas`` is (3,), or (B, 3) with a row per chain.  ``logu``
+    (n_sweeps, n_colors, B, W_max) f32, if given, replaces the Philox
+    uniforms' logarithms (parity tests only)."""
     device = states.device
     B, nq = states.shape
     T = _plain_tables(spec, device)
     n_colors = len(T.colors)
     f32 = torch.float32
     i64 = torch.int64
-    bx, by, bz = torch.as_tensor(betas, dtype=f32, device=device).reshape(3).unbind()
+    bx, by, bz = _beta_columns(betas, B, device)
     k0, k1 = int(seed) & MASK32, (int(seed) >> 32) & MASK32
     n_blocks = -(-stab_width(spec) // 4)
     two_m24 = torch.tensor(2.0 ** -24, dtype=f32, device=device)
     eps = torch.tensor(1e-12, dtype=f32, device=device)
     no_hit = torch.zeros((B, 1), dtype=torch.bool, device=device)
     slot4 = [4 * torch.arange(n * deg, device=device) for *_, n, deg in T.colors]
-    op_supp = [op.index_select(0, supp) for op, _, _, supp, *_ in T.colors]
 
     S = torch.zeros((B, nq + 1), dtype=i64, device=device)
     S[:, :nq] = states
@@ -135,22 +150,19 @@ def sweep_reference(spec: CodeSpec, states: torch.Tensor, seed: int, betas,
                                device) >> 8  # (t1 - t0, B, n_colors, 4 * n_blocks)
             lu_all = torch.log(bits.to(f32) * two_m24 + eps)
         for t in range(t0, t1):
-            for c, (op, dsupp, _, supp, owner, n, deg) in enumerate(T.colors):
+            for c, (op, dsupp, dsupp3, supp, owner, n, deg) in enumerate(T.colors):
                 if logu is None:
                     lu = lu_all[t - t0, :, c, :n]
                 else:
                     lu = logu[t, c, :, :n]
-                vals = S.index_select(-1, supp)  # (B, n * deg)
+                # (B, n * deg) values, and their lookup slots
+                vals = S.index_select(-1, supp) + slot4[c]
                 if equal_betas:
-                    dn = dsupp.take(vals + slot4[c]).view(B, n, deg).sum(-1)
+                    dn = dsupp.take(vals).view(B, n, deg).sum(-1)
                     logr = -(bx * dn.to(f32))
                 else:
-                    new = vals ^ op_supp[c]
-                    d1, d2, d3 = (
-                        ((new == v).to(i64) - (vals == v).to(i64))
-                        .view(B, n, deg).sum(-1).to(f32)
-                        for v in (1, 2, 3)
-                    )
+                    d1, d2, d3 = dsupp3[:, vals].view(3, B, n, deg).sum(-1).to(
+                        f32).unbind()
                     logr = -((bx * d1 + by * d2) + bz * d3)
                 acc = lu < logr
                 hit = torch.cat([acc, no_hit], -1).index_select(-1, owner)
@@ -164,8 +176,8 @@ def sample_reference(spec: CodeSpec, states: torch.Tensor, seeds, betas,
     """Plain PyTorch version of the recording sampler on the device of
     ``states`` (B, nq) u8: per seed of ``seeds`` (steps,), ``sweep_reference``
     with ``iters_per_step`` sweeps, then the chains' ``pack_key`` and
-    ``count_errors_xyz``.  Returns (states, keys (B, steps, 2) int64,
-    counts (B, steps, 3) int32)."""
+    ``count_errors_xyz``; ``betas`` (3,) or (B, 3).  Returns (states, keys
+    (B, steps, 2) int64, counts (B, steps, 3) int32)."""
     device = states.device
     seeds = torch.as_tensor(seeds, dtype=torch.int64).cpu().tolist()
     B, steps = states.shape[0], len(seeds)
@@ -257,7 +269,8 @@ class _Params(ctypes.Structure):
         "B", "nq", "nw", "span", "n_colors", "n_stabs", "steps", "iters",
         "equal_betas", "record", "lanes", "chains_per_block", "tile_steps",
         "region_bytes", "tab_in_smem", "smem",
-    )] + [(n, ctypes.c_uint32) for n in ("key0", "key1")]
+    )] + [(n, ctypes.c_uint32) for n in ("key0", "key1")] + [
+        ("beta_stride", ctypes.c_int32)]
 
 
 class _Buffers(ctypes.Structure):
@@ -311,14 +324,17 @@ def _static_fields(spec: CodeSpec, record: bool, lanes: int):
 
 
 def _plan_params(spec: CodeSpec, B: int, steps: int, iters: int,
-                 equal_betas: bool, record: bool, n_sm: int, seed: int = 0):
-    """(SweepPlan, ``_Params``) of a launch on a card with ``n_sm`` SMs."""
+                 equal_betas: bool, record: bool, n_sm: int, seed: int = 0,
+                 per_chain: bool = False):
+    """(SweepPlan, ``_Params``) of a launch on a card with ``n_sm`` SMs;
+    ``per_chain`` betas are a (B, 3) row per chain."""
     _check_words(spec)
     lanes = lanes_per_chain(kernel_tables(spec)[2], B, n_sm)
     plan, fields = _static_fields(spec, record, lanes)
     return plan, _Params(B=B, steps=steps, iters=iters,
                          equal_betas=int(equal_betas), key0=int(seed) & MASK32,
-                         key1=(int(seed) >> 32) & MASK32, **fields)
+                         key1=(int(seed) >> 32) & MASK32,
+                         beta_stride=3 if per_chain else 0, **fields)
 
 
 def launch_plan(spec: CodeSpec, B: int, record: bool, equal_betas: bool,
@@ -363,7 +379,9 @@ def _launch(spec: CodeSpec, states: torch.Tensor, betas, *, steps: int,
     # a host array here would be a blocking copy per call: callers on the
     # hot path pass the betas as a tensor on the device
     betas_d = torch.as_tensor(betas, dtype=torch.float32, device=device)
-    _check(betas_d, "betas", (3,), torch.float32, device)
+    per_chain = betas_d.dim() == 2
+    _check(betas_d, "betas", (B, 3) if per_chain else (3,), torch.float32,
+           device)
     if device not in device_tables:
         device_tables[device] = tuple(
             torch.as_tensor(a, device=device) for a in _host_tables(spec))
@@ -379,7 +397,7 @@ def _launch(spec: CodeSpec, states: torch.Tensor, betas, *, steps: int,
         out.copy_(states)
         return (out, keys, counts) if record else out
     plan, P = _plan_params(spec, B, steps, iters, equal_betas, record,
-                           _sm_count(device), seed)
+                           _sm_count(device), seed, per_chain)
     bufs = _Buffers(*(t.data_ptr() if t is not None else None for t in (
         states, out, betas_d, tab, meta, mults, seeds_d, keys, counts)))
     with torch.cuda.device(device):
@@ -395,8 +413,9 @@ def _launch(spec: CodeSpec, states: torch.Tensor, betas, *, steps: int,
 
 
 def make_sweep(spec: CodeSpec, n_sweeps: int, equal_betas: bool = False):
-    """Build ``fn(states (B, nq) u8, seed int, betas (3,) f32) -> states``
-    running ``n_sweeps`` colored sweeps over every chain.
+    """Build ``fn(states (B, nq) u8, seed int, betas (3,) or (B, 3) f32)
+    -> states`` running ``n_sweeps`` colored sweeps over every chain, at
+    one shared row of betas or a row per chain.
 
     ``equal_betas=True`` asserts beta_x == beta_y == beta_z and takes the
     total-count branch (bit-identical decisions up to f32 rounding of the
@@ -422,8 +441,9 @@ def make_sweep(spec: CodeSpec, n_sweeps: int, equal_betas: bool = False):
 
 def make_recording_sweep(spec: CodeSpec, steps: int, iters_per_step: int = 1,
                          equal_betas: bool = False):
-    """Build ``fn(states (B, nq) u8, seeds (steps,) int64, betas (3,) f32)
-    -> (states, keys (B, steps, 2) int64, counts (B, steps, 3) int32)``:
+    """Build ``fn(states (B, nq) u8, seeds (steps,) int64, betas (3,) or
+    (B, 3) f32) -> (states, keys (B, steps, 2) int64, counts (B, steps, 3)
+    int32)``:
     step ``s`` runs ``iters_per_step`` sweeps under seed ``seeds[s]`` and
     records every chain's ``pack_key`` halves (int64 values in [0, 2**32))
     and X, Y and Z counts.  ``seeds`` may be a CPU tensor or a list (it is

@@ -1,9 +1,9 @@
 """The port's counting decoders (STDC and its variants, STRC) on the CPU,
 through the plain sweep, against exact posteriors (the patterns and bars of
 tests/test_decoders.py) and against the JAX STDC; plus the slice's
-contract: no kernel launches on the CPU, a CUDA request fails here, the
-options still to port raise (the ported ones run), and the package
-imports neither jax nor triton.
+contract: no kernel launches on the CPU, a CUDA request fails here, every
+engine and option runs, and the package imports neither jax nor
+triton.
 
 The port samples one colored sweep per recorded step, as the JAX
 ``sweep``/``pallas`` engines do, so steps are sized as
@@ -189,11 +189,20 @@ def test_cuda_device_fails_without_a_card():
     ("STRC", dict(engine="fused")),
 ])
 def test_options_not_ported_raise(fn, change):
+    """The engines this test once refused now sample, as in the JAX
+    package: ``sweep`` on the sweep kernel's per-Pauli branch, ``literal``
+    (five proposals a recorded step) and ``fused`` (one) on the literal
+    update; the decode gives normalised percentages and, on the sweep
+    engine, makes no launch on the CPU."""
     _, spec, s0 = _syndrome_state("planar", 3)
     decoder = {"STDC": STDC, "STRC": STRC}[fn]
-    with pytest.raises(NotImplementedError):
-        decoder(spec, s0[None], 0.1, 0.25, droplets=2, steps=10,
-                device="cpu", **change)
+    sweep_counts.reset()
+    distr = decoder(spec, s0[None], 0.1, 0.25, droplets=2, steps=10,
+                    device="cpu", **change)
+    assert distr.shape == (1, spec.n_classes)
+    np.testing.assert_allclose(distr.sum(-1), 100.0, rtol=1e-5)
+    assert sweep_counts.launches == 0
+    assert sweep_counts.plain_calls == (change["engine"] == "sweep")
 
 
 @pytest.mark.parametrize("fn,change", [
@@ -268,19 +277,22 @@ def test_entry_points_default_to_the_card(fn):
 
 
 def test_resolve_engine_per_family():
+    """Every engine name resolves in every family, as in the JAX package
+    (tests/test_torch_engines.py holds the whole table against it): "auto"
+    is the fused window, the sweep kernel's sampler and the K1 sweep; the
+    "chain" family maps "pallas" to the K1 sweep."""
     assert resolve_engine("auto", "counting") == "pallas"
     assert resolve_engine("pallas", "counting") == "pallas"
     assert resolve_engine("auto", "pteq") == resolve_engine("fused", "pteq") == "fused"
     for engine in ("literal", "sweep", "fused"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            resolve_engine(engine, "counting")
+        assert resolve_engine(engine, "counting") == engine
     for engine in ("literal", "sweep", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            resolve_engine(engine, "pteq")
+        assert resolve_engine(engine, "pteq") == engine
+    assert resolve_engine("auto", "chain") == resolve_engine("pallas", "chain") == "sweep"
     with pytest.raises(ValueError):
         resolve_engine("xla", "counting")
     with pytest.raises(ValueError):
-        resolve_engine("auto", "chain")
+        resolve_engine("auto", "window")
 
 
 def test_import_pulls_in_neither_jax_nor_triton():
