@@ -50,6 +50,16 @@ kernel against its plain PyTorch version on the card:
   merges; single_temp at the same shape; PTDC, PTRC, single_temp, STDC on
   the sweep engine and PTEQ on the unfused sweep engine against the exact
   posterior at d=3.
+- The user's entry point, both kernels through it: PTEQ at the production
+  shape through ``python -m mcmc_qec_tpu_torch generate`` (a subprocess),
+  equal bit for bit to a direct ``PTEQ`` call on the same syndromes, with
+  the pipeline's host stages; PTDC at the JAX pipeline's defaults through
+  the CLI (3125 sweep launches); planar d=5 through MWPM, eMWPM and STDC
+  warm-started by the blossom matcher (built with g++ here); ``concat``
+  and ``evaluate``.  Then a checkpointing PTEQ decode at the production
+  shape killed after its 2nd snapshot (``python3 chip_smoke.py
+  --ckpt-worker DIR``, the one argument the script takes) and resumed,
+  equal bit for bit to the uninterrupted decode.
 
 Each phase prints one line; any failed phase exits non-zero.  The line
 before the last is a JSON record of the kernels (launches on the main
@@ -133,7 +143,22 @@ from mcmc_qec_tpu_torch.ops.ladder_window import (
     make_ladder_window,
 )
 import mcmc_qec_tpu_torch.ops.sweep as sw
-from mcmc_qec_tpu_torch.ops.pauli import count_errors_xyz, make_hash_mults, pack_key
+from mcmc_qec_tpu_torch.ops.pauli import (
+    count_errors_xyz,
+    make_hash_mults,
+    pack_key,
+    random_logical,
+)
+from mcmc_qec_tpu_torch import cli, native
+from mcmc_qec_tpu_torch.matching import class_sorted_mwpm_batch
+from mcmc_qec_tpu_torch.pipeline import (
+    Dataset,
+    evaluate_dataset,
+    generate,
+    sample_errors,
+)
+from mcmc_qec_tpu_torch.pipeline.generate import error_generator
+from mcmc_qec_tpu_torch.utils import CheckpointManager, StageTimer
 from mcmc_qec_tpu_torch.ops.sweep import (
     make_recording_sweep,
     make_sweep,
@@ -209,6 +234,20 @@ D3_SYNDROMES = {
     "toric p=0.1": ("toric", [0, 0, 0, 2, 0, 0, 3, 1, 0, 0, 3, 0, 0, 0, 0, 2,
                               0, 0]),
 }
+# the pipeline on the card (phase 21): (a) PTEQ at the production shape
+# through `python -m mcmc_qec_tpu_torch generate` (energy_chunk stays at
+# the pipeline's 4), (b) PTDC at the JAX pipeline's defaults through the
+# CLI, (c) planar d=5 through MWPM, eMWPM and STDC warm-started by the
+# matcher, on one seed
+PIPE_PTEQ = dict(d=5, B=2048, p=0.15, iters=2, window=600, max_steps=24000,
+                 seed=2027, warm_B=64)
+PIPE_PTDC = dict(d=5, B=1024, p=0.1, seed=2028)
+PIPE_PLANAR = dict(d=5, p=0.1, n=1024, seed=2029, methods=("MWPM", "eMWPM",
+                                                           "STDC"))
+# PTEQ killed after its 2nd snapshot and resumed (phase 22): the
+# production shape with snapshots every 5 windows
+CKPT_MAIN = dict(d=5, B=2048, p=0.15, iters=2, window=600, energy_chunk=12,
+                 max_steps=24000, ckpt_every=5, kill_after=2, seed=2030)
 # the materialised stream in the port's form: int64 key halves and int32
 # counts, 28 bytes a sample
 PORT_BYTES_PER_SAMPLE = 28
@@ -1599,7 +1638,7 @@ def phase_pt_main_path():
               f"{name}: percentages sum to {tot.min()}..{tot.max()}")
         rec = float(np.mean(distr.argmax(1) == truth))
         check(rec >= m["min_recovered"], f"{name}: truth recovered {rec:.3f}")
-        out[name] = dict(launches=launches, distr=distr)
+        out[name] = dict(launches=launches, distr=distr, syn_s=B / dt)
         parts = ", ".join(f"{k} {split.get(k, 0.0):.1f}" for k in
                           ("sweep", "exchange", "sample", "merge"))
         lines.append(
@@ -1641,6 +1680,7 @@ def phase_pt_main_path():
           f"{launch['bound_ms']:.4f} ms ({launch['bound_by']}); launch: "
           f"{sampler_launch_line(spec, R, False)}", flush=True)
     launch["launches"] = out["PTDC"]["launches"]
+    launch["ptdc_syn_s"] = out["PTDC"]["syn_s"]
     return launch
 
 
@@ -1740,6 +1780,353 @@ def phase_exact_slice_d3():
     check(not fails, "; ".join(fails))
 
 
+def _gen_module():
+    """pipeline/generate.py (the package's ``generate`` attribute is the
+    function of that name)."""
+    return sys.modules["mcmc_qec_tpu_torch.pipeline.generate"]
+
+
+def _cli_subprocess(*args):
+    """``python -m mcmc_qec_tpu_torch <args>`` from the repo root; its
+    standard output."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "mcmc_qec_tpu_torch", *args],
+                          capture_output=True, text=True, cwd=ROOT, env=env,
+                          timeout=600)
+    check(proc.returncode == 0, f"python -m mcmc_qec_tpu_torch {args[0]} "
+          f"exited {proc.returncode}: {proc.stderr[-1500:]}")
+    return proc.stdout
+
+
+def _cli_in_process(*args):
+    """``cli.main(args)`` in this process (so its launches count); its
+    standard output."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in args])
+    check(rc == 0, f"cli {args[0]} returned {rc}")
+    return buf.getvalue()
+
+
+def _recount(ds):
+    """(points, failures) of a dataset from its arrays: argmax of the first
+    K columns (K = the code's classes) against the stored true classes."""
+    K = get_spec(ds.config.code, ds.config.size).n_classes
+    return len(ds), int((ds.distributions[:, :K].argmax(1)
+                         != ds.true_classes).sum())
+
+
+def _evaluated(out):
+    """{path: failures} from the lines ``evaluate`` prints."""
+    got = {}
+    for line in out.strip().splitlines():
+        m = re.match(r"(.*): (\d+) points, (\d+) failures", line)
+        check(m is not None, f"evaluate printed {line!r}")
+        got[m.group(1)] = (int(m.group(2)), int(m.group(3)))
+    return got
+
+
+def phase_pipeline(pt_main):
+    """The user's entry point on the card: the blossom library's build;
+    (a) PTEQ at the production shape through ``python -m
+    mcmc_qec_tpu_torch generate`` in a subprocess, its distributions equal
+    bit for bit to a direct ``PTEQ`` call on the resampled syndromes and
+    the same warm start and seed, its true classes to ``np_eq_class``, and
+    in process (after a warm-up) the generate's syn/s, K2 launches and
+    host stages against the direct call's; (b) PTDC at the JAX pipeline's
+    defaults through the CLI (3125 K1 launches, as phase 18's decode, and
+    its syn/s beside phase 18's); (c) planar d=5 through MWPM, eMWPM and
+    STDC warm-started by the matcher on one seed, each success rate from
+    ``evaluate``, STDC's not below MWPM's by more than two standard
+    errors, and the matcher's syndromes/s; (d) ``concat`` and ``evaluate``
+    on those files: the counts add up and each failure count equals a
+    recount from the arrays."""
+    gm = _gen_module()
+    fresh = not Path(native._lib_path()).exists()
+    t0 = time.perf_counter()
+    native.build_library()
+    build_s = time.perf_counter() - t0
+    lines = [f"blossom library {'built' if fresh else 'reused'} in "
+             f"{build_s:.2f} s"]
+    m = PIPE_PTEQ
+    spec = get_spec("toric", m["d"])
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, f"{k}.npz") for k in
+                 ("pteq", "ptdc", *PIPE_PLANAR["methods"], "cat_toric",
+                  "cat_planar")}
+        # (a) the CLI in a subprocess
+        argv = ["generate", "--code", "toric", "--size", m["d"], "--method",
+                "PTEQ", "--p-error", m["p"], "--batch", m["B"], "-n", m["B"],
+                "--iters", m["iters"], "--window", m["window"],
+                "--max-steps", m["max_steps"], "--seed", m["seed"]]
+        t0 = time.perf_counter()
+        out = _cli_subprocess(*map(str, argv), "--out", paths["pteq"])
+        dt_sub = time.perf_counter() - t0
+        check(f"wrote {m['B']} points" in out, f"generate printed {out[-300:]}")
+        ds = Dataset.load(paths["pteq"])
+        cfg = ds.config
+        check(cfg.device == "cuda" and cfg.method == "PTEQ",
+              f"dataset config {cfg}")
+        states = sample_errors(spec, cfg, error_generator(cfg, 0))
+        check(np.array_equal(ds.qubit_matrices.reshape(m["B"], -1), states),
+              "the dataset's states are not the resampled syndromes")
+        check(np.array_equal(ds.true_classes, np_eq_class(spec, states)),
+              "true_classes differ from np_eq_class of the states")
+        pcfg = PTEQConfig(Nc=cfg.Nc, SEQ=cfg.SEQ, TOPS=cfg.TOPS, eps=cfg.eps,
+                          max_steps=cfg.max_steps, iters=cfg.iters,
+                          window=cfg.window, conv_criteria=cfg.conv_criteria)
+        check(pcfg.energy_chunk == 4, "the pipeline's energy_chunk moved")
+        states_d = torch.as_tensor(states, device="cuda")
+
+        def direct(st, seed):
+            g = torch.Generator(device="cuda").manual_seed(seed ^ 0x5EED)
+            init = random_logical(spec, st, g)
+            return PTEQ(spec, init, cfg.p_error, pcfg, seed=seed,
+                        device="cuda")
+
+        # warm-ups at B=64: the direct call and the pipeline
+        small = dataclasses.replace(cfg, batch=m["warm_B"], max_steps=1200)
+        direct(states_d[: m["warm_B"]], 1)
+        generate(None, small, m["warm_B"], progress=None)
+        ladder_window_counts.reset()
+        res, dt_direct = _sync_time(lambda: direct(states_d, cfg.seed))
+        k2_direct = ladder_window_counts.launches
+        check(np.array_equal(ds.distributions,
+                             res.distribution.astype(np.float32)),
+              "the CLI's PTEQ distributions differ from the direct call's")
+        gm.stage_timer = StageTimer()
+        ladder_window_counts.reset()
+        try:
+            ds_in, dt_gen = _sync_time(lambda: generate(None, cfg, m["B"],
+                                                        progress=None))
+        finally:
+            stages, gm.stage_timer = gm.stage_timer.times, None
+        k2, plain = ladder_window_counts.launches, ladder_window_counts.plain_calls
+        check(k2 > 0 and plain == 0, f"generate: {k2} K2 launches, {plain} "
+                                     f"plain calls")
+        check(k2 == k2_direct, f"generate ran {k2} windows, the direct call "
+                               f"{k2_direct}")
+        check(np.array_equal(ds_in.distributions, ds.distributions),
+              "generate in process differs from the CLI's subprocess")
+        host = dt_gen - stages.get("decode", 0.0)
+        split = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in stages.items())
+        res_a = evaluate_dataset(ds)
+        lines.append(
+            f"(a) PTEQ toric d={m['d']} B={m['B']} p={m['p']} "
+            f"iters={m['iters']} window={m['window']} max_steps="
+            f"{m['max_steps']} energy_chunk=4 through the CLI subprocess "
+            f"({dt_sub:.2f} s with start-up): distributions equal to the "
+            f"direct PTEQ call's bit for bit, true classes equal; in process "
+            f"generate {m['B'] / dt_gen:.1f} syn/s ({dt_gen:.3f} s, {k2} K2 "
+            f"launches, no plain call) against the direct call's "
+            f"{m['B'] / dt_direct:.1f} ({dt_direct:.3f} s, {k2_direct}); host "
+            f"ms by stage: {split}; the pipeline adds {host * 1e3:.1f} ms; "
+            f"success {res_a.success_rate:.4f}")
+        # (b) PTDC at the JAX pipeline's defaults through the CLI
+        mb = PIPE_PTDC
+        sweep_counts.reset()
+        out, dt_b = _sync_time(lambda: _cli_in_process(
+            "generate", "--device", "cuda", "--code", "toric", "--size",
+            mb["d"], "--method", "PTDC", "--p-error", mb["p"], "--batch",
+            mb["B"], "-n", mb["B"], "--seed", mb["seed"], "--out",
+            paths["ptdc"]))
+        k1, plain = sweep_counts.launches, sweep_counts.plain_calls
+        check(f"wrote {mb['B']} points" in out, f"generate printed {out[-300:]}")
+        check(k1 == pt_main["launches"], f"PTDC through the CLI: {k1} K1 "
+              f"launches, phase 18's decode {pt_main['launches']}")
+        check(plain == 0, f"PTDC through the CLI: {plain} plain calls")
+        ds_b = Dataset.load(paths["ptdc"])
+        check(ds_b.config.steps == 5 * mb["d"] ** 5 and ds_b.config.Nc is None
+              and ds_b.config.droplets == 4, f"not the defaults: {ds_b.config}")
+        res_b = evaluate_dataset(ds_b)
+        check(res_b.success_rate >= PT_MAIN["min_recovered"],
+              f"PTDC through the CLI: success {res_b.success_rate:.3f}")
+        lines.append(
+            f"(b) PTDC toric d={mb['d']} B={mb['B']} p={mb['p']} at the "
+            f"pipeline's defaults (steps {ds_b.config.steps}, droplets 4, Nc=d) "
+            f"through the CLI in process: {mb['B'] / dt_b:.2f} syn/s "
+            f"({dt_b:.2f} s, with the dataset's save) against phase 18's "
+            f"{pt_main['ptdc_syn_s']:.2f}; {k1} K1 launches (phase 18: "
+            f"{pt_main['launches']}), no plain call; success "
+            f"{res_b.success_rate:.4f}")
+        # (c) planar d=5 on one seed: MWPM, eMWPM, STDC from the matcher
+        mc = PIPE_PLANAR
+        rates, parts = {}, []
+        for method in mc["methods"]:
+            extra = ["--mwpm-init", "true"] if method == "STDC" else []
+            sweep_counts.reset()
+            _, dt_c = _sync_time(lambda: _cli_in_process(
+                "generate", "--code", "planar", "--size", mc["d"], "--method",
+                method, "--p-error", mc["p"], "--batch", mc["n"], "-n",
+                mc["n"], "--seed", mc["seed"], *extra, "--out",
+                paths[method]))
+            parts.append(f"{method} {mc['n'] / dt_c:.1f} syn/s ({dt_c:.2f} s"
+                         + (f", {sweep_counts.launches} K1 launches)"
+                            if method == "STDC" else ")"))
+            if method == "STDC":
+                check(sweep_counts.launches > 0 and sweep_counts.plain_calls
+                      == 0, f"STDC: {sweep_counts.launches} K1 launches, "
+                      f"{sweep_counts.plain_calls} plain calls")
+        got = _evaluated(_cli_in_process("evaluate",
+                                          *[paths[k] for k in mc["methods"]]))
+        qms = None
+        for method in mc["methods"]:
+            dsm = Dataset.load(paths[method])
+            n, f = got[paths[method]]
+            check((n, f) == _recount(dsm), f"evaluate {method}: {(n, f)}, "
+                  f"recount {_recount(dsm)}")
+            rates[method] = 1.0 - f / n
+            if qms is None:
+                qms = dsm.qubit_matrices
+            check(np.array_equal(dsm.qubit_matrices, qms),
+                  f"{method} decoded other syndromes")
+        n = mc["n"]
+        se = float(np.sqrt(sum(r * (1 - r) / n for r in
+                               (rates["STDC"], rates["MWPM"]))))
+        check(rates["STDC"] >= rates["MWPM"] - 2 * se,
+              f"STDC {rates['STDC']:.4f} below MWPM {rates['MWPM']:.4f} by "
+              f"more than 2 se ({se:.4f})")
+        pspec = get_spec("planar", mc["d"])
+        flat = qms.reshape(n, -1)
+        _, dt_m = _sync_time(lambda: class_sorted_mwpm_batch(pspec, flat))
+        lines.append(
+            f"(c) planar d={mc['d']} p={mc['p']} n={n} one seed: "
+            + ", ".join(parts) + "; evaluate: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in rates.items())
+            + f" (STDC - MWPM {rates['STDC'] - rates['MWPM']:+.4f}, 2 se "
+            f"{2 * se:.4f}); matcher warm start (class_sorted_mwpm_batch, "
+            f"{os.cpu_count()} host cores) {n / dt_m:.1f} syndromes/s")
+        # (d) concat and evaluate
+        for name, srcs in (("cat_toric", ("pteq", "ptdc")),
+                           ("cat_planar", mc["methods"])):
+            out = _cli_in_process("concat", *[paths[k] for k in srcs],
+                                  "--out", paths[name])
+            total = sum(len(Dataset.load(paths[k])) for k in srcs)
+            check(f"wrote {total} points" in out, f"concat printed {out}")
+            ev = _evaluated(_cli_in_process("evaluate", paths[name]))
+            whole = ev[paths[name]]
+            check(whole == _recount(Dataset.load(paths[name])),
+                  f"evaluate {name}: {whole}")
+            check(whole[1] == sum(_recount(Dataset.load(paths[k]))[1]
+                                  for k in srcs),
+                  f"{name}: failures do not add up")
+        lines.append("(d) concat of (a)+(b) and of (c)'s three: counts add "
+                     "up, evaluate equals the recount from the arrays")
+    print("phase 21 pipeline and CLI on the card: " + "; ".join(lines),
+          flush=True)
+
+
+def _ckpt_run(ckpt_dir=None):
+    """PTEQ at CKPT_MAIN's shape on the card, checkpointing to
+    ``ckpt_dir`` (None: off)."""
+    m = CKPT_MAIN
+    spec = get_spec("toric", m["d"])
+    gen = torch.Generator(device="cuda").manual_seed(m["seed"])
+    states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
+    cfg = PTEQConfig(max_steps=m["max_steps"], window=m["window"],
+                     iters=m["iters"], energy_chunk=m["energy_chunk"],
+                     ckpt_dir=ckpt_dir, ckpt_every=m["ckpt_every"])
+    return PTEQ(spec, states, m["p"], cfg, seed=m["seed"], device="cuda")
+
+
+def ckpt_worker(ckpt_dir: str) -> int:
+    """Phase 22's preempted run: dies with ``os._exit(9)`` right after its
+    CKPT_MAIN["kill_after"]-th snapshot lands."""
+    orig = CheckpointManager.save
+    count = [0]
+
+    def save(self, step, tree, meta=None):
+        p = orig(self, step, tree, meta)
+        count[0] += 1
+        if count[0] >= CKPT_MAIN["kill_after"]:
+            print(f"preempted after the snapshot of window {step}", flush=True)
+            os._exit(9)
+        return p
+
+    CheckpointManager.save = save
+    _ckpt_run(ckpt_dir)
+    print("the run finished without being preempted", flush=True)
+    return 1
+
+
+def phase_checkpoint():
+    """PTEQ at the production shape through K2 with snapshots every 5
+    windows: a subprocess killed right after its 2nd snapshot, resumed
+    here, equals an uninterrupted run and a run that checkpoints but is
+    never killed, bit for bit (distribution, converged, steps, tops0,
+    buckets); ms a snapshot and its share of the decode."""
+    m = CKPT_MAIN
+    fields = ("distribution", "converged", "steps", "tops0")
+    base, dt_base = _sync_time(_ckpt_run)
+    saves = []
+    orig = CheckpointManager.save
+
+    def timed(self, step, tree, meta=None):
+        t0 = time.perf_counter()
+        p = orig(self, step, tree, meta)
+        saves.append(time.perf_counter() - t0)
+        return p
+
+    with tempfile.TemporaryDirectory() as tmp:
+        CheckpointManager.save = timed
+        try:
+            kept, dt_kept = _sync_time(lambda: _ckpt_run(
+                os.path.join(tmp, "kept")))
+        finally:
+            CheckpointManager.save = orig
+        # where a snapshot's time goes: its arrays written again on the
+        # host, compressed (as saved) and not
+        last = CheckpointManager(os.path.join(tmp, "kept")).latest()
+        with np.load(last) as z:
+            arrays = {k: z[k] for k in z.files}
+        resave = {}
+        for name, fn in (("compressed", np.savez_compressed),
+                         ("uncompressed", np.savez)):
+            t0 = time.perf_counter()
+            fn(os.path.join(tmp, name), **arrays)
+            resave[name] = (time.perf_counter() - t0,
+                            os.path.getsize(os.path.join(tmp, name + ".npz")))
+        killed = os.path.join(tmp, "killed")
+        env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--ckpt-worker", killed], capture_output=True,
+                              text=True, cwd=ROOT, env=env, timeout=600)
+        check(proc.returncode == 9, f"the worker exited {proc.returncode}, "
+              f"not 9: {proc.stdout[-500:]} {proc.stderr[-1500:]}")
+        snaps = sorted(f for f in os.listdir(killed) if f.startswith("ckpt_"))
+        ladder_window_counts.reset()
+        resumed, dt_res = _sync_time(lambda: _ckpt_run(killed))
+        k2, plain = ladder_window_counts.launches, ladder_window_counts.plain_calls
+    check(k2 > 0 and plain == 0, f"resume: {k2} K2 launches, {plain} plain")
+    for name, other in (("never-killed", kept), ("resumed", resumed)):
+        for f in fields:
+            check(np.array_equal(getattr(other, f), getattr(base, f)),
+                  f"{name} run: {f} differs from the uninterrupted run")
+        check(other.buckets == base.buckets, f"{name} run: buckets differ")
+    windows = int(base.steps.max()) // m["window"]
+    print(f"phase 22 PTEQ checkpoint kill and resume on the card: toric "
+          f"d={m['d']} B={m['B']} p={m['p']} window={m['window']} "
+          f"energy_chunk={m['energy_chunk']} ckpt_every={m['ckpt_every']}; "
+          f"the worker died after its snapshot {snaps[-1]} "
+          f"({proc.stdout.strip().splitlines()[-1]}); resumed {k2} windows "
+          f"through K2 ({dt_res:.2f} s); the resumed and the never-killed "
+          f"runs equal the uninterrupted one bit for bit (distribution, "
+          f"converged, steps, tops0, buckets {list(base.buckets)}, "
+          f"{windows} windows); {len(saves)} snapshots at "
+          f"{np.mean(saves) * 1e3:.1f} ms each (max {max(saves) * 1e3:.1f}), "
+          f"{sum(saves) / dt_kept:.3f} of the checkpointing decode "
+          f"({dt_kept:.2f} s against {dt_base:.2f} s without); the last "
+          f"snapshot's {sum(a.nbytes for a in arrays.values()) / 1e6:.1f} MB "
+          f"of arrays written again on the host: "
+          + ", ".join(f"{k} {t * 1e3:.1f} ms ({b / 1e6:.1f} MB on disk)"
+                      for k, (t, b) in resave.items()), flush=True)
+
+
 def main() -> int:
     phase = "device"
     try:
@@ -1782,6 +2169,10 @@ def main() -> int:
         phase_single_temp_main_path()
         phase = "d=3 exact checks of the slice's decoders"
         phase_exact_slice_d3()
+        phase = "pipeline and CLI on the card"
+        phase_pipeline(k1_pt)
+        phase = "PTEQ checkpoint kill and resume on the card"
+        phase_checkpoint()
     except PhaseFailed as e:
         print(f"FAILED phase {phase}: {e}", flush=True)
         return 1
@@ -1868,4 +2259,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ckpt-worker"]:
+        sys.exit(ckpt_worker(sys.argv[2]))
     sys.exit(main())

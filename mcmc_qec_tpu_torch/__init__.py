@@ -15,9 +15,15 @@ the fused parallel-tempering window (CUDA kernel
 ``csrc/sweep.cu``, also at a row of betas per chain for the PT ladder
 step of ``mcmc/ladder.py``) and the literal single-proposal engine
 (``ops/metropolis.py``, plain torch); structured metrics
-(``utils.metrics``).  The kernels are built with nvcc at first use on a
-CUDA device; entry points run on the card unless the caller asks for the
-CPU.  Importing this package imports neither jax nor triton.
+(``utils.metrics``), exact checkpoint/resume of PTEQ
+(``utils.checkpoint``) and profiling helpers (``utils.profiling``); the
+blossom matcher (``native``, C++ built with g++ at first use) and the MWPM
+graph layer and warm starts (``matching``); the batch pipeline
+(``pipeline``: ``RunConfig``, datasets, ``generate``, evaluation, plots)
+and its command line (``cli``, ``python -m mcmc_qec_tpu_torch``).  The
+kernels are built with nvcc at first use on a CUDA device; entry points
+run on the card unless the caller asks for the CPU.  Importing this
+package imports neither jax nor triton.
 """
 
 from . import models

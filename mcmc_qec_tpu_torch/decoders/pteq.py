@@ -32,8 +32,14 @@ they leave the batch and at the end (pteq.py:443-470, 686-690, 821-842).
 
 ``metrics`` (a ``utils.metrics.MetricsLogger``) gets one ``pteq_window``
 record per window (pteq.py:610-632 of the JAX package), built from the
-summaries the window fetch already brings to the host.  Not ported yet
-(raises ``NotImplementedError``): checkpointing.
+summaries the window fetch already brings to the host.
+
+``cfg.ckpt_dir`` makes the decode resumable (pteq.py:482-560, 768-775 of
+the JAX package): every ``cfg.ckpt_every`` windows, after the automaton and
+any compaction, the whole run state (ladder, accumulators, row map and
+buckets, energy history, automaton, shortest state, and the CPU generator
+that draws each window's seed, in place of the JAX key) goes to one
+snapshot, and a run that finds one resumes from it bit for bit.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from ..ops.engines import resolve_device, resolve_engine
 from ..ops.ladder_window import _weighted, make_ladder_window
 from ..ops.metropolis import _log_uniform
 from ..ops.pauli import make_hash_mults, pack_key
+from ..utils.checkpoint import CheckpointManager
 from ..utils.metrics import effective_sample_size
 from .convergence import EnergyHistory
 
@@ -366,12 +373,6 @@ def pteq_run(
     to the result, weighting each unique shortest chain by
     exp(-shortest_beta * n_eff) (decoders_biasednoise.py:163-169)."""
     device = resolve_device(device)
-    if cfg.ckpt_dir:
-        raise NotImplementedError(
-            "ckpt_dir: checkpoint/resume is not ported yet (ROADMAP.md queue "
-            "1 item 5, 'Matching, pipeline, checkpointing, multi-device, CLI "
-            "and benchmark')"
-        )
     if not isinstance(init_states, torch.Tensor):
         init_states = torch.as_tensor(np.asarray(init_states, np.uint8))
     B = init_states.shape[0]
@@ -532,7 +533,70 @@ def pteq_run(
         Br = new_Br
         buckets.append(new_Br)
 
-    for w in range(n_windows):
+    # exact mid-decode checkpoint/resume (JAX pteq.py:482-560): the
+    # snapshot holds everything the later windows read, the window-seed
+    # generator's state included
+    ckpt = None
+    w0 = 0
+    sig = (B, Nc, K, cfg.window, spec.family, spec.size)
+    if cfg.ckpt_dir:
+        ckpt = CheckpointManager(cfg.ckpt_dir)
+
+        def snapshot_tree():
+            tree = {
+                "ls_state": ls.state, "ls_flag": ls.flag,
+                "ls_tops0": ls.tops0, "eq_count": eq_count,
+                "since_burn": since_burn, "gen_state": gen.get_state(),
+                "rows": rows,
+                **{f"hist_{k}": v for k, v in hist.snapshot().items()},
+                "burn_start": burn_start, "conv_start": conv_start,
+                "in_streak": in_streak, "converged": converged,
+                "snap_distr": snap_distr, "snap_steps": snap_steps,
+                "snap_tops": snap_tops, "steps_done": np.asarray(steps_done),
+                "buckets": np.asarray(buckets, dtype=np.int64),
+            }
+            if track_shortest:
+                tree.update({f"sh_{k}": v for k, v in sh._asdict().items()})
+                tree.update(sh_val_h=sh_val_h, sh_cnt_h=sh_cnt_h,
+                            sh_nuq_h=sh_nuq_h, sh_ovf_h=sh_ovf_h)
+            return tree
+
+        restored, meta = ckpt.restore_latest(snapshot_tree())
+        if restored is not None:
+            if tuple(meta.get("sig", ())) != sig:
+                raise ValueError(
+                    f"checkpoint in {cfg.ckpt_dir} was written by a different"
+                    f" run: {meta.get('sig')} != {sig}"
+                )
+            ls = LadderState(restored["ls_state"], restored["ls_flag"],
+                             restored["ls_tops0"])
+            eq_count = restored["eq_count"]
+            since_burn = restored["since_burn"]
+            gen.set_state(restored["gen_state"])
+            rows = restored["rows"]
+            Br = len(rows)
+            hist = EnergyHistory.restore(
+                {k: restored[f"hist_{k}"] for k in ("cum", "ccnt", "span")},
+                max_rows=cfg.cum_rows_cap)
+            burn_start = restored["burn_start"]
+            conv_start = restored["conv_start"]
+            in_streak = restored["in_streak"]
+            converged = restored["converged"]
+            snap_distr = restored["snap_distr"]
+            snap_steps = restored["snap_steps"]
+            snap_tops = restored["snap_tops"]
+            steps_done = int(restored["steps_done"])
+            buckets = [int(b) for b in restored["buckets"]]
+            if track_shortest:
+                sh = ShortestState(*(restored[f"sh_{k}"]
+                                     for k in ShortestState._fields))
+                sh_val_h[:] = restored["sh_val_h"]
+                sh_cnt_h[:] = restored["sh_cnt_h"]
+                sh_nuq_h[:] = restored["sh_nuq_h"]
+                sh_ovf_h[:] = restored["sh_ovf_h"]
+            w0 = int(meta["window_idx"]) + 1
+
+    for w in range(w0, n_windows):
         w_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
         args = (ls, w_seed, betas, eq_count, since_burn, weights)
         out = window_fn(*args, sh) if track_shortest else window_fn(*args)
@@ -545,6 +609,10 @@ def pteq_run(
         new_Br = compact_to()
         if new_Br:
             do_compact(new_Br)
+        # after the automaton and compaction, so the snapshot holds the
+        # post-compact rows and buckets (JAX pteq.py:760-775)
+        if ckpt is not None and (w + 1 - w0) % max(cfg.ckpt_every, 1) == 0:
+            ckpt.save(w, snapshot_tree(), {"sig": sig, "window_idx": w})
 
     # unconverged elements: snapshot at the end (the reference's "hit max
     # steps" semantics, decoders.py:84-87)

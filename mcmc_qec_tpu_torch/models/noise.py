@@ -10,6 +10,9 @@ parameter converters are pure numpy and carried over unchanged.
   equivalent to xyz(p/3, p/3, p/3), cf. generate_data.py:65).
 - xyz(px, py, pz): thresholds r<pz -> Z, <pz+px -> X, <pz+px+py -> Y
   (planar_model.py:18-31, rotated_surface_model.py:25-38).
+
+The samplers' tensors live on their generator's device unless ``device``
+names it (the JAX samplers run on the default device).
 """
 
 from __future__ import annotations
@@ -64,11 +67,13 @@ def sample_xyz(
     p_y: float,
     p_z: float,
     batch: Tuple[int, ...] = (),
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """Sample flat uint8 error states (batch + (nq,)) with independent
     per-qubit X/Y/Z probabilities, zeroing invalid cells
-    (planar_model.py:39-40).  ``generator`` must live on ``device``."""
+    (planar_model.py:39-40).  The states live on ``device``, by default
+    the generator's; an explicit ``device`` must be the generator's."""
+    device = generator.device if device is None else device
     shape = tuple(batch) + (spec.nq,)
     r = torch.rand(shape, generator=generator, device=device)
     q = torch.zeros(shape, dtype=torch.uint8, device=device)
@@ -84,8 +89,45 @@ def sample_depolarizing(
     spec: CodeSpec,
     p_error: float,
     batch: Tuple[int, ...] = (),
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
     p3 = p_error / 3.0
     return sample_xyz(generator, spec, p3, p3, p3, batch, device)
+
+
+def known_error(spec: CodeSpec) -> np.ndarray:
+    """Fixed deterministic error injection — the reference's
+    regression-reproduction hook (``generate_known_error``,
+    rotated_surface_model.py:79-82: X at (2,2) and (1,0);
+    xzzx_model.py:31-34: X at (0,1) and (1,1)).  Returns a flat (nq,) state.
+    """
+    if spec.family not in ("rotated", "xzzx"):
+        raise ValueError(
+            "known_error exists only for rotated/xzzx codes "
+            "(as in the reference)"
+        )
+    pos = {"rotated": [(2, 2), (1, 0)], "xzzx": [(0, 1), (1, 1)]}[spec.family]
+    state = np.zeros(spec.state_shape, dtype=np.uint8)
+    for r, c in pos:
+        state[r, c] = 1
+    return state.reshape(-1)
+
+
+def sample_n_random_errors(generator: torch.Generator, spec: CodeSpec,
+                           n: int) -> torch.Tensor:
+    """Exactly n errors with uniform Pauli at random positions
+    (toric_model.py:26-32), on the generator's device; positions are drawn
+    from *valid* cells only so planar's unused cells never eat part of the
+    budget."""
+    device = generator.device
+    valid_idx = torch.as_tensor(np.flatnonzero(spec.valid_mask),
+                                device=device)
+    perm = torch.randperm(valid_idx.shape[0], generator=generator,
+                          device=device)
+    chosen = valid_idx[perm[:n]]
+    paulis = torch.randint(1, 4, (spec.nq,), generator=generator,
+                           device=device).to(torch.uint8)
+    sel = torch.zeros((spec.nq,), dtype=torch.uint8, device=device)
+    sel[chosen] = 1
+    return sel * paulis
 

@@ -1,6 +1,8 @@
-"""Utilities of the port: structured metrics (``metrics.py``, numpy
-only)."""
+"""Utilities of the port: exact checkpoint/resume (``checkpoint.py``),
+structured metrics (``metrics.py``, numpy only) and profiling helpers
+(``profiling.py``)."""
 
+from .checkpoint import CheckpointManager, load_pytree, save_pytree
 from .metrics import (
     LadderMetrics,
     MetricsLogger,
@@ -8,3 +10,4 @@ from .metrics import (
     swap_acceptance_from_traces,
     unique_discovery_curve,
 )
+from .profiling import StageTimer, Throughput, device_trace

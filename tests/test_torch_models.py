@@ -102,3 +102,49 @@ def test_noise_converters_equal_jax(fn, args):
     ours = np.asarray(getattr(noise, fn)(*args), float)
     theirs = np.asarray(getattr(jax_noise, fn)(*args), float)
     np.testing.assert_array_equal(ours, theirs)
+
+
+def test_samplers_follow_a_cpu_generator():
+    """``device=None`` means the generator's device: a CPU generator gives
+    CPU tensors, the same as with ``device="cpu"`` given."""
+    spec = get_spec("planar", 5)
+    a = sample_depolarizing(torch.Generator().manual_seed(3), spec, 0.2, (6,))
+    b = sample_depolarizing(torch.Generator().manual_seed(3), spec, 0.2, (6,),
+                            device="cpu")
+    c = sample_xyz(torch.Generator().manual_seed(3), spec, 0.2 / 3, 0.2 / 3,
+                   0.2 / 3, (6,))
+    assert a.device.type == "cpu"
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a CUDA "
+                    "device (a CUDA generator)")
+def test_samplers_follow_a_cuda_generator():
+    """A CUDA generator and no ``device`` give CUDA tensors (the samplers
+    once defaulted to the CPU and raised here)."""
+    spec = get_spec("toric", 5)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    s = sample_depolarizing(g, spec, 0.2, (6,))
+    assert s.device.type == "cuda"
+    g = torch.Generator(device="cuda").manual_seed(3)
+    assert torch.equal(s, sample_depolarizing(g, spec, 0.2, (6,),
+                                              device="cuda"))
+    assert noise.sample_n_random_errors(g, spec, 4).device.type == "cuda"
+
+
+def test_sample_n_random_errors_and_known_error_equal_jax():
+    """Exactly n errors on valid cells (toric_model.py:26-32), and the
+    reference's fixed injections, which equal the JAX package's."""
+    for family in ("toric", "planar"):
+        spec = get_spec(family, 5)
+        g = torch.Generator().manual_seed(5)
+        for n in (0, 3, 7):
+            s = noise.sample_n_random_errors(g, spec, n).numpy()
+            assert s.dtype == np.uint8 and (s != 0).sum() == n
+            assert (s[spec.valid_mask == 0] == 0).all()
+    for family in ("rotated", "xzzx"):
+        np.testing.assert_array_equal(
+            noise.known_error(get_spec(family, 5)),
+            jax_noise.known_error(jax_get_spec(family, 5)))
+    with pytest.raises(ValueError):
+        noise.known_error(get_spec("toric", 5))

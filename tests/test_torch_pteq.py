@@ -1,8 +1,8 @@
 """The port's depolarizing PTEQ decoder on the CPU (plain window version)
 against exact posteriors and the JAX decoder, plus the slice's contract:
 no kernel launches on the CPU, an explicit CUDA request fails here, the
-option still to port raises (and those ported since run), and the package
-imports neither jax nor triton."""
+options ported since the first slice run, and the package imports neither
+jax nor triton."""
 
 import dataclasses
 import subprocess
@@ -111,19 +111,22 @@ def _run_with(change):
 @pytest.mark.parametrize("change", [
     dict(cfg=dict(engine="sweep")),
     dict(cfg=dict(engine="literal")),
-    dict(cfg=dict(ckpt_dir="ckpt")),
+    dict(cfg=dict(ckpt_dir="ckpt", ckpt_every=1)),
     dict(cfg=dict(engine="pallas")),
 ])
-def test_options_not_ported_raise(change):
-    """``ckpt_dir`` is still to port and raises.  The unfused engines this
-    test once refused now run the window as a loop of ladder steps
-    (``sweep``, and ``literal`` and ``pallas`` on the literal update, as
-    the JAX package runs them) and decode to the fused window's outputs."""
+def test_options_not_ported_raise(change, tmp_path):
+    """Every option this test once refused now runs.  The unfused engines
+    run the window as a loop of ladder steps (``sweep``, and ``literal``
+    and ``pallas`` on the literal update, as the JAX package runs them)
+    and decode to the fused window's outputs; ``ckpt_dir`` decodes and
+    leaves its snapshot (tests/test_torch_checkpoint.py holds the
+    resume)."""
     if "ckpt_dir" in change["cfg"]:
-        with pytest.raises(NotImplementedError):
-            _run_with(change)
-        return
+        ckpt_dir = tmp_path / change["cfg"]["ckpt_dir"]
+        change = dict(cfg=dict(change["cfg"], ckpt_dir=str(ckpt_dir)))
     res = _run_with(change)
+    if "ckpt_dir" in change["cfg"]:
+        assert [f.name for f in ckpt_dir.iterdir()] == ["ckpt_000000000000.npz"]
     assert res.distribution.shape == (2, 16)
     assert res.steps.tolist() == [100, 100]
     assert res.distribution.dtype == np.uint8
