@@ -58,8 +58,20 @@ kernel against its plain PyTorch version on the card:
   warm-started by the blossom matcher (built with g++ here); ``concat``
   and ``evaluate``.  Then a checkpointing PTEQ decode at the production
   shape killed after its 2nd snapshot (``python3 chip_smoke.py
-  --ckpt-worker DIR``, the one argument the script takes) and resumed,
-  equal bit for bit to the uninterrupted decode.
+  --ckpt-worker DIR``) and resumed, equal bit for bit to the uninterrupted
+  decode.
+- Multi-device runs on ``torch.distributed``, both kernels through them:
+  PTEQ at the production shape through ``python -m mcmc_qec_tpu_torch
+  generate --distributed`` with two ranks sharing the card (``python3
+  chip_smoke.py --rank-worker ARGS``, the CLI run as ``-m`` runs it, with
+  the rank's launches and span recorded), the merged file equal bit for
+  bit to the ranks' runs in process, the merged syn/s against one
+  process's; STDC at the bench key's shape over two ranks with a ragged
+  last shard; ``graft_entry.dryrun_multichip`` over every card; STDC
+  through ``parallel.map_shards`` over a one-card mesh (equal to the
+  unsharded call) and over the card listed twice; a world of one.
+  ``--ckpt-worker`` and ``--rank-worker`` are the only arguments the
+  script takes, each run by the script itself.
 
 Each phase prints one line; any failed phase exits non-zero.  The line
 before the last is a JSON record of the kernels (launches on the main
@@ -150,6 +162,16 @@ from mcmc_qec_tpu_torch.ops.pauli import (
     random_logical,
 )
 from mcmc_qec_tpu_torch import cli, native
+import mcmc_qec_tpu_torch.parallel as parallel
+from mcmc_qec_tpu_torch.graft_entry import dryrun_multichip
+from mcmc_qec_tpu_torch.parallel import (
+    Mesh,
+    distributed_generate,
+    init_distributed,
+    make_mesh,
+    map_shards,
+    shard_batch,
+)
 from mcmc_qec_tpu_torch.matching import class_sorted_mwpm_batch
 from mcmc_qec_tpu_torch.pipeline import (
     Dataset,
@@ -248,6 +270,16 @@ PIPE_PLANAR = dict(d=5, p=0.1, n=1024, seed=2029, methods=("MWPM", "eMWPM",
 # production shape with snapshots every 5 windows
 CKPT_MAIN = dict(d=5, B=2048, p=0.15, iters=2, window=600, energy_chunk=12,
                  max_steps=24000, ckpt_every=5, kill_after=2, seed=2030)
+# multi-device on the card (phase 23): (a) PTEQ at the production shape
+# through `generate --distributed`, two ranks sharing the card, one batch
+# of 2048 each; (b) STDC at the bench key's shape, 2047 points over two
+# ranks (1024 + 1023); each rank warms up on DIST_WARM points before its
+# counts start; (c) the mesh: the dry run, then STDC at (b)'s shape over a
+# one-card mesh and over a mesh that lists the card twice; (d) a world of
+# one process
+DIST_PTEQ = dict(PIPE_PTEQ, seed=2031, n=4096, ranks=2)
+DIST_STDC = dict(STDC_MAIN, d=5, seed=2032, n=2047, ranks=2)
+DIST_WARM = 64
 # the materialised stream in the port's form: int64 key halves and int32
 # counts, 28 bytes a sample
 PORT_BYTES_PER_SAMPLE = 28
@@ -2127,6 +2159,272 @@ def phase_checkpoint():
                       for k, (t, b) in resave.items()), flush=True)
 
 
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def rank_worker(argv) -> int:
+    """Phase 23's rank: ``python -m mcmc_qec_tpu_torch <argv>`` run in this
+    process as ``-m`` runs it (``runpy``), with its ``distributed_generate``
+    call wrapped: a warm-up ``generate`` of DIST_WARM points on the rank's
+    card first (not counted), then the kernel counts from zero and the
+    call's span on the host's clock, printed as one ``RANK {...}`` line."""
+    import runpy
+
+    real = parallel.distributed_generate
+    rec = {}
+
+    def counted(file_path, cfg, n, progress=None):
+        warm = dataclasses.replace(cfg, batch=DIST_WARM, max_steps=1200,
+                                   seed=cfg.seed + 10**6)
+        generate(None, warm, DIST_WARM, progress=None)
+        torch.cuda.synchronize()
+        ladder_window_counts.reset()
+        sweep_counts.reset()
+        rec["start"] = time.time()
+        ds = real(file_path, cfg, n, progress)
+        torch.cuda.synchronize()
+        rec["end"] = time.time()
+        rec.update(device=torch.cuda.current_device(),
+                   # bytes this rank allocated on each card: its own only
+                   peak_by_card=[torch.cuda.max_memory_allocated(i) for i in
+                                 range(torch.cuda.device_count())],
+                   k2=ladder_window_counts.launches,
+                   k2_plain=ladder_window_counts.plain_calls,
+                   k1=sweep_counts.launches, k1_plain=sweep_counts.plain_calls)
+        return ds
+
+    parallel.distributed_generate = counted
+    sys.argv = ["mcmc_qec_tpu_torch", *argv]
+    try:
+        runpy.run_module("mcmc_qec_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    print("RANK " + json.dumps(rec), flush=True)
+    return rc
+
+
+def _dist_run(n_ranks, args):
+    """``generate --distributed`` in ``n_ranks`` subprocesses (each
+    ``chip_smoke.py --rank-worker``) on a free local port, tried once more
+    if the port was taken; (the ranks' records, their outputs)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    for attempt in range(2):
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker",
+             "generate", "--distributed", "--coordinator", f"localhost:{port}",
+             "--num-processes", str(n_ranks), "--process-id", str(r),
+             *map(str, args)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=ROOT, env=env) for r in range(n_ranks)]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if attempt == 0 and any("address already in use" in (o + e).lower()
+                                for o, e in outs):
+            continue
+        for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"rank {r} exited {p.returncode}: "
+                  f"{o[-500:]} {e[-1500:]}")
+        recs = [json.loads(next(ln[5:] for ln in o.splitlines()
+                                if ln.startswith("RANK ")))
+                for o, _ in outs]
+        return recs, [o for o, _ in outs]
+
+
+def _check_merged(ds, parts, what):
+    """The merged dataset equals the per-rank runs' concatenation bit for
+    bit, and holds no padding row."""
+    for f in ("qubit_matrices", "distributions", "true_classes"):
+        check(np.array_equal(getattr(ds, f),
+                             np.concatenate([getattr(p, f) for p in parts])),
+              f"{what}: the merged {f} differ from the per-rank runs'")
+    check(bool((ds.true_classes >= 0).all()), f"{what}: a padding row")
+
+
+def _per_rank(cfg, sizes, counter):
+    """In process, rank r's ``generate`` (seed + r) of ``sizes[r]`` points,
+    and the launches ``counter`` counted in each."""
+    parts, launches = [], []
+    for r, n in enumerate(sizes):
+        counter.reset()
+        parts.append(generate(None, dataclasses.replace(cfg,
+                                                        seed=cfg.seed + r),
+                              n, progress=None))
+        launches.append((counter.launches, counter.plain_calls))
+    return parts, launches
+
+
+def _span(recs):
+    return max(r["end"] for r in recs) - min(r["start"] for r in recs)
+
+
+def phase_multi_device():
+    """Multi-device on the card.  (a) PTEQ at the production shape through
+    ``python -m mcmc_qec_tpu_torch generate --distributed``, two ranks on
+    the card, one batch each: the merged file equals the two ranks'
+    ``generate`` runs (seed + r) in process bit for bit, each rank's K2
+    launches equal its in-process run's; the merged syn/s over the ranks'
+    span against one process's ``generate`` of the same 4096 points.  (b)
+    STDC at the bench key's shape, 2047 points over two ranks (1024 +
+    1023): the same equalities with K1.  (c) ``dryrun_multichip`` over
+    every card (both kernels launch); STDC at (b)'s shape through
+    ``map_shards`` over a one-card mesh, equal to the unsharded call, and
+    over a mesh that lists the card twice, each shard equal to a direct
+    call under seed + i.  (d) ``init_distributed`` with one process, then
+    ``distributed_generate`` equal to ``generate``."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) PTEQ, two ranks
+        m = DIST_PTEQ
+        per = m["n"] // m["ranks"]
+        path = os.path.join(tmp, "pteq.npz")
+        recs, (out0, out1) = _dist_run(m["ranks"], [
+            "--code", "toric", "--size", m["d"], "--method", "PTEQ",
+            "--p-error", m["p"], "--batch", m["B"], "-n", m["n"], "--iters",
+            m["iters"], "--window", m["window"], "--max-steps",
+            m["max_steps"], "--seed", m["seed"], "--out", path])
+        check(f"wrote {m['n']} points" in out0 and "wrote" not in out1,
+              f"rank 0 printed {out0[-300:]!r}, rank 1 {out1[-300:]!r}")
+        ds = Dataset.load(path)
+        cfg = ds.config
+        check(cfg.device == "cuda" and len(ds) == m["n"], f"{cfg}, {len(ds)}")
+        parts, direct = _per_rank(cfg, [per] * m["ranks"],
+                                  ladder_window_counts)
+        _check_merged(ds, parts, "PTEQ")
+        k2 = [(r["k2"], r["k2_plain"]) for r in recs]
+        check(k2 == direct and all(k > 0 and p == 0 for k, p in k2),
+              f"PTEQ ranks' (K2, plain) {k2}, in process {direct}")
+        ladder_window_counts.reset()
+        _, dt1 = _sync_time(lambda: generate(None, cfg, m["n"], progress=None))
+        k2_one = ladder_window_counts.launches
+        span = _span(recs)
+        each = ", ".join(f"{r['end'] - r['start']:.3f}" for r in recs)
+        lines.append(
+            f"(a) PTEQ toric d={m['d']} B={m['B']} p={m['p']} -n {m['n']} "
+            f"over {m['ranks']} ranks on cards "
+            f"{[r['device'] for r in recs]}: merged file equal to the "
+            f"per-rank generate runs bit for bit (states, distributions, "
+            f"true classes); K2 launches per rank {[k for k, _ in k2]}, no "
+            f"plain call; merged {m['n'] / span:.1f} syn/s over the ranks' "
+            f"span {span:.3f} s (ranks {each} s) "
+            f"against one process's generate {m['n'] / dt1:.1f} syn/s "
+            f"({dt1:.3f} s, {k2_one} K2 launches): ratio "
+            f"{dt1 / span:.3f}")
+        # (b) STDC, two ranks, ragged
+        m = DIST_STDC
+        path = os.path.join(tmp, "stdc.npz")
+        recs, (out0, _) = _dist_run(m["ranks"], [
+            "--code", "toric", "--size", m["d"], "--method", "STDC",
+            "--p-error", m["p"], "--p-sampling", m["p_sampling"],
+            "--droplets", m["droplets"], "--steps", m["steps"], "--batch",
+            m["B"], "-n", m["n"], "--seed", m["seed"], "--out", path])
+        check(f"wrote {m['n']} points" in out0, f"rank 0 printed {out0[-300:]}")
+        ds = Dataset.load(path)
+        cfg = ds.config
+        sizes = [m["B"], m["n"] - m["B"]]
+        check(len(ds) == m["n"], f"STDC merged {len(ds)} points")
+        parts, direct = _per_rank(cfg, sizes, sweep_counts)
+        _check_merged(ds, parts, "STDC")
+        k1 = [(r["k1"], r["k1_plain"]) for r in recs]
+        check(k1 == direct and all(k > 0 and p == 0 for k, p in k1),
+              f"STDC ranks' (K1, plain) {k1}, in process {direct}")
+        _, dt1 = _sync_time(lambda: generate(None, cfg, m["n"], progress=None))
+        span = _span(recs)
+        lines.append(
+            f"(b) STDC toric d={m['d']} B={m['B']} p={m['p']} p_sampling="
+            f"{m['p_sampling']} droplets={m['droplets']} steps={m['steps']} "
+            f"-n {m['n']} over {m['ranks']} ranks ({sizes[0]} + {sizes[1]}): "
+            f"merged file equal to the per-rank runs bit for bit, no padding "
+            f"row; K1 launches per rank {[k for k, _ in k1]}, no plain call; "
+            f"merged {m['n'] / span:.1f} syn/s over {span:.3f} s against one "
+            f"process's {m['n'] / dt1:.1f} ({dt1:.3f} s)")
+        # (c) the mesh on the card
+        n_cards = torch.cuda.device_count()
+        ladder_window_counts.reset()
+        sweep_counts.reset()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dryrun_multichip(n_cards)
+        dry = (ladder_window_counts.launches, sweep_counts.launches,
+               ladder_window_counts.plain_calls + sweep_counts.plain_calls)
+        check(dry[0] == n_cards and dry[1] == n_cards and dry[2] == 0,
+              f"dry run: K2 {dry[0]}, K1 {dry[1]} launches, {dry[2]} plain")
+        spec = get_spec("toric", m["d"])
+        gen = torch.Generator(device="cuda").manual_seed(m["seed"])
+        states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
+
+        def decode(shard, seed):
+            return STDC(spec, shard, m["p"], m["p_sampling"],
+                        droplets=m["droplets"], steps=m["steps"], seed=seed,
+                        device=shard.device)
+
+        one = make_mesh(1)
+        decode(states, 1)  # warm-up
+        got1, dt_one = _sync_time(lambda: map_shards(
+            decode, shard_batch(states, one), 7))
+        ref, dt_ref = _sync_time(lambda: decode(states, 7))
+        check(np.array_equal(got1, ref), "the one-card mesh differs from the "
+                                         "unsharded call")
+        twice = Mesh((one.devices[0], one.devices[0]))
+        sweep_counts.reset()
+        got2, dt_two = _sync_time(lambda: map_shards(
+            decode, shard_batch(states, twice), 7))
+        k1_two = sweep_counts.launches
+        half = m["B"] // 2
+        in_turn, dt_serial = _sync_time(lambda: [
+            decode(states[i * half:(i + 1) * half], 7 + i) for i in range(2)])
+        for i in range(2):
+            check(np.array_equal(got2[i * half:(i + 1) * half], in_turn[i]),
+                  f"shard {i} of the two-entry mesh differs from its direct "
+                  f"call under seed + {i}")
+        lines.append(
+            f"(c) {buf.getvalue().strip()} ({dry[0]} K2 and {dry[1]} K1 "
+            f"launches); STDC B={m['B']} over a one-card mesh equal to the "
+            f"unsharded call bit for bit ({dt_one * 1e3:.1f} ms against "
+            f"{dt_ref * 1e3:.1f}); over the card listed twice each shard "
+            f"equal to its direct call under seed + i ({dt_two * 1e3:.1f} ms "
+            f"on two threads, {k1_two} K1 launches; the two direct calls in "
+            f"turn {dt_serial * 1e3:.1f} ms)")
+        # (d) a world of one
+        init_distributed(f"localhost:{_free_port()}", 1, 0)
+        try:
+            small = dataclasses.replace(cfg, seed=m["seed"] + 7)
+            ds1 = distributed_generate(os.path.join(tmp, "one.npz"), small,
+                                       m["B"], progress=None)
+            ref1 = generate(None, small, m["B"], progress=None)
+            _check_merged(ds1, [ref1], "world of one")
+            check(os.path.exists(os.path.join(tmp, "one.npz")),
+                  "the world of one wrote no file")
+            world = dist.get_world_size()
+        finally:
+            dist.destroy_process_group()
+        lines.append(f"(d) init_distributed with num_processes=1 (world "
+                     f"{world}): distributed_generate of {m['B']} STDC points "
+                     f"equal to generate bit for bit")
+    print("phase 23 multi-device on the card: " + "; ".join(lines),
+          flush=True)
+
+
 def main() -> int:
     phase = "device"
     try:
@@ -2173,6 +2471,8 @@ def main() -> int:
         phase_pipeline(k1_pt)
         phase = "PTEQ checkpoint kill and resume on the card"
         phase_checkpoint()
+        phase = "multi-device on the card"
+        phase_multi_device()
     except PhaseFailed as e:
         print(f"FAILED phase {phase}: {e}", flush=True)
         return 1
@@ -2261,4 +2561,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ckpt-worker"]:
         sys.exit(ckpt_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2:]))
     sys.exit(main())

@@ -8,9 +8,10 @@ generate_data_noise_models.py:198-237) and the concat CLI
 (concat_data.py:78-99) with explicit subcommands.  Grid sweeps map a task
 index to a (p_error, size) cell exactly like the reference's array jobs —
 set ``--task-id`` from ``$SLURM_ARRAY_TASK_ID`` (or any scheduler's index)
-for drop-in batch use.  ``--distributed`` and its topology flags are
-accepted and raise ``NotImplementedError`` until the port's multi-device
-runs land (ROADMAP.md queue 1, "Multi-device").
+for drop-in batch use.  ``generate --distributed`` is one invocation per
+rank (``parallel/multihost.py``): ``--coordinator host:port`` of rank 0,
+``--num-processes`` and ``--process-id`` (or a launcher's environment),
+one card per rank, or the CPU with ``--platform cpu``.
 """
 
 from __future__ import annotations
@@ -51,13 +52,42 @@ def _config_from_args(args) -> "RunConfig":
     return RunConfig(**kw)
 
 
+def _run_device(args) -> str:
+    """``--device``, or the CPU under ``--platform cpu`` (which pins the
+    run's platform, as it pins JAX's); a ``--device`` that conflicts with
+    the platform raises."""
+    import torch
+
+    from .parallel.multihost import PLATFORMS
+
+    device = args.device
+    if args.platform is None:
+        return device or "cuda"
+    if args.platform not in PLATFORMS:
+        raise SystemExit(f"--platform {args.platform}: expected one of "
+                         f"{', '.join(PLATFORMS)}")
+    kind = "cpu" if args.platform == "cpu" else "cuda"
+    if device is not None and torch.device(device).type != kind:
+        raise SystemExit(f"--platform {args.platform} conflicts with "
+                         f"--device {device}")
+    return device or kind
+
+
 def cmd_generate(args) -> int:
+    import torch
+
+    args.device = _run_device(args)
     if args.distributed:
-        raise NotImplementedError(
-            "generate --distributed: the port's multi-device runs "
-            "(parallel/mesh.py, parallel/multihost.py on torch.distributed) "
-            "are not ported yet (ROADMAP.md queue 1, 'Multi-device')"
-        )
+        if args.append:
+            raise SystemExit("--append is not supported with --distributed")
+        # join the group before any CUDA work: the rank's card becomes the
+        # current device first; a CPU run takes no card
+        from .parallel import init_distributed
+
+        cpu = torch.device(args.device).type == "cpu"
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id,
+                         platform="cpu" if cpu else args.platform)
     from .pipeline import generate
 
     cfg = _config_from_args(args)
@@ -73,6 +103,19 @@ def cmd_generate(args) -> int:
                 # re-derive the default budget for the grid's size
                 # (generate_data.py:295 recomputes steps per size)
                 cfg.steps = int(5 * cfg.size**5)
+    if args.distributed:
+        # one invocation per rank: the in-band replacement for the
+        # reference's SLURM array + offline pickle merge
+        # (generate_data.py:274-308, concat_data.py)
+        import torch.distributed as dist
+
+        from .parallel import distributed_generate
+
+        ds = distributed_generate(args.out, cfg, args.n, progress=None)
+        if dist.get_rank() == 0:
+            print(f"wrote {len(ds)} points to {args.out}")
+        dist.destroy_process_group()
+        return 0
     ds = generate(args.out, cfg, nbr_datapoints=args.n, append=args.append)
     print(f"wrote {len(ds)} points to {args.out}")
     return 0
@@ -149,17 +192,18 @@ def main(argv=None) -> int:
     g.add_argument("--sizes", type=str, default="",
                    help="comma-separated lattice sizes for the grid")
     g.add_argument("--distributed", action="store_true",
-                   help="multi-host run: every host decodes its shard of "
-                        "-n and host 0 writes the gathered dataset (not "
-                        "ported yet: raises NotImplementedError)")
+                   help="multi-process run, one rank per card: every rank "
+                        "decodes its shard of -n and rank 0 writes the "
+                        "gathered dataset")
     g.add_argument("--coordinator", default=None,
                    help="host:port of process 0 (with --distributed)")
     g.add_argument("--num-processes", type=int, default=None)
     g.add_argument("--process-id", type=int, default=None)
     g.add_argument("--platform", default=None,
-                   help="the multi-process runs' platform (with "
-                        "--distributed)")
-    g.set_defaults(fn=cmd_generate)
+                   help="the run's platform: cpu, or cuda (gpu); a "
+                        "conflicting --device raises")
+    # None: --device was not given (cuda unless --platform says otherwise)
+    g.set_defaults(fn=cmd_generate, device=None)
 
     c = sub.add_parser("concat", help="merge datasets (concat_data.py)")
     c.add_argument("inputs", nargs="+")

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -86,15 +87,27 @@ WindowOut = Tuple[torch.Tensor, ...]
 
 class KernelCounter:
     """How often a kernel wrapper launched its kernel and how often it ran
-    the plain version instead (CPU tensors)."""
+    the plain version instead (CPU tensors).  The wrappers count through
+    ``add_launch`` and ``add_plain``, under a lock: the shards of
+    ``parallel.map_shards`` launch from one host thread each."""
 
     def __init__(self) -> None:
+        self._lock = threading.Lock()
         self.launches = 0
         self.plain_calls = 0
 
+    def add_launch(self) -> None:
+        with self._lock:
+            self.launches += 1
+
+    def add_plain(self) -> None:
+        with self._lock:
+            self.plain_calls += 1
+
     def reset(self) -> None:
-        self.launches = 0
-        self.plain_calls = 0
+        with self._lock:
+            self.launches = 0
+            self.plain_calls = 0
 
 
 # the ladder-window wrapper's counts (every function ``make_ladder_window``
@@ -821,7 +834,7 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
             f"ladder_window kernel launch failed: cudaError {err} "
             f"(B={B}, Nc={Nc}, nq={nq}, nw={offs['nw']}, {shape})"
         )
-    ladder_window_counts.launches += 1
+    ladder_window_counts.add_launch()
     return out
 
 
@@ -895,7 +908,7 @@ def make_ladder_window(
                            seed, betas, weights, fixed=fixed,
                            device_tables=device_tables, **kw)
         if state.device.type == "cpu":
-            ladder_window_counts.plain_calls += 1
+            ladder_window_counts.add_plain()
             return ladder_window_reference(
                 spec, state, flag, tops0, eq_count, since_burn, seed, betas,
                 weights, rng=rng, **kw,

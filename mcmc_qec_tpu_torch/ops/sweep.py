@@ -408,7 +408,7 @@ def _launch(spec: CodeSpec, states: torch.Tensor, betas, *, steps: int,
             f"sweep kernel launch failed: cudaError {err} (B={B}, nq={nq}, "
             f"steps={steps}, iters={iters}, record={record}, {plan})"
         )
-    sweep_counts.launches += 1
+    sweep_counts.add_launch()
     return (out, keys, counts) if record else out
 
 
@@ -431,7 +431,7 @@ def make_sweep(spec: CodeSpec, n_sweeps: int, equal_betas: bool = False):
                            equal_betas=equal_betas, seed=seed,
                            device_tables=device_tables)
         if states.device.type == "cpu":
-            sweep_counts.plain_calls += 1
+            sweep_counts.add_plain()
             return sweep_reference(spec, states, seed, betas, n_sweeps,
                                    equal_betas)
         raise ValueError(f"no sweep for device {states.device}")
@@ -464,7 +464,7 @@ def make_recording_sweep(spec: CodeSpec, steps: int, iters_per_step: int = 1,
                            iters=iters_per_step, equal_betas=equal_betas,
                            seeds=seeds, device_tables=device_tables)
         if states.device.type == "cpu":
-            sweep_counts.plain_calls += 1
+            sweep_counts.add_plain()
             return sample_reference(spec, states, seeds, betas,
                                     iters_per_step, equal_betas)
         raise ValueError(f"no sweep for device {states.device}")

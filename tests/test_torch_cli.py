@@ -1,7 +1,8 @@
 """The port's command line (``python -m mcmc_qec_tpu_torch``) on the CPU:
 the same flags and task-grid mapping as the JAX package's ``cli.py``,
 plus ``--device``; generate, evaluate and concat end to end in
-subprocesses; plot; ``--distributed`` not ported yet."""
+subprocesses; plot; ``--distributed``'s flag checks (its runs are in
+test_torch_cli_distributed.py)."""
 
 import argparse
 import dataclasses
@@ -79,10 +80,61 @@ def test_task_id_grid_equals_jax(task_id, steps, monkeypatch):
 
 
 def test_distributed_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        cli.main(["generate", "--out", "x.npz", "--distributed",
-                  "--coordinator", "localhost:1234", "--num-processes", "2",
-                  "--process-id", "0", "--platform", "cpu"])
+    """``--distributed``'s flags are checked before any work: ``--append``
+    with ``--distributed`` raises ``SystemExit`` (as the JAX CLI does,
+    cli.py:77-78) and ``--platform cpu`` with ``--device cuda`` raises,
+    both before a process group is joined.  (The name is the test's first
+    form's, which pinned a ``NotImplementedError`` of ``--distributed``.)"""
+    dist = ["generate", "--out", "x.npz", "--distributed", "--coordinator",
+            "localhost:1234", "--num-processes", "2", "--process-id", "0",
+            "--platform", "cpu"]
+    with pytest.raises(SystemExit, match="--append is not supported"):
+        cli.main(dist + ["--append"])
+    with pytest.raises(SystemExit, match="conflicts with --device cuda"):
+        cli.main(dist + ["--device", "cuda"])
+    with pytest.raises(SystemExit, match="conflicts with --device cuda"):
+        cli.main(["generate", "--out", "x.npz", "--platform", "cpu",
+                  "--device", "cuda"])
+    with pytest.raises(SystemExit, match="--platform tpu"):
+        cli.main(["generate", "--out", "x.npz", "--platform", "tpu"])
+    import torch.distributed
+
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("flags,device,platform", [
+    (["--device", "cpu"], "cpu", "cpu"),
+    (["--platform", "cpu"], "cpu", "cpu"),
+    ([], "cuda", None),
+    (["--platform", "gpu"], "cuda", "gpu"),
+], ids=["device-cpu", "platform-cpu", "default", "platform-gpu"])
+def test_distributed_joins_with_the_runs_platform(flags, device, platform,
+                                                  monkeypatch, capsys):
+    """``generate --distributed`` joins the group on the run's platform (a
+    ``--device cpu`` run takes no card), decodes on the run's device, and
+    rank 0 alone prints ``wrote``."""
+    import torch.distributed as dist
+
+    import mcmc_qec_tpu_torch.parallel as par
+
+    got = {}
+    monkeypatch.setattr(par, "init_distributed",
+                        lambda *a, **kw: got.update(init=(a, kw)))
+
+    def fake_generate(path, cfg, n, progress=None):
+        got["cfg"] = cfg
+        return [None] * n
+
+    monkeypatch.setattr(par, "distributed_generate", fake_generate)
+    monkeypatch.setattr(dist, "get_rank", lambda: 0)
+    monkeypatch.setattr(dist, "destroy_process_group",
+                        lambda: got.update(destroyed=True))
+    assert cli.main(["generate", "--out", "x.npz", "-n", "3", "--distributed",
+                     "--coordinator", "localhost:1", "--num-processes", "2",
+                     "--process-id", "0", *flags]) == 0
+    assert got["init"] == (("localhost:1", 2, 0), {"platform": platform})
+    assert got["cfg"].device == device and got["destroyed"]
+    assert "wrote 3 points to x.npz" in capsys.readouterr().out
 
 
 def _run(args, cwd):

@@ -1,11 +1,11 @@
 """The port's capability surface: tests/test_parity_surface.py's
 ``SURFACE`` map, with ``mcmc_qec_tpu`` renamed, holds for
-``mcmc_qec_tpu_torch``.  Two entries differ, each for a reason:
+``mcmc_qec_tpu_torch``.  One entry differs:
 ``ops.pallas_sweep.make_pallas_sweep`` is ``ops.sweep.make_sweep`` (the
-sweep kernel K1's wrapper), and ``parallel`` is left out until the port's
-multi-device runs land (ROADMAP.md queue 1, "Multi-device").  The
-pipeline, CLI, matching, native and utils modules import neither jax nor
-anything of the JAX package."""
+sweep kernel K1's wrapper).  ``parallel`` holds the JAX package's nine
+names and ``map_shards``.  The pipeline, CLI, matching, native, utils and
+parallel modules and ``graft_entry`` import neither jax nor anything of
+the JAX package."""
 
 import importlib
 import inspect
@@ -20,7 +20,8 @@ from test_parity_surface import SURFACE as JAX_SURFACE
 # JAX module -> (port module, its names) where the port differs
 RENAMED = {"mcmc_qec_tpu.ops.pallas_sweep": ("mcmc_qec_tpu_torch.ops.sweep",
                                              ["make_sweep"])}
-NOT_YET = {"mcmc_qec_tpu.parallel": "ROADMAP.md queue 1, 'Multi-device'"}
+# JAX module -> why the port does not have it yet
+NOT_YET = {}
 
 
 def _port_surface():
@@ -39,9 +40,11 @@ SURFACE = _port_surface()
 
 
 def test_every_jax_module_is_mapped():
-    assert set(NOT_YET) | set(RENAMED) <= set(JAX_SURFACE)
-    assert len(SURFACE) == len(JAX_SURFACE) - len(NOT_YET)
-    assert all("parallel" not in m for m in SURFACE)
+    assert not NOT_YET
+    assert set(RENAMED) <= set(JAX_SURFACE)
+    assert len(SURFACE) == len(JAX_SURFACE)
+    assert set(SURFACE["mcmc_qec_tpu_torch.parallel"]) == set(
+        JAX_SURFACE["mcmc_qec_tpu.parallel"])
 
 
 @pytest.mark.parametrize("module,names", SURFACE.items(),
@@ -74,7 +77,8 @@ def test_new_modules_import_no_jax():
     code = (
         "import sys, mcmc_qec_tpu_torch.pipeline, mcmc_qec_tpu_torch.cli, "
         "mcmc_qec_tpu_torch.matching, mcmc_qec_tpu_torch.native, "
-        "mcmc_qec_tpu_torch.utils, mcmc_qec_tpu_torch.pipeline.plot;"
+        "mcmc_qec_tpu_torch.utils, mcmc_qec_tpu_torch.pipeline.plot, "
+        "mcmc_qec_tpu_torch.parallel, mcmc_qec_tpu_torch.graft_entry;"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mcmc_qec_tpu', 'triton', 'matplotlib'));"
         "print(','.join(bad))"
