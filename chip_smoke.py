@@ -72,6 +72,14 @@ kernel against its plain PyTorch version on the card:
   unsharded call) and over the card listed twice; a world of one.
   ``--ckpt-worker`` and ``--rank-worker`` are the only arguments the
   script takes, each run by the script itself.
+- The threshold studies (``mcmc_qec_tpu_torch/studies``), each through its
+  main: depolarizing PTEQ at p=0.19 on toric d=5, 9 and 13 and biased
+  eta=10 PTEQ_alpha at p=0.275 on xzzx d=5 and 13 (512 syndromes at the
+  caps of the committed TPU grids), STDC failure rates at toric d=5 and the
+  uncorrelated MWPM/STDC study at planar d=5; each cell within 4 sigma of
+  the committed grid's cell where there is one, and each launching its
+  kernel; at toric d=13 the window's launch, compaction, the host's work
+  between points and one production window against the plain version.
 
 Each phase prints one line; any failed phase exits non-zero.  The line
 before the last is a JSON record of the kernels (launches on the main
@@ -280,6 +288,20 @@ CKPT_MAIN = dict(d=5, B=2048, p=0.15, iters=2, window=600, energy_chunk=12,
 DIST_PTEQ = dict(PIPE_PTEQ, seed=2031, n=4096, ranks=2)
 DIST_STDC = dict(STDC_MAIN, d=5, seed=2032, n=2047, ranks=2)
 DIST_WARM = 64
+# the threshold studies on the card (phase 24), each through its study's
+# main as a user runs it (mcmc_qec_tpu_torch/studies): depolarizing PTEQ
+# at p=0.19 on toric d=5, 9, 13 at the caps of examples/
+# threshold_grid_r4.json, biased eta=10 at p=0.275 on xzzx d=5 and 13
+# (threshold_eta10_r5.json's caps, the study's default), STDC failure
+# rates at toric d=5 p=0.10, and the uncorrelated study at planar d=5 pk=16
+# (p=0.139); 512 or 256 syndromes a cell.  A cell with a committed
+# counterpart must lie within 4 sigma of it (both binomials).
+STUDY_DEPOL = dict(p=0.19, sizes=(5, 9, 13), n=512,
+                   caps={5: 48000, 9: 36450, 13: 109850})
+STUDY_BIASED = dict(eta=10.0, p=0.275, sizes=(5, 13), n=512)
+STUDY_FAILURE = dict(d=5, p=0.10, n=256)
+STUDY_UNCORR = dict(d=5, pk=16, n=256)
+STUDY_MAX_SIGMA = 4.0
 # the materialised stream in the port's form: int64 key halves and int32
 # counts, 28 bytes a sample
 PORT_BYTES_PER_SAMPLE = 28
@@ -627,18 +649,17 @@ def _time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def phase_timing():
-    """One window of the kernel vs one of the plain version at the main
-    path's shape (B=2048, so the launch packs 16 syndromes per block); the
-    two outputs must also be equal."""
-    spec = get_spec("toric", 5)
-    B, Nc = 2048, 5
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    states = sample_depolarizing(gen, spec, 0.15, (B,), device="cuda")
+def time_production_window(spec, B, Nc, p, seed):
+    """One production window of the kernel (W=600, iters=2, C=12) vs one of
+    the plain version at (spec, B, Nc), from states drawn at p; the nine
+    outputs must be equal.  (ms, plain ms, err, bound, bound_by, and the
+    proposals, popcounts and Philox blocks the bound counts)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    states = sample_depolarizing(gen, spec, p, (B,), device="cuda")
     ls = init_ladder(spec, states, Nc)
     eq = torch.zeros((B, spec.n_classes), dtype=torch.int32, device="cuda")
     sb = torch.zeros((B,), dtype=torch.int32, device="cuda")
-    betas = torch.as_tensor(beta_ladder_depolarizing(0.15, Nc),
+    betas = torch.as_tensor(beta_ladder_depolarizing(p, Nc),
                             dtype=torch.float32, device="cuda")
     w = np.ones(3, np.float32)
     kern = make_ladder_window(spec, Nc, PROD["window"], PROD["iters"], 0.5, 2,
@@ -650,8 +671,8 @@ def phase_timing():
     plain_ms = _time_ms(lambda: plain_out.append(ladder_window_reference(
         spec, *args, window=PROD["window"], iters=PROD["iters"], p_logical=0.5,
         tops_burn=2, energy_chunk=PROD["energy_chunk"], **PROD_BRANCH)), 1)
-    err = compare_outputs("toric d=5 B=2048 W=600 philox", kern_out,
-                          plain_out[0], PROD["window"])
+    err = compare_outputs(f"{spec.family} d={spec.size} B={B} W=600 philox",
+                          kern_out, plain_out[0], PROD["window"])
     # the window's work: every proposal of every sweep on every rung, plus
     # the gate, logical-draw and exchange blocks of each (step, syndrome)
     W, iters = PROD["window"], PROD["iters"]
@@ -663,16 +684,26 @@ def phase_timing():
     bound, bound_by = bound_ms(
         _nbytes(ls.state, ls.flag, ls.tops0, eq, sb, betas, *kern_out),
         popc, blocks)
-    print(f"phase 6 one window toric d=5 B={B} Nc={Nc} W=600 iters=2 C=12: "
-          f"kernel {ms:.3f} ms, plain version {plain_ms:.1f} ms "
-          f"({plain_ms / ms:.1f}x); all nine outputs equal, max abs err {err}; "
-          f"bound {bound:.4f} ms ({bound_by}; {proposals} proposals, {popc} "
-          f"64-bit popcounts, {blocks} Philox blocks); launch: "
-          f"{launch_line(spec, B, Nc, True)}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
-                bound_by=bound_by)
+                bound_by=bound_by, proposals=proposals, popc=popc,
+                blocks=blocks)
 
 
+def phase_timing():
+    """One window of the kernel vs one of the plain version at the main
+    path's shape (B=2048, so the launch packs 16 syndromes per block); the
+    two outputs must also be equal."""
+    spec = get_spec("toric", 5)
+    B, Nc = 2048, 5
+    r = time_production_window(spec, B, Nc, 0.15, 5)
+    print(f"phase 6 one window toric d=5 B={B} Nc={Nc} W=600 iters=2 C=12: "
+          f"kernel {r['ms']:.3f} ms, plain version {r['plain_ms']:.1f} ms "
+          f"({r['plain_ms'] / r['ms']:.1f}x); all nine outputs equal, max abs "
+          f"err {r['err']}; bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+          f"{r['proposals']} proposals, {r['popc']} 64-bit popcounts, "
+          f"{r['blocks']} Philox blocks); launch: "
+          f"{launch_line(spec, B, Nc, True)}", flush=True)
+    return r
 
 
 def _random_states(spec, B, seed, device="cuda"):
@@ -2425,6 +2456,194 @@ def phase_multi_device():
           flush=True)
 
 
+def _committed_cell(name, **key):
+    """The record of examples/<name> whose fields equal ``key``."""
+    recs = json.loads((ROOT / "examples" / name).read_text())
+    return next(r for r in recs if all(r[k] == v for k, v in key.items()))
+
+
+def _sigmas(f, n, f_ref, n_ref):
+    """|f - f_ref| in units of the two binomials' standard deviation."""
+    var = (max(f * (1 - f), 1.0 / n) / n
+           + max(f_ref * (1 - f_ref), 1.0 / n_ref) / n_ref)
+    return abs(f - f_ref) / var ** 0.5
+
+
+def _k2_name(spec, equal_betas):
+    offs = kernel_tables(spec)[2]
+    return (f"<{offs['nw']}, {offs['span']}, "
+            f"{'true' if equal_betas else 'false'}>")
+
+
+def _k1_name(spec, equal_betas, record):
+    offs = kernel_tables(spec)[2]
+    return (f"<{offs['nw']}, {offs['span']}, "
+            f"{'true' if equal_betas else 'false'}, "
+            f"{'true' if record else 'false'}>")
+
+
+def _study_cell(main, argv):
+    """One run of a study's main (its stdout kept out of this script's) on
+    counts set to 0 just before it: (seconds, K2 launches, K2 plain calls,
+    K1 launches, K1 plain calls)."""
+    import contextlib
+    import io
+
+    ladder_window_counts.reset()
+    sweep_counts.reset()
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, dt = _sync_time(lambda: main(argv))
+    return (dt, ladder_window_counts.launches, ladder_window_counts.plain_calls,
+            sweep_counts.launches, sweep_counts.plain_calls)
+
+
+def phase_studies():
+    """The studies on the card (mcmc_qec_tpu_torch/studies), each
+    through its main: (a) depolarizing ``threshold_fit collect`` at p=0.19,
+    toric d=5, 9, 13; (b) ``threshold_fit_biased collect`` at eta=10,
+    p=0.275, xzzx d=5 and 13; (c) ``failure_rates`` at toric d=5, p=0.10;
+    (d) ``uncorrelated_study`` at planar d=5, p=0.139.  Per cell the failure
+    rate beside the committed grid's (within 4 sigma where there is one),
+    seconds, syn/s and the kernels' launches with their instantiations
+    (every cell must launch its kernel and run no plain version).  Then at
+    toric d=13: the window's launch, a direct decode of the study's first
+    batch (windows, compaction's batch sizes, ms a window), the host's work
+    between points (sampling, one fetch, the truth classes, the JSON
+    rewrite), and one production window timed against the plain version
+    with its bound."""
+    from mcmc_qec_tpu_torch.studies import (failure_rates, threshold_fit,
+                                            threshold_fit_biased,
+                                            uncorrelated_study)
+    from mcmc_qec_tpu_torch.studies.sampling import batch_generator
+
+    lines, fails, k2_d13 = [], [], 0
+    with tempfile.TemporaryDirectory() as tmp:
+        m = STUDY_DEPOL
+        data = os.path.join(tmp, "depol.json")
+        for d in m["sizes"]:
+            spec = get_spec("toric", d)
+            dt, k2, k2p, _, _ = _study_cell(threshold_fit.main, [
+                "collect", "--sizes", str(d), "--ps", str(m["p"]), "-n",
+                str(m["n"]), "--batch", str(m["n"]), "--cap",
+                str(m["caps"][d]), "--data", data, "--device", "cuda"])
+            rec = depol_rec = json.loads(Path(data).read_text())[-1]
+            ref = _committed_cell("threshold_grid_r4.json", d=d, p=m["p"])
+            z = _sigmas(rec["failure_rate"], rec["n"], ref["failure_rate"],
+                        ref["n"])
+            k2_d13 = k2 if d == 13 else k2_d13
+            lines.append(
+                f"(a) toric d={d} cap {m['caps'][d]}: failure "
+                f"{rec['failure_rate']:.4f} (TPU grid {ref['failure_rate']:.4f}"
+                f", {z:.2f} sigma), converged {rec['converged_frac']:.4f}, "
+                f"{dt:.2f} s, {m['n'] / dt:.1f} syn/s, K2 "
+                f"{_k2_name(spec, True)} {k2} launches")
+            if z > STUDY_MAX_SIGMA:
+                fails.append(f"depolarizing d={d}: {z:.2f} sigma")
+            if k2 == 0 or k2p:
+                fails.append(f"depolarizing d={d}: {k2} K2 launches, {k2p} "
+                             f"plain calls")
+        m = STUDY_BIASED
+        data = os.path.join(tmp, "eta.json")
+        for d in m["sizes"]:
+            spec = get_spec("xzzx", d)
+            dt, k2, k2p, _, _ = _study_cell(threshold_fit_biased.main, [
+                "collect", "--eta", str(m["eta"]), "--sizes", str(d), "--ps",
+                str(m["p"]), "-n", str(m["n"]), "--batch", str(m["n"]),
+                "--data", data, "--device", "cuda"])
+            rec = json.loads(Path(data).read_text())[-1]
+            ref = _committed_cell("threshold_eta10_r5.json", d=d, p=m["p"])
+            z = _sigmas(rec["failure_rate"], rec["n"], ref["failure_rate"],
+                        ref["n"])
+            lines.append(
+                f"(b) xzzx d={d} eta={m['eta']} cap {rec['cap']}: failure "
+                f"{rec['failure_rate']:.4f} (TPU grid {ref['failure_rate']:.4f}"
+                f", {z:.2f} sigma), converged {rec['converged_frac']:.4f}, "
+                f"{dt:.2f} s, {m['n'] / dt:.1f} syn/s, K2 "
+                f"{_k2_name(spec, False)} {k2} launches")
+            if z > STUDY_MAX_SIGMA:
+                fails.append(f"biased d={d}: {z:.2f} sigma")
+            if k2 == 0 or k2p:
+                fails.append(f"biased d={d}: {k2} K2 launches, {k2p} plain "
+                             f"calls")
+        m = STUDY_FAILURE
+        out = os.path.join(tmp, "fr.json")
+        spec = get_spec("toric", m["d"])
+        dt, _, _, k1, k1p = _study_cell(failure_rates.main, [
+            "--sizes", str(m["d"]), "--ps", str(m["p"]), "-n", str(m["n"]),
+            "--out", out, "--device", "cuda"])
+        rec = json.loads(Path(out).read_text())[0]
+        lines.append(
+            f"(c) failure_rates toric d={m['d']} p={m['p']} steps "
+            f"{rec['steps']} droplets 4 engine sweep: failure "
+            f"{rec['failure_rate']:.4f} +- {rec['mc_err']:.4f} (no committed "
+            f"counterpart), {dt:.2f} s, {m['n'] / dt:.1f} syn/s, K1 "
+            f"{_k1_name(spec, True, True)} {k1} launches")
+        if k1 == 0 or k1p:
+            fails.append(f"failure_rates: {k1} K1 launches, {k1p} plain calls")
+        m = STUDY_UNCORR
+        data = os.path.join(tmp, "unc.json")
+        spec = get_spec("planar", m["d"])
+        dt, _, _, k1, k1p = _study_cell(uncorrelated_study.main, [
+            "--sizes", str(m["d"]), "--pk", str(m["pk"]), "-n", str(m["n"]),
+            "--outdir", os.path.join(tmp, "unc"), "--data", data, "--fig", "",
+            "--device", "cuda"])
+        rec = json.loads(Path(data).read_text())[-1]
+        ref = _committed_cell("uncorrelated_r5.json", d=m["d"], p=rec["p"])
+        parts = []
+        for name in ("MWPM", "STDC"):
+            z = _sigmas(rec[f"rate_{name}"], rec["n"], ref[f"rate_{name}"],
+                        ref["n"])
+            parts.append(f"{name} {rec[f'rate_{name}']:.4f} (TPU "
+                         f"{ref[f'rate_{name}']:.4f}, {z:.2f} sigma)")
+            if z > STUDY_MAX_SIGMA:
+                fails.append(f"uncorrelated {name}: {z:.2f} sigma")
+        lines.append(
+            f"(d) uncorrelated planar d={m['d']} p={rec['p']} steps "
+            f"{rec['steps']}: {', '.join(parts)}, {dt:.2f} s, "
+            f"{m['n'] / dt:.1f} syn/s, K1 {_k1_name(spec, False, True)} {k1} "
+            f"launches")
+        if k1 == 0 or k1p:
+            fails.append(f"uncorrelated: {k1} K1 launches, {k1p} plain calls")
+
+        # toric d=13: the study's first batch decoded directly
+        d, B, p = 13, STUDY_DEPOL["n"], STUDY_DEPOL["p"]
+        spec = get_spec("toric", d)
+        cfg = threshold_fit.pteq_config(STUDY_DEPOL["caps"][d])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states = sample_depolarizing(batch_generator(torch.device("cuda"),
+                                                     1000 * 0 + d, p),
+                                     spec, p, (B,))
+        host = states.cpu().numpy()
+        truth = np_eq_class(spec, host)
+        t_host = time.perf_counter() - t0
+        ladder_window_counts.reset()
+        res, dt = _sync_time(lambda: PTEQ(spec, states, p, cfg, seed=1,
+                                          device="cuda"))
+        windows = ladder_window_counts.launches
+        fail = float(np.mean(res.distribution.argmax(-1) != truth))
+        recs = [dict(depol_rec, d=5 + i % 5) for i in range(30)]
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "rewrite.json"), "w") as f:
+            json.dump(recs, f, indent=1)
+        t_json = time.perf_counter() - t0
+    r = time_production_window(spec, B, d, p, 24)
+    lines.append(
+        f"toric d={d} B={B}: launch {launch_line(spec, B, d, True)}; the "
+        f"study's first batch decoded directly: {windows} windows, "
+        f"{1e3 * dt / max(windows, 1):.2f} ms a window ({dt:.2f} s), batch "
+        f"sizes after compaction {list(res.buckets)}, failure {fail:.4f}, "
+        f"converged {res.converged.mean():.4f}; host work before the decode "
+        f"(sampling, one fetch, truth classes) {1e3 * t_host:.1f} ms, a "
+        f"30-record JSON rewrite {1e3 * t_json:.2f} ms; one production "
+        f"window: kernel {r['ms']:.3f} ms, plain version "
+        f"{r['plain_ms']:.1f} ms, all nine outputs equal, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print("phase 24 studies on the card: " + "; ".join(lines), flush=True)
+    check(not fails, "; ".join(fails))
+    return dict(r, launches=k2_d13)
+
+
 def main() -> int:
     phase = "device"
     try:
@@ -2473,6 +2692,8 @@ def main() -> int:
         phase_checkpoint()
         phase = "multi-device on the card"
         phase_multi_device()
+        phase = "threshold studies on the card"
+        k2_study = phase_studies()
     except PhaseFailed as e:
         print(f"FAILED phase {phase}: {e}", flush=True)
         return 1
@@ -2548,6 +2769,18 @@ def main() -> int:
         "plain_ms": gen["plain_ms"],
         "bound_ms": gen["bound_ms"],
         "bound_by": gen["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "ladder_window_study",
+        "route": "cuda",
+        "source": "mcmc_qec_tpu_torch/csrc/ladder_window.cu",
+        "replaces": "mcmc_qec_tpu/ops/pallas_ladder.py:144",
+        "launches": k2_study["launches"],
+        "max_abs_err": k2_study["err"],
+        "ms": k2_study["ms"],
+        "plain_ms": k2_study["plain_ms"],
+        "bound_ms": k2_study["bound_ms"],
+        "bound_by": k2_study["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,9 @@ step of ``mcmc/ladder.py``) and the literal single-proposal engine
 blossom matcher (``native``, C++ built with g++ at first use) and the MWPM
 graph layer and warm starts (``matching``); the batch pipeline
 (``pipeline``: ``RunConfig``, datasets, ``generate``, evaluation, plots)
-and its command line (``cli``, ``python -m mcmc_qec_tpu_torch``).  The
+and its command line (``cli``, ``python -m mcmc_qec_tpu_torch``); the
+studies of ``examples/`` (``studies``: the threshold grids and
+their finite-size-scaling fit, and the other studies).  The
 kernels are built with nvcc at first use on a CUDA device; entry points
 run on the card unless the caller asks for the CPU.  Importing this
 package imports neither jax nor triton.
