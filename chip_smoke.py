@@ -80,6 +80,19 @@ kernel against its plain PyTorch version on the card:
   the committed grid's cell where there is one, and each launching its
   kernel; at toric d=13 the window's launch, compaction, the host's work
   between points and one production window against the plain version.
+- Codes beyond d=13, both kernels at their 2-spanned-word and 16-word
+  shapes: kernel vs plain version at xzzx d=15 and 17, rotated d=15 and
+  23, toric d=21 (K2 in every branch and mode, K1 sweeps, recording
+  sampler and a row of betas per chain, also at the fewest lanes per
+  chain); PTEQ_alpha at xzzx d=17 (the biased study one size up), PTEQ at
+  rotated d=19 and toric d=21 and STDC at rotated d=19 through the
+  kernels only, against failure and recovery bars, each with one window or
+  sampler launch timed against the plain version; PTEQ_alpha at xzzx d=31,
+  whose ladder no block of K2 holds, on the unfused window through K1.
+- The golden-corpus studies (``studies.golden_replay``,
+  ``studies.golden_ceiling``) through their ``run`` on 256 toric d=5
+  syndromes drawn on the card (not the DRL failure set): PTEQ (K2), STDC
+  (K1) and the ceiling with its MWPM row.
 
 Each phase prints one line; any failed phase exits non-zero.  The line
 before the last is a JSON record of the kernels (launches on the main
@@ -302,6 +315,58 @@ STUDY_BIASED = dict(eta=10.0, p=0.275, sizes=(5, 13), n=512)
 STUDY_FAILURE = dict(d=5, p=0.10, n=256)
 STUDY_UNCORR = dict(d=5, pk=16, n=256)
 STUDY_MAX_SIGMA = 4.0
+# codes beyond d=13 on the card (phase 25).  (a) K2 against its plain
+# version at the new instantiations: (family, d, Nc, B, W, branch, exchange,
+# traces, rng); B=300 leaves a ragged last block of several syndromes.
+# (b) K1 against its plain versions at the same codes, also at a batch
+# that takes the fewest lanes per chain (1 at rotated d=19, 2 at toric
+# d=21), and at a row of betas per chain at xzzx d=31 (the unfused
+# window's launch there).  (c) Decodes through the entry points: PTEQ_alpha
+# at the biased study's configuration one size up (xzzx d=17, eta=10,
+# p=0.20, the study's cap 15 d**3); at p=0.05 PTEQ at rotated d=19 and
+# toric d=21 and STDC (engine "auto") at rotated d=19; and PTEQ_alpha at
+# xzzx d=31, whose 31-rung ladder no block of K2 holds, on the unfused
+# window.  Toric d=21's ladder rarely swaps its bottom pair (p=0.05
+# against 0.085 over 882 qubits): a chain passes from top to bottom about
+# once in 20,000-24,000 steps, so every row needs a cap of 240,000 to pass
+# the burn gate of two passes (at 12,000 no row did, at 48,000 the median
+# row).  Bars: xzzx d=17 fails no more often than the JAX study's d=13
+# (0.0767) + 0.025; the p=0.05 decodes recover the true class on at least
+# 0.99 of rows.  One window (W=60) of each decode's kernel is timed against
+# its plain version at the decode's shape.
+LARGE_K2 = [
+    ("xzzx", 15, 15, 300, 24, "general-exact", "sequential", True, "philox"),
+    ("xzzx", 15, 15, 128, 24, "general-mh", "even_odd", False, "zeros"),
+    ("xzzx", 15, 15, 128, 24, "general-mh", "sequential", True, 0x9E3779B9),
+    ("xzzx", 17, 17, 300, 24, "general-exact", "even_odd", False, "philox"),
+    ("xzzx", 17, 17, 128, 24, "general-mh", "sequential", True, "philox"),
+    ("rotated", 15, 15, 300, 24, "equal-exact", "sequential", True, "philox"),
+    ("rotated", 15, 15, 128, 24, "equal-exact", "even_odd", False, "zeros"),
+    ("rotated", 23, 23, 128, 12, "equal-exact", "sequential", True, "philox"),
+    ("rotated", 23, 23, 64, 12, "general-mh", "even_odd", False, "philox"),
+    ("toric", 21, 21, 64, 8, "equal-exact", "sequential", True, "philox"),
+    ("toric", 21, 21, 32, 8, "general-mh", "even_odd", False, "philox"),
+]
+LARGE_K1 = [("xzzx", 15, 300), ("xzzx", 17, 300), ("rotated", 15, 300),
+            ("rotated", 23, 128), ("toric", 21, 128)]
+LARGE_K1_WIDE = [("rotated", 19, 70000), ("toric", 21, 70000)]
+LARGE_ALPHA = dict(family="xzzx", d=17, eta=10.0, p=0.20, B=512,
+                   max_steps=73695)
+LARGE_PTEQ = [dict(family="rotated", d=19, p=0.05, B=512, max_steps=24000),
+              dict(family="toric", d=21, p=0.05, B=64, max_steps=240000)]
+LARGE_STDC = dict(family="rotated", d=19, p=0.05, B=1024, p_sampling=0.15,
+                  droplets=4, steps=450)
+LARGE_FALLBACK = dict(family="xzzx", d=31, p=0.05, B=16, max_steps=48,
+                      window=24)
+LARGE_MAX_FAILURE = BIASED_REF_FAILURE + BIASED_MAX_FAILURE_GAP
+LARGE_MIN_RECOVERED = 0.99
+LARGE_TIMED_W = 60
+# the golden-corpus studies on the card (phase 26): 256 toric d=5
+# syndromes drawn at p=0.15 (not the DRL failure set, which is not in the
+# repository), through studies.golden_replay.run (PTEQ at its production
+# configuration; STDC with engine "auto") and studies.golden_ceiling.run
+# (--limit 256 --cap 32000, with its MWPM row)
+GOLDEN = dict(d=5, p=0.15, n=256, seed=2033, cap=32000)
 # the materialised stream in the port's form: int64 key halves and int32
 # counts, 28 bytes a sample
 PORT_BYTES_PER_SAMPLE = 28
@@ -2644,6 +2709,330 @@ def phase_studies():
     return dict(r, launches=k2_d13)
 
 
+def _decode_counts(fn):
+    """(fn(), seconds, K2 launches, K2 plain calls, K1 launches, K1 plain
+    calls) of one decode on counts set to 0 just before it."""
+    ladder_window_counts.reset()
+    sweep_counts.reset()
+    out, dt = _sync_time(fn)
+    return (out, dt, ladder_window_counts.launches,
+            ladder_window_counts.plain_calls, sweep_counts.launches,
+            sweep_counts.plain_calls)
+
+
+def time_window(spec, states, Nc, ladder, weights, equal_betas, W, seed):
+    """One window of W ladder steps (iters=2, C=12, zero top rung) of the
+    kernel against one of the plain version at a decode's shape, from its
+    states: outputs equal; (ms, plain ms, err, bound, bound_by)."""
+    B = states.shape[0]
+    ls = init_ladder(spec, states, Nc)
+    eq = torch.zeros((B, spec.n_classes), dtype=torch.int32, device="cuda")
+    sb = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    betas = torch.as_tensor(ladder, dtype=torch.float32, device="cuda")
+    w = np.asarray(weights, np.float32)
+    iters, C = PROD["iters"], PROD["energy_chunk"]
+    branch = dict(top_exact=True, equal_betas=equal_betas)
+    args = (ls.state, ls.flag, ls.tops0, eq, sb, seed, betas, w)
+    kern = make_ladder_window(spec, Nc, W, iters, 0.5, 2, C, **branch)
+    kern_out = kern(*args)  # warm-up, kept for the comparison
+    ms = _time_ms(lambda: kern(*args), 3)
+    plain_out = []
+    plain_ms = _time_ms(lambda: plain_out.append(ladder_window_reference(
+        spec, *args, window=W, iters=iters, p_logical=0.5, tops_burn=2,
+        energy_chunk=C, **branch)), 1)
+    err = compare_outputs(f"{spec.family} d={spec.size} B={B} W={W}",
+                          kern_out, plain_out[0], W, both_swaps=False)
+    _, _, n_xblocks = _rng_layout(spec, Nc, iters)
+    blocks = (B * Nc * W * iters * _philox_blocks_per_sweep(spec)
+              + B * W * (_N_EXTRA_USES - 1) * n_xblocks)
+    popc = B * Nc * W * iters * _popc_per_sweep(spec, equal_betas)
+    bound, bound_by = bound_ms(_nbytes(*args[:5], betas, *kern_out), popc,
+                               blocks)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
+                bound_by=bound_by)
+
+
+def phase_large_codes():
+    """Codes beyond d=13 on the card (LARGE_* above): (a) K2 and (b) K1
+    against their plain versions at the 2-spanned-word and 16-word
+    instantiations; (c) decodes through the entry points, only kernels
+    running (no plain call), at the bars written in PERF.md before the
+    first run, each with its launches, instantiations and one window (or
+    sampler launch) timed against the plain version.  Returns the kernel
+    line's entries of the decodes."""
+    worst_k2 = 0.0
+    names_k2 = set()
+    for i, (family, d, Nc, B, W, branch, exchange, traces, rng) in \
+            enumerate(LARGE_K2):
+        worst_k2 = max(worst_k2, compare_window(
+            family, d, Nc, B, W, 2, 4, 0.15, rng, 600 + i, branch, exchange,
+            traces=traces, both_swaps=rng == "philox"))
+        names_k2.add(_k2_name(get_spec(family, d), BRANCHES[branch][1]))
+    general = betas_xyz(0.05, 0.02, 0.1)
+    worst_k1, n_k1, names_k1 = 0.0, 0, set()
+    for i, (family, d, B) in enumerate(LARGE_K1):
+        spec = get_spec(family, d)
+        for eq in (True, False):
+            betas = np.full(3, 0.9) if eq else general
+            worst_k1 = max(worst_k1, compare_sweep(family, d, B, 3, betas, eq,
+                                                   seed=700 + i))
+            worst_k1 = max(worst_k1, compare_sampler(
+                family, d, B, 5, 1 if eq else 3, betas, eq, seed=720 + i))
+            names_k1 |= {_k1_name(spec, eq, False), _k1_name(spec, eq, True)}
+            n_k1 += 2
+        worst_k1 = max(worst_k1, compare_per_chain(family, d, B, 2, 2,
+                                                   seed=740 + i))
+        n_k1 += 1
+    lanes = []
+    for i, (family, d, R) in enumerate(LARGE_K1_WIDE):
+        spec = get_spec(family, d)
+        worst_k1 = max(worst_k1, compare_sampler(family, d, R, 2, 1,
+                                                 np.full(3, 0.9), True,
+                                                 seed=760 + i))
+        lanes.append(f"{family} d={d} R={R} at "
+                     f"{sw.launch_plan(spec, R, True, True)[0].lanes} lane(s)")
+        n_k1 += 1
+    fb = LARGE_FALLBACK
+    fb_spec = get_spec(fb["family"], fb["d"])
+    worst_k1 = max(worst_k1, compare_per_chain(fb["family"], fb["d"],
+                                               fb["B"] * fb["d"], 2, 2,
+                                               seed=780))
+    n_k1 += 1
+    print(f"phase 25 (a) window kernel vs plain at codes beyond d=13: "
+          f"{len(LARGE_K2)} cases ("
+          + "; ".join(f"{f} d={d} Nc={n} B={b} W={w} {br} {ex} traces={tr} {rg}"
+                      for f, d, n, b, w, br, ex, tr, rg in LARGE_K2)
+          + f"), instantiations {sorted(names_k2)}: all outputs equal, max abs "
+          f"err {worst_k2}; (b) sweep kernel vs plain: {n_k1} cases at "
+          f"{', '.join(f'{f} d={d} B={b}' for f, d, b in LARGE_K1)} (sweeps "
+          f"and recording sampler, equal and general betas; a row of betas "
+          f"per chain), {'; '.join(lanes)}, and a row per chain at "
+          f"{fb['family']} d={fb['d']} ({fb['B'] * fb['d']} chains), "
+          f"instantiations {sorted(names_k1 | {_k1_name(fb_spec, False, False)})}"
+          f": all states, keys and counts equal, max abs err {worst_k1}",
+          flush=True)
+    worst = max(worst_k2, worst_k1)
+
+    lines, fails, entries = [], [], []
+
+    def kernels_only(tag, k2, k2p, k1, k1p, want_k2, want_k1):
+        if k2p or k1p:
+            fails.append(f"{tag}: plain calls K2 {k2p}, K1 {k1p}")
+        if want_k2 and not k2:
+            fails.append(f"{tag}: K2 never launched")
+        if want_k1 and not k1:
+            fails.append(f"{tag}: K1 never launched")
+
+    # PTEQ_alpha at the biased study's configuration, xzzx d=17
+    m = LARGE_ALPHA
+    spec = get_spec(m["family"], m["d"])
+    px, py, pz = xyz_probs_from_biased(m["p"], m["eta"])
+    pz_tilde, alpha = biased_alpha_equivalent(m["p"], m["eta"])
+    gen = torch.Generator(device="cuda").manual_seed(2040)
+    states = sample_xyz(gen, spec, px, py, pz, (m["B"],), device="cuda")
+    truth = np_eq_class(spec, states.cpu().numpy())
+    cfg = PTEQConfig(max_steps=m["max_steps"], **PROD)
+    res, dt, k2, k2p, k1, k1p = _decode_counts(lambda: PTEQ_alpha(
+        spec, states, pz_tilde, alpha, cfg, seed=1, device="cuda"))
+    kernels_only("PTEQ_alpha xzzx d=17", k2, k2p, k1, k1p, True, False)
+    failure = float(np.mean(res.distribution.argmax(-1) != truth))
+    if failure > LARGE_MAX_FAILURE:
+        fails.append(f"PTEQ_alpha xzzx d=17: failure {failure:.4f} > "
+                     f"{LARGE_MAX_FAILURE:.4f}")
+    t = time_window(spec, states, m["d"], beta_ladder_alpha(pz_tilde, alpha,
+                                                            m["d"]),
+                    (alpha, alpha, 1.0), False, LARGE_TIMED_W, 41)
+    name = _k2_name(spec, False)
+    lines.append(
+        f"PTEQ_alpha {m['family']} d={m['d']} Nc={m['d']} eta={m['eta']} "
+        f"p={m['p']} B={m['B']} max_steps={m['max_steps']} (window {res.window}): "
+        f"{m['B'] / dt:.1f} syn/s ({dt:.2f} s), {k2} windows, K2 {name} {k2} "
+        f"launches ({1e3 * dt / max(k2, 1):.1f} ms a window in the decode), "
+        f"K1 {k1}, plain 0; failure {failure:.4f} (bar {LARGE_MAX_FAILURE:.4f}),"
+        f" converged {res.converged.mean():.4f}; one W={LARGE_TIMED_W} window "
+        f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.1f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}); launch "
+        f"{launch_line(spec, m['B'], m['d'], False)}")
+    entries.append(dict(t, name="ladder_window_xzzx_d17", instantiation=name,
+                        launches=k2, source="ladder_window.cu"))
+
+    # PTEQ at p=0.05: rotated d=19 and toric d=21
+    for i, m in enumerate(LARGE_PTEQ):
+        spec = get_spec(m["family"], m["d"])
+        gen = torch.Generator(device="cuda").manual_seed(2041 + i)
+        states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
+        truth = np_eq_class(spec, states.cpu().numpy())
+        cfg = PTEQConfig(max_steps=m["max_steps"], **PROD)
+        fused = lw.window_kernel_fits(spec, m["d"], True, PROD["iters"])
+        res, dt, k2, k2p, k1, k1p = _decode_counts(lambda: PTEQ(
+            spec, states, m["p"], cfg, seed=1, device="cuda"))
+        tag = f"PTEQ {m['family']} d={m['d']}"
+        kernels_only(tag, k2, k2p, k1, k1p, fused, not fused)
+        if res.window != ("fused" if fused else "sweep"):
+            fails.append(f"{tag}: ran the {res.window} window")
+        rec = float(np.mean(res.distribution.argmax(-1) == truth))
+        if rec < LARGE_MIN_RECOVERED:
+            fails.append(f"{tag}: recovered {rec:.4f} < {LARGE_MIN_RECOVERED}")
+        windows = -(-int(res.steps.max()) // PROD["window"])
+        name = (f"K2 {_k2_name(spec, True)} {k2} launches" if fused else
+                f"K1 {_k1_name(spec, False, False)} {k1} launches")
+        t = time_window(spec, states, m["d"],
+                        beta_ladder_depolarizing(m["p"], m["d"]),
+                        (1.0, 1.0, 1.0), True, LARGE_TIMED_W, 42 + i)
+        lines.append(
+            f"PTEQ {m['family']} d={m['d']} Nc={m['d']} p={m['p']} "
+            f"B={m['B']} max_steps={m['max_steps']} (predicate: "
+            f"{'K2 holds the ladder' if fused else 'unfused window'}; ran "
+            f"{res.window}): {m['B'] / dt:.1f} syn/s ({dt:.2f} s), {windows} "
+            f"windows, {name} ({1e3 * dt / max(windows, 1):.1f} ms a window in "
+            f"the decode), other kernel {k1 if fused else k2}, plain 0; "
+            f"recovered {rec:.4f} (bar {LARGE_MIN_RECOVERED}), converged "
+            f"{res.converged.mean():.4f}, tops0 at the snapshot (min, "
+            f"quartiles, max) {np.percentile(res.tops0, [0, 25, 50, 75, 100]).tolist()}, "
+            f"buckets {list(res.buckets)}; one "
+            f"W={LARGE_TIMED_W} window kernel {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}); launch {launch_line(spec, m['B'], m['d'], True)}")
+        entries.append(dict(t, name=f"ladder_window_{m['family']}_d{m['d']}",
+                            instantiation=_k2_name(spec, True),
+                            launches=k2, source="ladder_window.cu"))
+
+    # STDC at rotated d=19 through K1's recording sampler
+    m = LARGE_STDC
+    spec = get_spec(m["family"], m["d"])
+    gen = torch.Generator(device="cuda").manual_seed(2043)
+    states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
+    truth = np_eq_class(spec, states.cpu().numpy())
+    distr, dt, k2, k2p, k1, k1p = _decode_counts(lambda: STDC(
+        spec, states, m["p"], m["p_sampling"], droplets=m["droplets"],
+        steps=m["steps"], engine="auto", device="cuda"))
+    kernels_only("STDC rotated d=19", k2, k2p, k1, k1p, False, True)
+    rec = float(np.mean(distr.argmax(-1) == truth))
+    if rec < LARGE_MIN_RECOVERED:
+        fails.append(f"STDC rotated d=19: recovered {rec:.4f} < "
+                     f"{LARGE_MIN_RECOVERED}")
+    R = m["B"] * spec.n_classes * m["droplets"]
+    steps = m["steps"] // 10
+    st = _random_states(spec, R, seed=44)
+    b = torch.as_tensor(betas_depolarizing(m["p_sampling"]),
+                        dtype=torch.float32, device="cuda")
+    seeds = torch.randint(0, 2**31 - 1, (steps,),
+                          generator=torch.Generator().manual_seed(44))
+    rec_fn = make_recording_sweep(spec, steps, 1, equal_betas=True)
+    kern = rec_fn(st, seeds, b)  # warm-up, kept for the comparison
+    ms = _time_ms(lambda: rec_fn(st, seeds, b), 3)
+    plain_out = []
+    plain_ms = _time_ms(lambda: plain_out.append(sample_reference(
+        spec, st, seeds, b, 1, equal_betas=True)), 1)
+    err = compare_outputs_equal(f"sampler rotated d=19 R={R}", kern,
+                                plain_out[0], st)
+    bound, bound_by = sampler_bound(spec, R, steps, 1, True,
+                                    _nbytes(st, seeds, *kern))
+    name = _k1_name(spec, True, True)
+    lines.append(
+        f"STDC {m['family']} d={m['d']} p={m['p']} p_sampling="
+        f"{m['p_sampling']} B={m['B']} droplets={m['droplets']} steps="
+        f"{m['steps']} engine auto: {m['B'] / dt:.1f} syn/s ({dt:.3f} s), K1 "
+        f"{name} {k1} launch(es), K2 {k2}, plain 0; recovered {rec:.4f} (bar "
+        f"{LARGE_MIN_RECOVERED}); the sampler at {R} chains x {steps} steps: "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
+        f"({bound_by}); launch {sampler_launch_line(spec, R, True)}")
+    entries.append(dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
+                        bound_by=bound_by, name="sweep_sampler_rotated_d19",
+                        instantiation=name, launches=k1, source="sweep.cu"))
+
+    # the unfused window where K2 cannot hold the ladder: xzzx d=31, Nc=31
+    m = LARGE_FALLBACK
+    spec = fb_spec
+    check(not lw.window_kernel_fits(spec, m["d"], False, PROD["iters"]),
+          "K2 holds xzzx d=31 at 31 rungs: the fallback case is gone")
+    gen = torch.Generator(device="cuda").manual_seed(2044)
+    states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
+    cfg = PTEQConfig(max_steps=m["max_steps"], window=m["window"],
+                     iters=PROD["iters"], energy_chunk=PROD["energy_chunk"])
+    res, dt, k2, k2p, k1, k1p = _decode_counts(lambda: PTEQ_alpha(
+        spec, states, m["p"], 1.0, cfg, seed=1, device="cuda"))
+    kernels_only("PTEQ_alpha xzzx d=31", k2, k2p, k1, k1p, False, True)
+    if k2 or res.window != "sweep":
+        fails.append(f"xzzx d=31: window {res.window}, {k2} K2 launches")
+    Rc = m["B"] * m["d"]
+    st = _random_states(spec, Rc, seed=45)
+    b = _chain_rows(Rc, m["d"], m["p"], 45)
+    fn = make_sweep(spec, PROD["iters"], False)
+    kern = fn(st, 45, b)  # warm-up, kept for the comparison
+    ms = _time_ms(lambda: fn(st, 45, b), 20)
+    plain_out = []
+    plain_ms = _time_ms(lambda: plain_out.append(sweep_reference(
+        spec, st, 45, b, PROD["iters"])), 1)
+    n_bad = int((kern != plain_out[0]).sum())
+    check(n_bad == 0, f"xzzx d=31 ladder sweep differs in {n_bad} entries")
+    bound, bound_by = bound_ms(
+        _nbytes(st, b, kern), Rc * PROD["iters"] * _popc_per_sweep(spec, False),
+        Rc * PROD["iters"] * _philox_blocks_per_sweep(spec))
+    name = _k1_name(spec, False, False)
+    lines.append(
+        f"PTEQ_alpha {m['family']} d={m['d']} Nc={m['d']} B={m['B']} "
+        f"max_steps={m['max_steps']} window={m['window']} (predicate: K2 cannot "
+        f"hold the ladder; ran {res.window}): {dt:.2f} s, K1 {name} {k1} "
+        f"launches ({k1 // m['max_steps']} a ladder step), K2 {k2}, plain 0; "
+        f"one ladder step's sweeps at {Rc} chains: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({bound_by})")
+    entries.append(dict(ms=ms, plain_ms=plain_ms, err=0.0, bound_ms=bound,
+                        bound_by=bound_by, name="sweep_per_chain_xzzx_d31",
+                        instantiation=name, launches=k1, source="sweep.cu"))
+    print("phase 25 (c) large codes through the entry points: "
+          + "; ".join(lines), flush=True)
+    check(not fails, "; ".join(fails))
+    for e in entries:
+        e["err"] = max(e["err"], worst)
+    return entries
+
+
+def phase_golden():
+    """The golden-corpus studies on the card (GOLDEN above), each through
+    its ``run`` on syndromes drawn here, so without pandas: golden_replay
+    with PTEQ at its production configuration (K2) and with STDC at engine
+    "auto" (K1), and golden_ceiling at cap 32000 with its MWPM row.  Each
+    must launch its kernel and run no plain version."""
+    import contextlib
+    import io
+
+    from mcmc_qec_tpu_torch.studies import golden_ceiling, golden_replay
+
+    m = GOLDEN
+    spec = get_spec("toric", m["d"])
+    gen = torch.Generator(device="cuda").manual_seed(m["seed"])
+    flat = sample_depolarizing(gen, spec, m["p"], (m["n"],)).cpu().numpy()
+    trues = np_eq_class(spec, flat)
+    runs = [
+        ("golden_replay --decoder PTEQ", "K2", lambda: golden_replay.run(
+            spec, flat, trues, "PTEQ", m["n"], device="cuda")),
+        ("golden_replay --decoder STDC --engine auto", "K1",
+         lambda: golden_replay.run(spec, flat, trues, "STDC", m["n"],
+                                   engine="auto", device="cuda")),
+        (f"golden_ceiling --limit {m['n']} --cap {m['cap']}", "K2",
+         lambda: golden_ceiling.run(spec, flat, trues, cap=m["cap"],
+                                    device="cuda")),
+    ]
+    lines, fails = [], []
+    for tag, kernel, fn in runs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, dt, k2, k2p, k1, k1p = _decode_counts(fn)
+        launches = k2 if kernel == "K2" else k1
+        if not launches or k2p or k1p:
+            fails.append(f"{tag}: {kernel} {launches} launches, plain calls "
+                         f"{k2p + k1p}")
+        lines.append(f"{tag}: {' | '.join(buf.getvalue().strip().splitlines())}"
+                     f" [{dt:.2f} s; K2 {_k2_name(spec, True)} {k2} launches, "
+                     f"K1 {_k1_name(spec, True, True)} {k1}, plain 0]")
+    print(f"phase 26 golden studies on the card, on {m['n']} toric d={m['d']} "
+          f"syndromes drawn here at p={m['p']} (not the DRL failure set, so "
+          f"the recovery is not RESULTS.md's figure): " + "; ".join(lines),
+          flush=True)
+    check(not fails, "; ".join(fails))
+
+
 def main() -> int:
     phase = "device"
     try:
@@ -2694,12 +3083,18 @@ def main() -> int:
         phase_multi_device()
         phase = "threshold studies on the card"
         k2_study = phase_studies()
+        phase = "large codes on the card"
+        large = phase_large_codes()
+        phase = "golden studies on the card"
+        phase_golden()
     except PhaseFailed as e:
         print(f"FAILED phase {phase}: {e}", flush=True)
         return 1
     k1_main = k1[1]
+    toric = {d: get_spec("toric", d) for d in (5, 9, 13)}
     print(json.dumps({"kernels": [{
         "name": "ladder_window",
+        "instantiation": _k2_name(toric[5], True),
         "route": "cuda",
         "source": "mcmc_qec_tpu_torch/csrc/ladder_window.cu",
         "replaces": "mcmc_qec_tpu/ops/pallas_ladder.py:144",
@@ -2712,6 +3107,7 @@ def main() -> int:
         "library_ms": None,
     }, {
         "name": "sweep",
+        "instantiation": _k1_name(toric[5], True, False),
         "route": "cuda",
         "source": "mcmc_qec_tpu_torch/csrc/sweep.cu",
         "replaces": "mcmc_qec_tpu/ops/pallas_sweep.py:42",
@@ -2724,6 +3120,7 @@ def main() -> int:
         "library_ms": None,
     }, {
         "name": "sweep_sampler",
+        "instantiation": _k1_name(toric[5], True, True),
         "route": "cuda",
         "source": "mcmc_qec_tpu_torch/csrc/sweep.cu",
         "replaces": "mcmc_qec_tpu/ops/pallas_sweep.py:42",
@@ -2736,6 +3133,7 @@ def main() -> int:
         "library_ms": None,
     }, {
         "name": "sweep_sampler_window",
+        "instantiation": _k1_name(toric[9], True, True),
         "route": "cuda",
         "source": "mcmc_qec_tpu_torch/csrc/sweep.cu",
         "replaces": "mcmc_qec_tpu/ops/pallas_sweep.py:42",
@@ -2748,6 +3146,7 @@ def main() -> int:
         "library_ms": None,
     }, {
         "name": "sweep_per_chain",
+        "instantiation": _k1_name(toric[5], False, True),
         "route": "cuda",
         "source": "mcmc_qec_tpu_torch/csrc/sweep.cu",
         "replaces": "mcmc_qec_tpu/ops/pallas_sweep.py:42",
@@ -2760,6 +3159,7 @@ def main() -> int:
         "library_ms": None,
     }, {
         "name": "ladder_window_general",
+        "instantiation": _k2_name(get_spec("xzzx", BIASED_MAIN["d"]), False),
         "route": "cuda",
         "source": "mcmc_qec_tpu_torch/csrc/ladder_window.cu",
         "replaces": "mcmc_qec_tpu/ops/pallas_ladder.py:144",
@@ -2772,6 +3172,7 @@ def main() -> int:
         "library_ms": None,
     }, {
         "name": "ladder_window_study",
+        "instantiation": _k2_name(toric[13], True),
         "route": "cuda",
         "source": "mcmc_qec_tpu_torch/csrc/ladder_window.cu",
         "replaces": "mcmc_qec_tpu/ops/pallas_ladder.py:144",
@@ -2782,7 +3183,22 @@ def main() -> int:
         "bound_ms": k2_study["bound_ms"],
         "bound_by": k2_study["bound_by"],
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": e["name"],
+        "instantiation": e["instantiation"],
+        "route": "cuda",
+        "source": f"mcmc_qec_tpu_torch/csrc/{e['source']}",
+        "replaces": ("mcmc_qec_tpu/ops/pallas_ladder.py:144"
+                     if e["source"] == "ladder_window.cu"
+                     else "mcmc_qec_tpu/ops/pallas_sweep.py:42"),
+        "launches": e["launches"],
+        "max_abs_err": e["err"],
+        "ms": e["ms"],
+        "plain_ms": e["plain_ms"],
+        "bound_ms": e["bound_ms"],
+        "bound_by": e["bound_by"],
+        "library_ms": None,
+    } for e in large]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -755,10 +755,16 @@ int dispatch(const WindowParams& P, int bad, A... args) {
   MQT_SHAPE(2, 2)
   MQT_SHAPE(3, 2)
   MQT_SHAPE(3, 4)
+  MQT_SHAPE(4, 2)
   MQT_SHAPE(4, 4)
+  MQT_SHAPE(6, 2)
   MQT_SHAPE(6, 4)
+  MQT_SHAPE(8, 2)
   MQT_SHAPE(8, 4)
+  MQT_SHAPE(12, 2)
   MQT_SHAPE(12, 4)
+  MQT_SHAPE(16, 2)
+  MQT_SHAPE(16, 4)
 #undef MQT_SHAPE
   return bad;
 }

@@ -46,7 +46,8 @@
 //     path's 65,536 chains one lane per chain is fastest.
 //   - Only the words a stabilizer spans (the spanned-word table of
 //     ops/ladder_window.py::kernel_tables): two popcounts a word with equal
-//     betas, four with general betas; up to 12 words per plane (toric d=19).
+//     betas, four with general betas; up to 16 words per plane (toric d=21,
+//     rotated and XZZX d=31).
 //     The tables sit in shared memory unless they would leave the SM fewer
 //     than four blocks, when the kernel reads them from device memory.
 //   - The recording on the chip: each lane sums m_q * v_q over its share
@@ -74,7 +75,7 @@
 namespace mqt {
 
 constexpr int kSweepThreads = 256;  // ops/sweep.py::SWEEP_THREADS
-constexpr int kCountBits = 10;      // bits per packed count (nq <= 768 < 1024)
+constexpr int kCountBits = 10;      // bits per packed count (nq < 1024)
 
 // Must match ops/sweep.py::_Params field for field.
 struct SweepParams {
@@ -193,7 +194,7 @@ __device__ __forceinline__ void record_step(const uint64_t (&X)[NW], const uint6
 // one or two words fit four (64 registers, no spills in the recording
 // instantiations; measured 3-8% faster at 2,048-65,536 chains of toric
 // d=5), three to six words two (128; 5-20% faster at toric d=9 and d=13
-// than one block of up to 255), and 8 or 12 words keep one (capped at 128
+// than one block of up to 255), and 8 to 16 words keep one (capped at 128
 // they spill 448-568 bytes and take twice as long at toric d=19).
 template <int NW, int S, bool EQ, bool REC>
 __global__ void __launch_bounds__(kSweepThreads, NW <= 2 ? 4 : (NW <= 6 ? 2 : 1))
@@ -383,10 +384,16 @@ int dispatch(const SweepParams& P, int bad, A... args) {
   MQT_SHAPE(2, 2)
   MQT_SHAPE(3, 2)
   MQT_SHAPE(3, 4)
+  MQT_SHAPE(4, 2)
   MQT_SHAPE(4, 4)
+  MQT_SHAPE(6, 2)
   MQT_SHAPE(6, 4)
+  MQT_SHAPE(8, 2)
   MQT_SHAPE(8, 4)
+  MQT_SHAPE(12, 2)
   MQT_SHAPE(12, 4)
+  MQT_SHAPE(16, 2)
+  MQT_SHAPE(16, 4)
 #undef MQT_SHAPE
   return bad;
 }

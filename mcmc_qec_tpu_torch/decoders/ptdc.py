@@ -89,6 +89,16 @@ def _droplet_states(seeds: torch.Tensor, droplets: int) -> torch.Tensor:
     return seeds[:, :, None, :].expand(B, K, droplets, nq).reshape(-1, nq)
 
 
+def _steps_per_rung(steps: int, Nc: int) -> int:
+    """The step budget divided by Nc (decoders.py:199, 669), or a
+    ``ValueError`` before any work when it leaves a rung no step (the JAX
+    package fails later, dividing by the empty stream window)."""
+    if steps < Nc:
+        raise ValueError(f"steps={steps} < Nc={Nc}: the budget is divided "
+                         f"among the Nc rungs, so it needs at least Nc steps")
+    return steps // Nc
+
+
 def make_pt_window(spec: CodeSpec, Nc: int, iters: int, engine: str,
                    betas_ladder: torch.Tensor):
     """``window(pls, draws_w) -> (pls, keys (n, N, Nc, 2) int64, n_xyz (n,
@@ -242,7 +252,7 @@ def PTDC(
     device = resolve_device(device)
     p_sampling = p_sampling or p_error
     Nc = Nc or spec.size
-    steps_eff = steps // Nc
+    steps_eff = _steps_per_rung(steps, Nc)
     iters = _pt_iters(engine)
     be = torch.as_tensor(betas_depolarizing(p_error), dtype=torch.float32,
                          device=device)
@@ -371,7 +381,7 @@ def PTRC(
     device = resolve_device(device)
     p_sampling = p_sampling or p_error
     Nc = Nc or spec.size
-    steps_eff = steps // Nc
+    steps_eff = _steps_per_rung(steps, Nc)
     iters = _pt_iters(engine)
     nq = spec.nq
     seeds = _pt_seeds(spec, init_states, device)

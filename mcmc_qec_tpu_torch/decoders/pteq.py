@@ -13,7 +13,11 @@ unfused ladder steps (``mcmc/ladder.py::make_ladder_step``) with the same
 outputs: ``"sweep"`` (the sweep kernel's general branch at a row of betas
 per chain, then the top-rung logical mix), ``"literal"`` and ``"pallas"``
 (the literal update, as the JAX package runs both, pteq.py:309-312 and
-ladder.py:156-157).
+ladder.py:156-157).  Where the window kernel cannot hold a code's ladder
+(``ops/ladder_window.py::window_kernel_fits``, decided from shapes before
+any build or launch) the fused engine runs the ``"sweep"`` window instead,
+the JAX package's fallback (pteq.py:306-309); ``PTEQResult.window`` says
+which window ran.
 
 Semantics kept from the JAX decoder (and through it from the reference,
 decoders.py:25-105): convergence is checked once per window, every syndrome
@@ -60,7 +64,11 @@ from ..mcmc.ladder import (
 )
 from ..models.base import CodeSpec
 from ..ops.engines import resolve_device, resolve_engine
-from ..ops.ladder_window import _weighted, make_ladder_window
+from ..ops.ladder_window import (
+    _weighted,
+    make_ladder_window,
+    window_kernel_fits,
+)
 from ..ops.metropolis import _log_uniform
 from ..ops.pauli import make_hash_mults, pack_key
 from ..utils.checkpoint import CheckpointManager
@@ -119,6 +127,11 @@ class PTEQResult:
     shortest_overflow: Optional[np.ndarray] = None
     # device-batch sizes after each compaction (empty = never compacted)
     buckets: Tuple[int, ...] = ()
+    # the window that ran: "fused" (the window kernel, or its plain version
+    # on the CPU) or the unfused ladder step's engine ("sweep", "literal",
+    # "pallas"); "sweep" under engine="auto" or "fused" where the window
+    # kernel cannot hold the ladder (ops/ladder_window.py::window_kernel_fits)
+    window: str = "fused"
 
 
 class ShortestState(NamedTuple):
@@ -236,6 +249,13 @@ def _get_window_fn(spec: CodeSpec, Nc: int, cfg: PTEQConfig,
            equal_betas, cfg.shortest_unique_cap, cfg.exchange)
     if key in _WINDOW_CACHE:
         return _WINDOW_CACHE[key]
+    if engine == "fused" and not window_kernel_fits(spec, Nc, equal_betas,
+                                                    cfg.iters):
+        # the window kernel has no instantiation or block for this code and
+        # ladder: the same math, unfused (the JAX package's documented
+        # fallback, pteq.py:306-309); on the card each ladder step's sweeps
+        # are one launch of the sweep kernel
+        engine = "sweep"
     if engine != "fused":
         fn = _unfused_window(spec, Nc, cfg, track_shortest, top_exact_accept,
                              engine)
@@ -263,6 +283,7 @@ def _get_window_fn(spec: CodeSpec, Nc: int, cfg: PTEQConfig,
                 en = en.reshape(en.shape[0] // C, C, -1).mean(dim=1)
         return (LadderState(st, fl, tp), eq, sb, en, ba, bf, tp, sw) + extras
 
+    window.engine = "fused"
     _WINDOW_CACHE[key] = window
     return window
 
@@ -331,6 +352,7 @@ def _unfused_window(spec: CodeSpec, Nc: int, cfg: PTEQConfig,
         return (ls, eq_count, since_burn, energies, burn_any, burn_first,
                 ls.tops0, swap_sum) + extras
 
+    window.engine = engine
     return window
 
 
@@ -659,6 +681,7 @@ def pteq_run(
         shortest_counts=sh_counts,
         shortest_overflow=sh_overflow,
         buckets=tuple(buckets),
+        window=window_fn.engine,
     )
 
 

@@ -62,12 +62,16 @@ from .dense_sweep import _color_tables
 from .philox import MASK32, philox4x32
 
 # 64-bit words per bit plane of the kernels' tables (a code's word count is
-# rounded up to the next; the extra words stay zero)
-KERNEL_WORDS = (1, 2, 3, 4, 6, 8, 12)
-# (words per plane, spanned-word entries per stabilizer) the window kernel is
-# instantiated for (csrc/ladder_window.cu::dispatch): a stabilizer spanning
-# 3 words is padded to 4 entries
-KERNEL_SHAPES = ((1, 1), (2, 2), (3, 2), (3, 4), (4, 4), (6, 4), (8, 4), (12, 4))
+# rounded up to the next; the extra words stay zero).  16 words (nq <= 1024)
+# is the most: the spanned-word table packs a word index in 4 bits
+KERNEL_WORDS = (1, 2, 3, 4, 6, 8, 12, 16)
+# (words per plane, spanned-word entries per stabilizer) both kernels are
+# instantiated for (csrc/ladder_window.cu::dispatch, csrc/sweep.cu::dispatch):
+# a stabilizer spanning 3 words is padded to 4 entries.  Rotated and XZZX
+# codes span at most 2 words at every size, toric and planar codes 4 from
+# d=9 on
+KERNEL_SHAPES = ((1, 1), (2, 2), (3, 2), (3, 4), (4, 2), (4, 4), (6, 2), (6, 4),
+                 (8, 2), (8, 4), (12, 2), (12, 4), (16, 2), (16, 4))
 # threads per block of the window kernel (csrc/ladder_window.cu::kMaxThreads)
 MAX_THREADS = 512
 # named barriers a block has for multi-warp groups (id 0 is __syncthreads)
@@ -505,8 +509,9 @@ def kernel_words(nq: int) -> int:
         if nw >= need:
             return nw
     raise ValueError(
-        f"nq={nq} needs {need} words per plane; the kernel is built for at "
-        f"most {KERNEL_WORDS[-1]} (nq <= {64 * KERNEL_WORDS[-1]})"
+        f"nq={nq} needs {need} words per plane; the kernels are built for at "
+        f"most {KERNEL_WORDS[-1]} (nq <= {64 * KERNEL_WORDS[-1]}); the plain "
+        f"versions on the CPU take any size"
     )
 
 
@@ -617,6 +622,28 @@ def kernel_tables(spec: CodeSpec):
     return tab_np, meta_np, offs
 
 
+def has_kernel_shape(spec: CodeSpec) -> bool:
+    """Whether both kernels are instantiated for ``spec``: at most
+    KERNEL_WORDS[-1] words per plane, and its (words per plane, spanned
+    words per stabilizer) in KERNEL_SHAPES."""
+    if -(-spec.nq // 64) > KERNEL_WORDS[-1]:
+        return False
+    offs = kernel_tables(spec)[2]
+    return (offs["nw"], offs["span"]) in KERNEL_SHAPES
+
+
+def kernel_shape(spec: CodeSpec) -> Tuple[int, int]:
+    """(words per plane, spanned-word entries per stabilizer) of the kernels'
+    instantiation for ``spec``; a ``ValueError`` where none is built.  The
+    CUDA branches of both wrappers call it before any work."""
+    offs = kernel_tables(spec)[2]  # raises above KERNEL_WORDS[-1] words
+    shape = (offs["nw"], offs["span"])
+    if shape not in KERNEL_SHAPES:
+        raise ValueError(f"no kernel for {shape[0]} words per plane and "
+                         f"{shape[1]} spanned words per stabilizer")
+    return shape
+
+
 def window_table_words(offs) -> int:
     """64-bit words of the table the window kernel reads (from
     ``off_draw`` on: the sweep kernel's dense stabilizer masks stay out)."""
@@ -692,6 +719,25 @@ def block_shape(offs, Nc: int, K: int, B: int, n_sm: int, equal_betas: bool,
                          f"per plane) does not fit in shared memory")
     return BlockShape(L, wpg, gpb, 32 * wpg * gpb, tab_in_smem,
                       smem(gpb, tab_in_smem=tab_in_smem))
+
+
+def window_kernel_fits(spec: CodeSpec, Nc: int, equal_betas: bool,
+                       iters: int) -> bool:
+    """Whether the window kernel can run a window of ``Nc`` rungs of
+    ``spec``: it is instantiated for the code (``has_kernel_shape``), one
+    syndrome's Nc x ``lanes_per_rung`` threads fit a block, and one group
+    fits 227 KB of shared memory with the tables in device memory, so that
+    ``block_shape`` finds a launch at every batch.  Decided from shapes
+    alone, before any build or launch: where it is False, PTEQ runs the
+    unfused window instead (decoders/pteq.py::_get_window_fn), as the JAX
+    package does where its fused kernel does not fit."""
+    if not has_kernel_shape(spec):
+        return False
+    offs = kernel_tables(spec)[2]
+    threads = 32 * -(-Nc * lanes_per_rung(offs, Nc) // 32)
+    return threads <= MAX_THREADS and smem_bytes(
+        offs, Nc, spec.n_classes, 1, equal_betas, iters,
+        len(spec.logical_draws), tab_in_smem=False) <= SMEM_LIMIT
 
 
 @functools.lru_cache(maxsize=None)
@@ -776,6 +822,7 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
     K = spec.n_classes
     if nq != spec.nq:
         raise ValueError(f"state has {nq} qubits, spec {spec.nq}")
+    kernel_shape(spec)
     _check(state, "state", (B, Nc, nq), torch.uint8, device)
     _check(flag, "flag", (B, Nc), torch.int32, device)
     _check(tops0, "tops0", (B,), torch.int32, device)
@@ -878,9 +925,14 @@ def make_ladder_window(
     The device of ``state`` decides: CUDA launches the kernel (one launch
     per call, counted in ``ladder_window_counts.launches``), CPU runs
     ``ladder_window_reference`` (counted in ``plain_calls``); any other
-    device raises.  ``rng="zeros"`` makes every random draw 0 and an
-    integer ``rng`` makes every draw that 32-bit word (parity tests and the
-    chip smoke check only)."""
+    device raises.  Only the kernel is bounded by the code's size: the CUDA
+    branch raises a ``ValueError`` before it launches for a code without an
+    instantiation (``kernel_shape``) or a ladder no block holds
+    (``block_shape``; ``window_kernel_fits`` says so up front); the plain
+    version takes any code.
+    ``rng="zeros"`` makes every random draw 0 and an integer ``rng`` makes
+    every draw that 32-bit word (parity tests and the chip smoke check
+    only)."""
     if window % energy_chunk != 0:
         raise ValueError(
             f"window ({window}) must be divisible by energy_chunk ({energy_chunk})"
@@ -890,10 +942,6 @@ def make_ladder_window(
         raise ValueError(
             f"exchange={exchange!r}: expected 'sequential' or 'even_odd'"
         )
-    offs = kernel_tables(spec)[2]  # raises for codes beyond the largest plane
-    if (offs["nw"], offs["span"]) not in KERNEL_SHAPES:
-        raise ValueError(f"no window kernel for {offs['nw']} words per plane "
-                         f"and {offs['span']} spanned words per stabilizer")
     kw = dict(window=window, iters=iters, p_logical=float(p_logical),
               tops_burn=tops_burn, energy_chunk=energy_chunk,
               top_exact=top_exact, equal_betas=equal_betas, exchange=exchange,

@@ -59,7 +59,7 @@ import torch
 from ..models.base import CodeSpec
 from .dense_sweep import _color_tables
 from .ladder_window import (
-    KERNEL_SHAPES,
+    KERNEL_WORDS,
     SMEM_LIMIT,
     KernelCounter,
     _DRAW_BUDGET,
@@ -67,15 +67,17 @@ from .ladder_window import (
     _draw_words,
     _plain_tables,
     _sm_count,
+    kernel_shape,
     kernel_tables,
     lanes_per_rung,
 )
 from .pauli import count_errors_xyz, make_hash_mults, pack_key
 from .philox import MASK32
 
-# most 64-bit words per bit plane the kernel is built for (toric d=19:
-# nq=722); a code's count is ``kernel_words(nq)``
-MAX_WORDS = 12
+# most 64-bit words per bit plane the kernel is built for (nq <= 1024:
+# toric and planar d=21, rotated and XZZX d=31); a code's count is
+# ``kernel_words(nq)``
+MAX_WORDS = KERNEL_WORDS[-1]
 # threads per block of the kernel (csrc/sweep.cu::kSweepThreads)
 SWEEP_THREADS = 256
 # recording steps a warp stages per chain before it stores them: 16 steps
@@ -238,28 +240,47 @@ def sweep_smem_bytes(spec: CodeSpec, region_bytes: int, tab_in_smem: bool) -> in
     return -(-head // 16) * 16 + region_bytes * (SWEEP_THREADS // 32)
 
 
-def sweep_plan(spec: CodeSpec, record: bool, lanes: int) -> SweepPlan:
-    """The launch of the sweep kernel for ``spec`` at ``lanes`` lanes per
-    chain (``lanes_per_chain``): 32 / L chains per warp, SWEEP_THREADS
-    threads per block; a warp's shared memory holds its rows of u8 state
-    (at the start and the end) and, while recording, its chains' tiles of
-    TILE_STEPS steps.  The tables go to shared memory when
-    MIN_BLOCKS_PER_SM blocks still fit on an SM beside them (toric d <=
-    13), else the kernel reads them from device memory."""
-    L = lanes
-    if L & (L - 1) or not 1 <= L <= 32:
-        raise ValueError(f"lanes={L}: expected a power of two up to 32")
-    cpw = 32 // L
+def _block_bytes(spec: CodeSpec, record: bool, lanes: int):
+    """(bytes of one warp's region, tables in shared memory, dynamic shared
+    memory of one block) at ``lanes`` lanes per chain (``sweep_plan``)."""
+    cpw = 32 // lanes
     region = cpw * spec.nq
     if record:
         region = max(region, cpw * tile_bytes(TILE_STEPS))
     region = -(-region // 16) * 16
     in_smem = MIN_BLOCKS_PER_SM * sweep_smem_bytes(spec, region, True) <= SMEM_LIMIT
-    smem = sweep_smem_bytes(spec, region, in_smem)
+    return region, in_smem, sweep_smem_bytes(spec, region, in_smem)
+
+
+@functools.lru_cache(maxsize=None)
+def least_lanes(spec: CodeSpec, record: bool) -> int:
+    """Fewest lanes per chain whose block fits 227 KB of shared memory: 1
+    up to 841 qubits (rotated and XZZX d=29); toric and planar d=21 (882
+    qubits) and rotated and XZZX d=31 (961) take 2, as a warp's 32 rows of
+    u8 state would not fit at 1."""
+    L = 1
+    while _block_bytes(spec, record, L)[2] > SMEM_LIMIT:
+        L *= 2
+    return L
+
+
+def sweep_plan(spec: CodeSpec, record: bool, lanes: int) -> SweepPlan:
+    """The launch of the sweep kernel for ``spec`` at ``lanes`` lanes per
+    chain (``lanes_per_chain``, at least ``least_lanes``): 32 / L chains per
+    warp, SWEEP_THREADS threads per block; a warp's shared memory holds its
+    rows of u8 state (at the start and the end) and, while recording, its
+    chains' tiles of TILE_STEPS steps.  The tables go to shared memory when
+    MIN_BLOCKS_PER_SM blocks still fit on an SM beside them (toric d <=
+    13), else the kernel reads them from device memory."""
+    L = lanes
+    if L & (L - 1) or not 1 <= L <= 32:
+        raise ValueError(f"lanes={L}: expected a power of two up to 32")
+    region, in_smem, smem = _block_bytes(spec, record, L)
     if smem > SMEM_LIMIT:
         raise ValueError(f"a block of the sweep kernel needs {smem} B of shared "
                          f"memory ({spec.nq} qubits, {L} lanes per chain)")
-    return SweepPlan(L, cpw, SWEEP_THREADS // L, TILE_STEPS, region, in_smem, smem)
+    return SweepPlan(L, 32 // L, SWEEP_THREADS // L, TILE_STEPS, region,
+                     in_smem, smem)
 
 
 class _Params(ctypes.Structure):
@@ -296,23 +317,11 @@ def _library():
     return lib
 
 
-def _check_words(spec: CodeSpec) -> None:
-    need = -(-spec.nq // 64)
-    if need > MAX_WORDS:
-        raise NotImplementedError(
-            f"nq={spec.nq} needs {need} words per plane; the sweep kernel is "
-            f"built for at most {MAX_WORDS} (nq <= {64 * MAX_WORDS})"
-        )
-
-
 @functools.lru_cache(maxsize=None)
 def _static_fields(spec: CodeSpec, record: bool, lanes: int):
     """(SweepPlan, the ``_Params`` fields fixed by the code, the mode and
     the lanes), worked out once for each."""
     offs = kernel_tables(spec)[2]
-    if (offs["nw"], offs["span"]) not in KERNEL_SHAPES:
-        raise ValueError(f"no sweep kernel for {offs['nw']} words per plane "
-                         f"and {offs['span']} spanned words per stabilizer")
     plan = sweep_plan(spec, record, lanes)
     return plan, dict(
         nq=spec.nq, nw=offs["nw"], span=offs["span"], n_colors=offs["n_colors"],
@@ -328,8 +337,8 @@ def _plan_params(spec: CodeSpec, B: int, steps: int, iters: int,
                  per_chain: bool = False):
     """(SweepPlan, ``_Params``) of a launch on a card with ``n_sm`` SMs;
     ``per_chain`` betas are a (B, 3) row per chain."""
-    _check_words(spec)
-    lanes = lanes_per_chain(kernel_tables(spec)[2], B, n_sm)
+    lanes = max(lanes_per_chain(kernel_tables(spec)[2], B, n_sm),
+                least_lanes(spec, record))
     plan, fields = _static_fields(spec, record, lanes)
     return plan, _Params(B=B, steps=steps, iters=iters,
                          equal_betas=int(equal_betas), key0=int(seed) & MASK32,
@@ -374,7 +383,7 @@ def _launch(spec: CodeSpec, states: torch.Tensor, betas, *, steps: int,
     if nq != spec.nq:
         raise ValueError(f"states have {nq} qubits, spec {spec.nq}")
     record = seeds is not None
-    _check_words(spec)
+    kernel_shape(spec)  # a ValueError for a code without an instantiation
     _check(states, "states", (B, nq), torch.uint8, device)
     # a host array here would be a blocking copy per call: callers on the
     # hot path pass the betas as a tensor on the device

@@ -19,6 +19,10 @@ versions).  Each runs as ``python -m mcmc_qec_tpu_torch.studies.<name>``.
 - ``head_to_head``: the port's decoders on the cached head-to-head
   syndromes against the reference's distributions (``--phase ours``).
 - ``scaling_bench``: STDC over 1, 2, 4 and 8 devices.
+- ``golden_replay``, ``golden_ceiling``: PTEQ or STDC on the reference's
+  golden failure corpus (``--corpus``, required: the file is not in this
+  repository), and the ceiling's MWPM/eMWPM rows; each splits into a
+  ``main`` that reads the corpus (pandas) and a ``run`` on the syndromes.
 
 Card results of the threshold studies are under ``studies/results/``.
 """

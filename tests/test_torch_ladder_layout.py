@@ -20,8 +20,8 @@ import pytest
 import mcmc_qec_tpu_torch.ops.ladder_window as lw
 from mcmc_qec_tpu_torch.models import get_spec
 
-CODES = ([("toric", d) for d in range(3, 20, 2)]
-         + [(f, d) for f in ("planar", "rotated", "xzzx") for d in range(3, 14, 2)])
+CODES = ([(f, d) for f in ("toric", "planar") for d in range(3, 22, 2)]
+         + [(f, d) for f in ("rotated", "xzzx") for d in range(3, 28, 2)])
 IDS = [f"{f}-{d}" for f, d in CODES]
 BATCHES = (1, 7, 512, 2048, 8192)
 N_SM = 132  # an H100 SXM's SMs

@@ -252,3 +252,21 @@ def test_pt_decoders_default_to_the_card(fn):
         jspec, spec = _specs("planar", 3)
         with pytest.raises(RuntimeError, match="cuda"):
             fn(spec, _depolarizing(jspec, 0.1, 1, seed=0), 0.1, steps=30)
+
+
+@pytest.mark.parametrize("name", ["PTDC", "PTRC"])
+def test_fewer_steps_than_rungs_raise_before_any_work(name):
+    """``steps < Nc`` leaves each rung no step (the budget is divided by
+    Nc): the port raises a ValueError naming both before any work; the JAX
+    package still refuses the input, later and with an unrelated error
+    (ROADMAP §3 "In the reference")."""
+    jspec, spec = _specs("toric", 5)
+    s = _depolarizing(jspec, 0.05, 2, seed=3)
+    ours = {"PTDC": PTDC, "PTRC": PTRC}[name]
+    theirs = {"PTDC": jax_PTDC, "PTRC": jax_PTRC}[name]
+    sweep_counts.reset()
+    with pytest.raises(ValueError, match=r"steps=4 < Nc=5"):
+        ours(spec, s, 0.05, droplets=1, steps=4, device="cpu")
+    assert sweep_counts.plain_calls == 0
+    with pytest.raises(ZeroDivisionError):
+        theirs(jspec, s, 0.05, droplets=1, steps=4)

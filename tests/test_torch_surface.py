@@ -100,11 +100,11 @@ STUDIES = {
     "compare_decoders.py": "compare_decoders",
     "head_to_head.py": "head_to_head",  # --phase ours only
     "scaling_bench.py": "scaling_bench",
+    "golden_replay.py": "golden_replay",  # --corpus required
+    "golden_ceiling.py": "golden_ceiling",  # --corpus required
 }
 # what waits, and the file it needs that the repository does not hold
 WAITING = {
-    "golden_replay.py": "the golden corpus (drl_failures_p_0.15.xz)",
-    "golden_ceiling.py": "the golden corpus (drl_failures_p_0.15.xz)",
     "head_to_head.py --phase ref|all": "the executing reference "
                                        "implementation (decoders.py)",
     "head_to_head_biased.py": "the executing reference implementation "
@@ -118,7 +118,7 @@ def test_every_example_script_is_mapped():
                   if "mcmc_qec_tpu" in p.read_text()}
     waiting = {w.split()[0] for w in WAITING}
     assert drives_jax == set(STUDIES) | (waiting - set(STUDIES))
-    assert len(WAITING) == 4
+    assert len(WAITING) == 2
 
 
 @pytest.mark.parametrize("script", STUDIES)

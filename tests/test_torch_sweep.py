@@ -178,17 +178,17 @@ def test_cpu_sweep_runs_plain_version_only():
 
 
 def test_kernel_refuses_codes_above_six_words():
-    """The kernel is built for up to 12 words per plane (toric d=19 has
-    nq=722; the limit was 6 words before the kernel read only the words a
-    stabilizer spans); the wrapper refuses toric d=21 (nq=882) before any
-    launch, in both modes."""
+    """The kernel is built for up to 16 words per plane (toric d=21 has
+    nq=882; the limit was 6 words before the kernel read only the words a
+    stabilizer spans, then 12); the wrapper refuses toric d=23 (nq=1058)
+    with a ValueError before any launch, in both modes."""
     from mcmc_qec_tpu_torch.ops.sweep import MAX_WORDS, _launch
 
-    assert MAX_WORDS == 12
-    assert -(-jax_get_spec("toric", 19).nq // 64) <= MAX_WORDS
-    spec = spec_from_jax(jax_get_spec("toric", 21))
+    assert MAX_WORDS == 16
+    assert -(-jax_get_spec("toric", 21).nq // 64) <= MAX_WORDS
+    spec = spec_from_jax(jax_get_spec("toric", 23))
     states = torch.zeros((2, spec.nq), dtype=torch.uint8)
     for seeds in (None, torch.zeros(3, dtype=torch.int64)):
-        with pytest.raises(NotImplementedError, match="words per plane"):
+        with pytest.raises(ValueError, match="nq <= 1024"):
             _launch(spec, states, torch.zeros(3), steps=3, iters=1,
                     equal_betas=True, seeds=seeds, device_tables={})

@@ -33,8 +33,8 @@ from mcmc_qec_tpu_torch.mcmc.ladder import betas_xyz
 from mcmc_qec_tpu_torch.models import get_spec
 from mcmc_qec_tpu_torch.ops.pauli import count_errors_xyz, make_hash_mults, pack_key
 
-CODES = ([("toric", d) for d in range(3, 20, 2)]
-         + [(f, d) for f in ("planar", "rotated", "xzzx") for d in range(3, 14, 2)])
+CODES = ([(f, d) for f in ("toric", "planar") for d in range(3, 22, 2)]
+         + [(f, d) for f in ("rotated", "xzzx") for d in range(3, 28, 2)])
 IDS = [f"{f}-{d}" for f, d in CODES]
 FAMILIES = [("toric", 5), ("planar", 3), ("rotated", 3), ("xzzx", 3)]
 CSRC = Path(sw.__file__).resolve().parent.parent / "csrc" / "sweep.cu"
@@ -199,7 +199,18 @@ def test_sweep_plan(family, d):
         assert sw.lanes_per_chain(offs, 65536, N_SM) == 1
         assert sw.lanes_per_chain(offs, 2048, N_SM) == 4
     for record in (True, False):
+        # the fewest lanes whose block fits: 1 up to 841 qubits, 2 at toric
+        # and planar d=21, whose 32 rows of state a warp would need 226 KB
+        least = sw.least_lanes(spec, record)
+        assert least == (2 if spec.nq > 841 else 1)
+        for B in (1, 65536):
+            plan, _ = sw._plan_params(spec, B, 3, 1, True, record, N_SM)
+            assert plan.lanes == max(least, sw.lanes_per_chain(offs, B, N_SM))
         for L in (1, 2, 4, 8):
+            if L < least:
+                with pytest.raises(ValueError, match="shared memory"):
+                    sw.sweep_plan(spec, record, L)
+                continue
             plan = sw.sweep_plan(spec, record, L)
             assert plan.lanes == L
             assert plan.chains_per_warp * L == 32
@@ -278,15 +289,15 @@ def test_wrappers_refuse():
         sw._launch(spec, states, torch.ones(4), seeds=seeds, **kw)
     with pytest.raises(ValueError, match="seeds must have shape"):
         sw._launch(spec, states, torch.ones(3), seeds=seeds[:2], **kw)
-    # the plan refuses codes above 12 words per plane
-    with pytest.raises(NotImplementedError, match="words per plane"):
-        sw._plan_params(get_spec("toric", 21), 4, 3, 1, True, True, N_SM)
+    # the plan refuses codes above 16 words per plane (nq > 1024)
+    with pytest.raises(ValueError, match="nq <= 1024"):
+        sw._plan_params(get_spec("toric", 23), 4, 3, 1, True, True, N_SM)
 
 
 def test_plain_sampler_runs_any_code_size_on_the_cpu():
     """Only the kernel is bounded by its words per plane: the plain sampler
-    runs toric d=21 (14 words)."""
-    spec = get_spec("toric", 21)
+    runs toric d=23 (17 words)."""
+    spec = get_spec("toric", 23)
     states = torch.zeros((2, spec.nq), dtype=torch.uint8)
     out, keys, counts = sw.make_recording_sweep(spec, 2, equal_betas=True)(
         states, torch.tensor([3, 4]), torch.full((3,), 0.5))
