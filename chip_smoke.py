@@ -93,6 +93,14 @@ kernel against its plain PyTorch version on the card:
   ``studies.golden_ceiling``) through their ``run`` on 256 toric d=5
   syndromes drawn on the card (not the DRL failure set): PTEQ (K2), STDC
   (K1) and the ceiling with its MWPM row.
+- Codes above 1024 qubits, K1's large variant (planes in shared memory):
+  kernel vs plain version at toric d=23, 33 and 45 and rotated d=33 (17 to
+  64 words per plane) at every lane count, sweeps and recording sampler,
+  equal, general and per-chain betas; its registers and spills, and 10
+  sweeps at toric d=45 against the bound; STDC at toric d=25 and rotated
+  d=45 (recovery bar), PTEQ at toric d=23 on the unfused window and PTDC
+  at toric d=23 through K1 only, one launch a ladder step, each with one
+  launch timed against the plain version.
 
 Each phase prints one line; any failed phase exits non-zero.  The line
 before the last is a JSON record of the kernels (launches on the main
@@ -164,7 +172,6 @@ from mcmc_qec_tpu_torch.models.noise import (
 )
 import mcmc_qec_tpu_torch.ops.ladder_window as lw
 from mcmc_qec_tpu_torch.ops import _build
-from mcmc_qec_tpu_torch.ops.dense_sweep import _color_tables
 from mcmc_qec_tpu_torch.ops.ladder_window import (
     _N_EXTRA_USES,
     _rng_layout,
@@ -202,6 +209,12 @@ from mcmc_qec_tpu_torch.pipeline import (
 )
 from mcmc_qec_tpu_torch.pipeline.generate import error_generator
 from mcmc_qec_tpu_torch.utils import CheckpointManager, StageTimer
+import mcmc_qec_tpu_torch.utils.roofline as roofline
+from mcmc_qec_tpu_torch.utils.roofline import (
+    HBM_BYTES_PER_S,
+    philox_blocks_per_sweep,
+    popc_per_sweep,
+)
 from mcmc_qec_tpu_torch.ops.sweep import (
     make_recording_sweep,
     make_sweep,
@@ -361,6 +374,23 @@ LARGE_FALLBACK = dict(family="xzzx", d=31, p=0.05, B=16, max_steps=48,
 LARGE_MAX_FAILURE = BIASED_REF_FAILURE + BIASED_MAX_FAILURE_GAP
 LARGE_MIN_RECOVERED = 0.99
 LARGE_TIMED_W = 60
+# codes above 1024 qubits (phase 27), the sweep kernel's large variant
+# (csrc/sweep.cu::sweep_kernel_wide): (a) parity at 17, 18, 35 and 64 words
+# per plane (family, d, chains: ragged warps at every lane count); (b) one
+# launch of each timed against its bound and the plain version; (c)
+# decodes through the entry points.  STDC runs 4 droplets x 450 steps
+# (recovery printed: too few samples for these sizes) and then
+# WIDE_STDC_BUDGET, which carries the bar
+WIDE_PARITY = [("toric", 23, 37), ("rotated", 33, 40), ("toric", 33, 33),
+               ("toric", 45, 35)]
+WIDE_TIMED = dict(family="toric", d=45, R=16384, n_sweeps=10)
+WIDE_STDC = [dict(family="toric", d=25, p=0.05, p_sampling=0.15, B=256),
+             dict(family="rotated", d=45, p=0.05, p_sampling=0.15, B=128)]
+WIDE_STDC_FIRST = dict(droplets=4, steps=450)
+WIDE_STDC_BUDGET = dict(droplets=10, steps=1500)
+WIDE_MIN_RECOVERED = 0.98
+WIDE_PTEQ = dict(family="toric", d=23, p=0.05, B=16, max_steps=1200)
+WIDE_PTDC = dict(family="toric", d=23, p=0.05, B=16, droplets=1, steps=23 * 20)
 # the golden-corpus studies on the card (phase 26): 256 toric d=5
 # syndromes drawn at p=0.15 (not the DRL failure set, which is not in the
 # repository), through studies.golden_replay.run (PTEQ at its production
@@ -372,24 +402,9 @@ GOLDEN = dict(d=5, p=0.15, n=256, seed=2033, cap=32000)
 PORT_BYTES_PER_SAMPLE = 28
 
 # The least time the card could take (the larger of the bytes over the
-# memory rate and the operations over their issue rate).  H100 SXM HBM3
-# rate (NVIDIA's data sheet); per-SM issue rates per clock for compute
-# capability 9.0 (CUDA C++ Programming Guide, throughput of native
-# arithmetic instructions): population count 16, 32-bit integer multiply
-# 64.  A 64-bit popcount is two 32-bit POPC instructions in the SASS, and
-# Philox4x32-10 is 10 rounds of two mul.hi and two mul.lo (40 IMAD) per
-# block of four draws.  The precise logf of a proposal that may be rejected
-# depends on the data and is not counted, so the bound is a lower bound.
-# Both kernels' proposals popcount only the words the stabilizer's support
-# spans, two with equal betas and four with general betas
-# (``_popc_per_sweep``); the recording sampler adds three per word of the
-# plane and step for the counts and two multiplies per qubit and step for
-# the hash (``sampler_bound``).
-HBM_BYTES_PER_S = 3.35e12
-POPC_PER_CLK_SM = 16
-IMAD_PER_CLK_SM = 64
-POPC_PER_64BIT = 2
-IMAD_PER_PHILOX = 40
+# memory rate and the operations over their issue rate): the work counts
+# and rates are mcmc_qec_tpu_torch/utils/roofline.py's; this script reads
+# the card's SM count and clock (``_card_rates``).
 
 
 class PhaseFailed(Exception):
@@ -415,8 +430,8 @@ def phase_device() -> str:
     return card
 
 
-def phase_build() -> None:
-    """One nvcc per source, all started together."""
+def phase_build():
+    """One nvcc per source, all started together; returns {name: Built}."""
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         built = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     for name, b in built.items():
@@ -424,6 +439,7 @@ def phase_build() -> None:
         print(f"phase 2 build: {name}.cu {how} | {' | '.join(ptxas_summary(b.log))}",
               flush=True)
         _build.load(name)
+    return built
 
 
 def ptxas_summary(log: str):
@@ -459,35 +475,11 @@ def _card_rates():
 
 def bound_ms(n_bytes: float, popc64: float, philox_blocks: float,
              imad: float = 0.0):
-    """(least ms, "bytes" or "operations") for work that moves ``n_bytes``
-    and issues ``popc64`` 64-bit popcounts, ``philox_blocks`` Philox blocks
-    and ``imad`` other 32-bit multiplies, from the rates above and this
+    """(least ms, "bytes" or "operations") of ``roofline.bound_ms`` at this
     card's SM count and clock."""
     n_sm, clock = _card_rates()
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = max(popc64 * POPC_PER_64BIT / (POPC_PER_CLK_SM * n_sm * clock),
-                (philox_blocks * IMAD_PER_PHILOX + imad)
-                / (IMAD_PER_CLK_SM * n_sm * clock))
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def _philox_blocks_per_sweep(spec) -> int:
-    """Philox blocks one chain draws in one sweep (one per four stabilizers
-    of each color)."""
-    return sum(-(-sel.shape[0] // 4) for sel, _, _ in _color_tables(spec))
-
-
-def _popc_per_sweep(spec, equal_betas: bool) -> int:
-    """64-bit popcounts the kernels' sweep of one chain needs: per
-    stabilizer and word its support spans (summed from the kernel's
-    spanned-word table), two with equal betas (the error count on the
-    support before and after) and four with general betas (the overlaps of
-    the op's X and Z parts with the planes, and the Y count before and
-    after)."""
-    _, meta, offs = kernel_tables(spec)
-    words = sum(len(lw.unpack_span(int(v))[0])
-                for v in meta[offs["m_span"]: offs["m_span"] + spec.n_stabs])
-    return (2 if equal_betas else 4) * words
+    return roofline.bound_ms(n_bytes, popc64, philox_blocks, imad, n_sm=n_sm,
+                             clock_hz=clock)
 
 
 def launch_line(spec, B, Nc, equal_betas) -> str:
@@ -743,9 +735,9 @@ def time_production_window(spec, B, Nc, p, seed):
     W, iters = PROD["window"], PROD["iters"]
     proposals = B * Nc * W * iters * spec.n_stabs
     _, _, n_xblocks = _rng_layout(spec, Nc, iters)
-    blocks = (B * Nc * W * iters * _philox_blocks_per_sweep(spec)
+    blocks = (B * Nc * W * iters * philox_blocks_per_sweep(spec)
               + B * W * 3 * n_xblocks)
-    popc = B * Nc * W * iters * _popc_per_sweep(spec, True)
+    popc = B * Nc * W * iters * popc_per_sweep(spec, True)
     bound, bound_by = bound_ms(
         _nbytes(ls.state, ls.flag, ls.tops0, eq, sb, betas, *kern_out),
         popc, blocks)
@@ -1036,16 +1028,11 @@ def sampler_launch_line(spec, R, equal_betas) -> str:
 
 
 def sampler_bound(spec, R, steps, iters, equal_betas, n_bytes):
-    """(least ms, bound_by) of the recording sampler: ``bound_ms`` of the
-    bytes moved (states in and out, seeds, the stream written), the
-    popcounts (per proposal two per spanned word with equal betas, four
-    with general betas; three per word of the plane per step for the
-    counts), the Philox blocks and the hash's two multiplies per qubit and
-    step."""
-    nw = kernel_words(spec.nq)
-    popc = R * steps * (iters * _popc_per_sweep(spec, equal_betas) + 3 * nw)
-    blocks = R * steps * iters * _philox_blocks_per_sweep(spec)
-    return bound_ms(n_bytes, popc, blocks, imad=R * steps * 2 * spec.nq)
+    """(least ms, bound_by) of the recording sampler
+    (``roofline.sampler_bound``) at this card's SM count and clock."""
+    n_sm, clock = _card_rates()
+    return roofline.sampler_bound(spec, R, steps, iters, equal_betas, n_bytes,
+                                  n_sm=n_sm, clock_hz=clock)
 
 
 def phase_sweep_timing():
@@ -1075,8 +1062,8 @@ def phase_sweep_timing():
         err = float((out.int() - plain_out[0].int()).abs().max())
         bound, bound_by = bound_ms(
             _nbytes(states, out, b),
-            R * n_sweeps * _popc_per_sweep(spec, True),
-            R * n_sweeps * _philox_blocks_per_sweep(spec))
+            R * n_sweeps * popc_per_sweep(spec, True),
+            R * n_sweeps * philox_blocks_per_sweep(spec))
         res[n_sweeps] = dict(ms=ms, plain_ms=plain_ms, err=err,
                              bound_ms=bound, bound_by=bound_by)
     print("phase 10 sweep kernel, toric d=5, 65,536 chains, equal betas: "
@@ -1350,9 +1337,9 @@ def phase_general_timing():
     nw = kernel_words(spec.nq)
     proposals = B * Nc * W * iters * spec.n_stabs
     _, _, n_xblocks = _rng_layout(spec, Nc, iters)
-    blocks = (B * Nc * W * iters * _philox_blocks_per_sweep(spec)
+    blocks = (B * Nc * W * iters * philox_blocks_per_sweep(spec)
               + B * W * (_N_EXTRA_USES - 1) * n_xblocks)
-    popc = B * Nc * W * iters * _popc_per_sweep(spec, False)
+    popc = B * Nc * W * iters * popc_per_sweep(spec, False)
     n_bytes = _nbytes(*args[:5], betas, *kern_out)
     bound, bound_by = bound_ms(n_bytes, popc, blocks)
     # the count before the kernel took only spanned words: 6 popcounts on
@@ -2541,10 +2528,15 @@ def _k2_name(spec, equal_betas):
 
 
 def _k1_name(spec, equal_betas, record):
+    """K1's instantiation for ``spec``: ``<words, spanned words, EQ, REC>``
+    of the register kernel, or the large variant's ``wide<spanned words,
+    EQ, REC>`` with the code's word count."""
     offs = kernel_tables(spec)[2]
-    return (f"<{offs['nw']}, {offs['span']}, "
-            f"{'true' if equal_betas else 'false'}, "
-            f"{'true' if record else 'false'}>")
+    flags = (f"{'true' if equal_betas else 'false'}, "
+             f"{'true' if record else 'false'}>")
+    if lw.is_wide(spec):
+        return f"wide<{offs['span']}, {flags} at {offs['nw']} words"
+    return f"<{offs['nw']}, {offs['span']}, {flags}"
 
 
 def _study_cell(main, argv):
@@ -2743,9 +2735,9 @@ def time_window(spec, states, Nc, ladder, weights, equal_betas, W, seed):
     err = compare_outputs(f"{spec.family} d={spec.size} B={B} W={W}",
                           kern_out, plain_out[0], W, both_swaps=False)
     _, _, n_xblocks = _rng_layout(spec, Nc, iters)
-    blocks = (B * Nc * W * iters * _philox_blocks_per_sweep(spec)
+    blocks = (B * Nc * W * iters * philox_blocks_per_sweep(spec)
               + B * W * (_N_EXTRA_USES - 1) * n_xblocks)
-    popc = B * Nc * W * iters * _popc_per_sweep(spec, equal_betas)
+    popc = B * Nc * W * iters * popc_per_sweep(spec, equal_betas)
     bound, bound_by = bound_ms(_nbytes(*args[:5], betas, *kern_out), popc,
                                blocks)
     return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
@@ -2967,8 +2959,8 @@ def phase_large_codes():
     n_bad = int((kern != plain_out[0]).sum())
     check(n_bad == 0, f"xzzx d=31 ladder sweep differs in {n_bad} entries")
     bound, bound_by = bound_ms(
-        _nbytes(st, b, kern), Rc * PROD["iters"] * _popc_per_sweep(spec, False),
-        Rc * PROD["iters"] * _philox_blocks_per_sweep(spec))
+        _nbytes(st, b, kern), Rc * PROD["iters"] * popc_per_sweep(spec, False),
+        Rc * PROD["iters"] * philox_blocks_per_sweep(spec))
     name = _k1_name(spec, False, False)
     lines.append(
         f"PTEQ_alpha {m['family']} d={m['d']} Nc={m['d']} B={m['B']} "
@@ -2981,6 +2973,251 @@ def phase_large_codes():
                         bound_by=bound_by, name="sweep_per_chain_xzzx_d31",
                         instantiation=name, launches=k1, source="sweep.cu"))
     print("phase 25 (c) large codes through the entry points: "
+          + "; ".join(lines), flush=True)
+    check(not fails, "; ".join(fails))
+    for e in entries:
+        e["err"] = max(e["err"], worst)
+    return entries
+
+
+class _lanes_per_chain:
+    """Run K1 at ``L`` lanes per chain (at least the plan's fewest): the
+    plan's choice from the batch is replaced while the block runs (parity
+    at every lane count only)."""
+
+    def __init__(self, L):
+        self.L = L
+
+    def __enter__(self):
+        self.saved = sw.lanes_per_chain
+        sw.lanes_per_chain = lambda offs, B, n_sm: self.L
+
+    def __exit__(self, *exc):
+        sw.lanes_per_chain = self.saved
+
+
+def compare_wide(family, d, B, seed):
+    """The large variant against its plain versions on the card at every
+    lane count the plan allows: ``make_sweep`` (3 sweeps) at equal betas, at
+    general betas and at a row of random betas per chain, and
+    ``make_recording_sweep`` (5 steps of 2 sweeps) in the same three forms;
+    every state, key and count equal.  Returns (cases, lane counts, largest
+    absolute difference)."""
+    spec = get_spec(family, d)
+    check(lw.is_wide(spec), f"{family} d={d} is not above 16 words")
+    states = _random_states(spec, B, seed)
+    rng = np.random.RandomState(seed)
+    forms = [("equal", True, torch.full((3,), 0.9, device="cuda")),
+             ("general", False, torch.as_tensor(betas_xyz(0.05, 0.02, 0.1),
+                                                dtype=torch.float32, device="cuda")),
+             ("per-chain", False, torch.as_tensor(rng.uniform(0.1, 3.0, (B, 3)),
+                                                  dtype=torch.float32, device="cuda"))]
+    seeds = torch.randint(0, 2**62, (5,), generator=torch.Generator().manual_seed(seed))
+    worst, n, lanes = 0.0, 0, []
+    for L in (1, 2, 4, 8, 16, 32):
+        if L < max(sw.least_lanes(spec, False), sw.least_lanes(spec, True)):
+            continue
+        lanes.append(L)
+        for form, eq, b in forms:
+            tag = f"wide {family} d={d} B={B} L={L} {form}"
+            with _lanes_per_chain(L):
+                kern = make_sweep(spec, 3, eq)(states, seed, b)
+                rec = make_recording_sweep(spec, 5, 2, eq)(states, seeds, b)
+            plain = sweep_reference(spec, states, seed, b, 3, eq)
+            torch.cuda.synchronize()
+            n_bad = int((kern != plain).sum())
+            check(n_bad == 0, f"{tag}: sweep differs from plain in {n_bad} entries")
+            check(not torch.equal(kern, states), f"{tag}: the chains never moved")
+            worst = max(worst, float((kern.int() - plain.int()).abs().max()),
+                        compare_outputs_equal(tag, rec, sample_reference(
+                            spec, states, seeds, b, 2, eq), states))
+            n += 2
+    return n, lanes, worst
+
+
+def _wide_sampler_launch(spec, R, steps, equal_betas, seed):
+    """One recording launch of the large variant at R chains (the decode's
+    sampler shape), timed against the plain sampler on the same inputs:
+    outputs equal; (ms, plain ms, err, bound, bound_by)."""
+    states = _random_states(spec, R, seed)
+    b = (torch.full((3,), 1.7, device="cuda") if equal_betas
+         else _chain_rows(R, spec.size, 0.05, seed))
+    seeds = torch.randint(0, 2**31 - 1, (steps,),
+                          generator=torch.Generator().manual_seed(seed))
+    rec = make_recording_sweep(spec, steps, 1, equal_betas)
+    kern = rec(states, seeds, b)  # warm-up, kept for the comparison
+    ms = _time_ms(lambda: rec(states, seeds, b), 3)
+    plain_out = []
+    plain_ms = _time_ms(lambda: plain_out.append(sample_reference(
+        spec, states, seeds, b, 1, equal_betas)), 1)
+    err = compare_outputs_equal(f"wide sampler {spec.family} d={spec.size} R={R}",
+                                kern, plain_out[0], states)
+    bound, bound_by = sampler_bound(spec, R, steps, 1, equal_betas,
+                                    _nbytes(states, seeds, b, *kern))
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
+                bound_by=bound_by)
+
+
+def _wide_sweep_launch(spec, R, n_sweeps, betas, equal_betas, seed, reps):
+    """One ``make_sweep`` launch of the large variant at R chains timed
+    against the plain sweep: states equal; (ms, plain ms, err, bound,
+    bound_by)."""
+    states = _random_states(spec, R, seed)
+    fn = make_sweep(spec, n_sweeps, equal_betas)
+    kern = fn(states, seed, betas)  # warm-up, kept for the comparison
+    ms = _time_ms(lambda: fn(states, seed, betas), reps)
+    plain_out = []
+    plain_ms = _time_ms(lambda: plain_out.append(sweep_reference(
+        spec, states, seed, betas, n_sweeps, equal_betas)), 1)
+    n_bad = int((kern != plain_out[0]).sum())
+    check(n_bad == 0, f"wide sweep {spec.family} d={spec.size} R={R} differs "
+                      f"from plain in {n_bad} entries")
+    bound, bound_by = bound_ms(
+        _nbytes(states, kern, betas),
+        R * n_sweeps * popc_per_sweep(spec, equal_betas),
+        R * n_sweeps * philox_blocks_per_sweep(spec))
+    return dict(ms=ms, plain_ms=plain_ms, err=0.0, bound_ms=bound,
+                bound_by=bound_by)
+
+
+def phase_codes_above_1024(built):
+    """Codes above 1024 qubits on the card (WIDE_* above), through the sweep
+    kernel's large variant: (a) parity at 17 to 64 words at every lane
+    count; (b) its registers and spills from the build, one sweep launch at
+    toric d=45 against its bound; (c) STDC at toric d=25 and rotated d=45,
+    PTEQ at toric d=23 on the unfused window and PTDC at toric d=23, only
+    K1 launching, each with its launch timed against the bound and the
+    plain version.  Returns the kernels line's entries."""
+    cases, worst, parts = 0, 0.0, []
+    for i, (family, d, B) in enumerate(WIDE_PARITY):
+        n, lanes, err = compare_wide(family, d, B, seed=900 + i)
+        cases, worst = cases + n, max(worst, err)
+        offs = kernel_tables(get_spec(family, d))[2]
+        parts.append(f"{family} d={d} ({offs['nw']} words, span {offs['span']}) "
+                     f"B={B} at L={lanes}")
+    print(f"phase 27 (a) large variant vs plain: {cases} cases ("
+          + "; ".join(parts) + "; sweeps and recording sampler, equal, general "
+          f"and per-chain betas): all states, keys and counts equal, max abs "
+          f"err {worst}", flush=True)
+
+    regs = [ln for ln in ptxas_summary(built["sweep"].log) if "wide" in ln]
+    m = WIDE_TIMED
+    spec = get_spec(m["family"], m["d"])
+    b = torch.full((3,), 0.9, device="cuda")
+    t = _wide_sweep_launch(spec, m["R"], m["n_sweeps"], b, True, 910, 5)
+    plan, resident = sw.launch_plan(spec, m["R"], False, True)
+    print(f"phase 27 (b) large variant build: {' | '.join(regs) or 'reused build'}; "
+          f"{m['n_sweeps']} sweeps of {m['R']} chains at {m['family']} d={m['d']} "
+          f"({_k1_name(spec, True, False)}): kernel {t['ms']:.3f} ms, plain "
+          f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}; {roofline.spanned_word_count(spec)} spanned words "
+          f"a sweep), {t['bound_ms'] / t['ms']:.1%} of the bound; launch L="
+          f"{plan.lanes}, {plan.chains_per_warp} chains per warp, {resident} "
+          f"blocks per SM, {plan.smem} B shared memory, multipliers in "
+          f"{'shared' if plan.mults_in_smem else 'device'} memory", flush=True)
+
+    lines, fails, entries = [], [], []
+
+    def kernels_only(tag, k2, k2p, k1, k1p):
+        if k2 or k2p or k1p:
+            fails.append(f"{tag}: K2 {k2} launches, plain calls K2 {k2p}, K1 {k1p}")
+        if not k1:
+            fails.append(f"{tag}: K1 never launched")
+
+    for i, m in enumerate(WIDE_STDC):
+        spec = get_spec(m["family"], m["d"])
+        gen = torch.Generator(device="cuda").manual_seed(2050 + i)
+        states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
+        truth = np_eq_class(spec, states.cpu().numpy())
+        tag = f"STDC {m['family']} d={m['d']}"
+        recs = []
+        for budget in (WIDE_STDC_FIRST, WIDE_STDC_BUDGET):
+            distr, dt, k2, k2p, k1, k1p = _decode_counts(lambda: STDC(
+                spec, states, m["p"], m["p_sampling"], engine="auto",
+                device="cuda", **budget))
+            kernels_only(tag, k2, k2p, k1, k1p)
+            recs.append((float(np.mean(distr.argmax(-1) == truth)), dt, k1))
+        rec, dt, k1 = recs[-1]
+        if rec < WIDE_MIN_RECOVERED:
+            fails.append(f"{tag}: recovered {rec:.4f} < {WIDE_MIN_RECOVERED}")
+        dr, steps = WIDE_STDC_BUDGET["droplets"], WIDE_STDC_BUDGET["steps"]
+        R = m["B"] * spec.n_classes * dr
+        if should_stream("auto", m["B"] * spec.n_classes, dr, steps):
+            steps = _pick_stream_window(dr, steps)  # one window's launch
+        steps //= 10  # the plain sampler takes seconds a hundred steps
+        t = _wide_sampler_launch(spec, R, steps, True, 2060 + i)
+        name = _k1_name(spec, True, True)
+        lines.append(
+            f"{tag} p={m['p']} p_sampling={m['p_sampling']} B={m['B']}: at "
+            f"{WIDE_STDC_FIRST['droplets']} droplets x {WIDE_STDC_FIRST['steps']} "
+            f"steps recovered {recs[0][0]:.4f} ({recs[0][1]:.2f} s, K1 "
+            f"{recs[0][2]} launch(es)); at {WIDE_STDC_BUDGET['droplets']} x "
+            f"{WIDE_STDC_BUDGET['steps']} recovered {rec:.4f} (bar "
+            f"{WIDE_MIN_RECOVERED}), {m['B'] / dt:.1f} syn/s ({dt:.2f} s), K1 "
+            f"{name} {k1} launch(es), K2 0, plain 0; one sampler launch at {R} "
+            f"chains x {steps} steps: kernel {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}); launch {sampler_launch_line(spec, R, True)}")
+        entries.append(dict(t, name=f"sweep_sampler_wide_{m['family']}_d{m['d']}",
+                            instantiation=name, launches=k1, source="sweep.cu"))
+
+    # PTEQ on the unfused window: K2 holds no code above 16 words
+    m = WIDE_PTEQ
+    spec = get_spec(m["family"], m["d"])
+    check(not lw.window_kernel_fits(spec, m["d"], True, PROD["iters"]),
+          f"K2 holds {m['family']} d={m['d']}")
+    gen = torch.Generator(device="cuda").manual_seed(2070)
+    states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
+    cfg = PTEQConfig(max_steps=m["max_steps"], **PROD)
+    res, dt, k2, k2p, k1, k1p = _decode_counts(lambda: PTEQ(
+        spec, states, m["p"], cfg, seed=1, device="cuda"))
+    tag = f"PTEQ {m['family']} d={m['d']}"
+    kernels_only(tag, k2, k2p, k1, k1p)
+    ladder_steps = -(-int(res.steps.max()) // PROD["window"]) * PROD["window"]
+    if res.window != "sweep" or k1 != ladder_steps:
+        fails.append(f"{tag}: window {res.window}, {k1} K1 launches in "
+                     f"{ladder_steps} ladder steps")
+    Rc = m["B"] * m["d"]
+    b = _chain_rows(Rc, m["d"], m["p"], 2071)
+    t = _wide_sweep_launch(spec, Rc, PROD["iters"], b, False, 2071, 20)
+    name = _k1_name(spec, False, False)
+    lines.append(
+        f"{tag} Nc={m['d']} p={m['p']} B={m['B']} max_steps={m['max_steps']} "
+        f"(window {res.window}): {dt:.2f} s, K1 {name} {k1} launches in "
+        f"{ladder_steps} ladder steps, K2 {k2}, plain 0; converged "
+        f"{res.converged.mean():.4f}; one ladder step's sweeps at {Rc} chains: "
+        f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.1f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    entries.append(dict(t, name="sweep_per_chain_wide_toric_d23",
+                        instantiation=name, launches=k1, source="sweep.cu"))
+
+    # PTDC: one recording launch a ladder step
+    m = WIDE_PTDC
+    spec = get_spec(m["family"], m["d"])
+    gen = torch.Generator(device="cuda").manual_seed(2080)
+    states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
+    truth = np_eq_class(spec, states.cpu().numpy())
+    distr, dt, k2, k2p, k1, k1p = _decode_counts(lambda: PTDC(
+        spec, states, m["p"], droplets=m["droplets"], steps=m["steps"],
+        device="cuda"))
+    tag = f"PTDC {m['family']} d={m['d']}"
+    kernels_only(tag, k2, k2p, k1, k1p)
+    ladder_steps = m["steps"] // m["d"]
+    if k1 != ladder_steps:
+        fails.append(f"{tag}: {k1} K1 launches in {ladder_steps} ladder steps")
+    R = m["B"] * spec.n_classes * m["droplets"] * m["d"]
+    t = _wide_sampler_launch(spec, R, 1, False, 2081)
+    name = _k1_name(spec, False, True)
+    lines.append(
+        f"{tag} Nc={m['d']} p={m['p']} B={m['B']} droplets={m['droplets']} "
+        f"steps={m['steps']}: {dt:.2f} s, K1 {name} {k1} launches in "
+        f"{ladder_steps} ladder steps, K2 {k2}, plain 0; recovered "
+        f"{float(np.mean(distr.argmax(-1) == truth)):.4f}; one ladder-step "
+        f"launch at {R} chains: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    entries.append(dict(t, name="sweep_ladder_step_wide_toric_d23",
+                        instantiation=name, launches=k1, source="sweep.cu"))
+    print("phase 27 (c) codes above 1024 qubits through the entry points: "
           + "; ".join(lines), flush=True)
     check(not fails, "; ".join(fails))
     for e in entries:
@@ -3038,7 +3275,7 @@ def main() -> int:
     try:
         phase_device()
         phase = "build"
-        phase_build()
+        built = phase_build()
         phase = "window kernel vs plain"
         max_err = phase_parity()
         phase = "PTEQ main path"
@@ -3087,6 +3324,8 @@ def main() -> int:
         large = phase_large_codes()
         phase = "golden studies on the card"
         phase_golden()
+        phase = "codes above 1024 qubits on the card"
+        wide = phase_codes_above_1024(built)
     except PhaseFailed as e:
         print(f"FAILED phase {phase}: {e}", flush=True)
         return 1
@@ -3198,7 +3437,7 @@ def main() -> int:
         "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"],
         "library_ms": None,
-    } for e in large]}))
+    } for e in large + wide]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

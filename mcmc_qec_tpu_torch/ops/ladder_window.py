@@ -61,10 +61,15 @@ from ..models.base import CodeSpec
 from .dense_sweep import _color_tables
 from .philox import MASK32, philox4x32
 
-# 64-bit words per bit plane of the kernels' tables (a code's word count is
-# rounded up to the next; the extra words stay zero).  16 words (nq <= 1024)
-# is the most: the spanned-word table packs a word index in 4 bits
+# 64-bit words per bit plane of the kernels' register instantiations (a
+# code's word count is rounded up to the next; the extra words stay zero).
+# 16 words (nq <= 1024) is the most, and the narrow spanned-word entry packs
+# a word index in 4 bits.  Above 16 words the tables hold the code's exact
+# word count and a wide entry, 8 bits a word index, which only the sweep
+# kernel's large variant reads (ops/sweep.py::MAX_WORDS)
 KERNEL_WORDS = (1, 2, 3, 4, 6, 8, 12, 16)
+# most words per plane an 8-bit word index of the wide entry names
+WIDE_WORDS = 256
 # (words per plane, spanned-word entries per stabilizer) both kernels are
 # instantiated for (csrc/ladder_window.cu::dispatch, csrc/sweep.cu::dispatch):
 # a stabilizer spanning 3 words is padded to 4 entries.  Rotated and XZZX
@@ -503,16 +508,18 @@ class _Buffers(ctypes.Structure):
 
 
 def kernel_words(nq: int) -> int:
-    """64-bit words per bit plane of the kernel instantiation for ``nq``."""
+    """64-bit words per bit plane of the kernels' tables for ``nq``: the
+    register instantiation's (the next of KERNEL_WORDS) up to 16 words,
+    the exact count above."""
     need = -(-nq // 64)
-    for nw in KERNEL_WORDS:
-        if nw >= need:
-            return nw
-    raise ValueError(
-        f"nq={nq} needs {need} words per plane; the kernels are built for at "
-        f"most {KERNEL_WORDS[-1]} (nq <= {64 * KERNEL_WORDS[-1]}); the plain "
-        f"versions on the CPU take any size"
-    )
+    return next((nw for nw in KERNEL_WORDS if nw >= need), need)
+
+
+def is_wide(spec: CodeSpec) -> bool:
+    """Whether ``spec`` needs more than KERNEL_WORDS[-1] words per plane:
+    the wide spanned-word entries, and of the kernels only the sweep
+    kernel's large variant."""
+    return -(-spec.nq // 64) > KERNEL_WORDS[-1]
 
 
 def _words(mask: np.ndarray, nw: int) -> np.ndarray:
@@ -529,21 +536,38 @@ def _xz(m: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return (m & 1) ^ ((m >> 1) & 1), (m >> 1) & 1
 
 
-def _pack_span(words, cx: int, cz: int) -> int:
-    """A stabilizer's entry in the spanned-word table: the count of words
-    its support spans (bits 0-3), the qubits its op flips in the X plane
-    (bits 4-7) and in the Z plane (bits 8-11), and the word indices (4
-    bits each from bit 12)."""
+def _pack_span(words, cx: int, cz: int, nw: int) -> Tuple[int, int]:
+    """A stabilizer's entries in the spanned-word table of a code of ``nw``
+    words per plane: (narrow, wide).  The narrow entry holds the count of
+    words its support spans (bits 0-3), the qubits its op flips in the X
+    plane (bits 4-7) and in the Z plane (bits 8-11) and, up to 16 words
+    per plane, the word indices, 4 bits each from bit 12 (0 there above
+    16 words); both kernels' register instantiations read it.  The wide
+    entry holds the word indices, 8 bits each, for the sweep kernel's large
+    variant (above 16 words), which reads bits 0-11 of the narrow entry
+    beside it."""
+    if max(words, default=0) >= WIDE_WORDS:
+        raise ValueError(f"word index {max(words)}: the wide entry holds "
+                         f"indices below {WIDE_WORDS}")
     v = len(words) | (cx << 4) | (cz << 8)
+    wide = 0
     for m, w in enumerate(words):
-        v |= w << (12 + 4 * m)
-    return v
+        if nw <= KERNEL_WORDS[-1]:
+            v |= w << (12 + 4 * m)
+        wide |= w << (8 * m)
+    return v, wide
 
 
-def unpack_span(v: int):
-    """(word indices, cx, cz) of a packed spanned-word entry."""
+def unpack_span(v: int, wide: int | None = None):
+    """(word indices, cx, cz) of a narrow spanned-word entry ``v``, the
+    indices read from the wide entry ``wide`` where it is given (codes
+    above 16 words per plane, whose narrow entry holds none)."""
     n = v & 15
-    return [(v >> (12 + 4 * m)) & 15 for m in range(n)], (v >> 4) & 15, (v >> 8) & 15
+    if wide is None:
+        words = [(v >> (12 + 4 * m)) & 15 for m in range(n)]
+    else:
+        words = [(wide >> (8 * m)) & 255 for m in range(n)]
+    return words, (v >> 4) & 15, (v >> 8) & 15
 
 
 @functools.lru_cache(maxsize=None)
@@ -557,8 +581,10 @@ def kernel_tables(spec: CodeSpec):
     triples each (zero-padded).  Meta: color starts, draw starts, op LUT,
     per stabilizer its packed spanned words (``unpack_span``), per color
     its first Philox block of a sweep use's draws (one block per four
-    stabilizers), per such block its color, and bits_to_eq last.  The
-    window kernel reads the table from ``off_draw`` on."""
+    stabilizers), per such block its color, bits_to_eq, and above 16 words
+    per plane (``m_wide``; None below) per stabilizer its wide entry.  The
+    window kernel reads the table from ``off_draw`` on; it takes codes up
+    to 16 words per plane only (``kernel_shape``)."""
     nq = spec.nq
     nw = kernel_words(nq)
     tab, meta = [], []
@@ -589,8 +615,7 @@ def kernel_tables(spec: CodeSpec):
     for coef in key_coefficients(nq):
         tab += [_words((coef >> k) & 1, nw) for k in range(_KEY_BITS)]
     off_span = len(tab) * nw
-    span = max(len(s) for s, _, _ in spans)
-    span += span == 3  # the kernel's entry counts are 1, 2 and 4
+    span = spanned_words(spec)
     for s, _, _ in spans:
         ent = np.zeros(3 * span, np.uint64)
         for m, (_, su, xs, zs) in enumerate(s):
@@ -603,7 +628,8 @@ def kernel_tables(spec: CodeSpec):
     for d in spec.logical_draws:
         meta += [int(v) for v in np.asarray(d.op_lut).reshape(-1)]
     m_span = len(meta)
-    meta += [_pack_span([w for w, *_ in s], cx, cz) for s, cx, cz in spans]
+    packed = [_pack_span([w for w, *_ in s], cx, cz, nw) for s, cx, cz in spans]
+    meta += [v for v, _ in packed]
     m_blk = len(meta)
     blk = np.concatenate([[0], np.cumsum(-(-n_per_color // 4))])
     meta += [int(v) for v in blk]
@@ -611,37 +637,63 @@ def kernel_tables(spec: CodeSpec):
     meta += [c for c, n in enumerate(np.diff(blk)) for _ in range(n)]
     m_b2e = len(meta)
     meta += [int(v) for v in spec.bits_to_eq]
+    m_wide = None
+    if is_wide(spec):
+        m_wide = len(meta)
+        meta += [w for _, w in packed]
     tab_np = np.concatenate(tab).view(np.int64)
-    meta_np = np.asarray(meta, np.int32)
+    # a wide entry of four 8-bit indices may pass 2**31: its int32 bit pattern
+    meta_np = np.asarray(meta, np.int64).astype(np.uint32).view(np.int32)
     offs = dict(n_tab=len(tab_np), n_meta=len(meta_np), off_draw=off_draw,
                 off_class=off_class, off_key=off_key, off_span=off_span,
                 span=span, m_draw=m_draw, m_lut=m_lut, m_span=m_span,
                 m_blk=m_blk, m_bcol=m_bcol, n_blk=int(blk[-1]), m_b2e=m_b2e,
+                m_wide=m_wide,
                 n_colors=len(color_start) - 1, w_max=int(n_per_color.max()),
                 nw=nw)
     return tab_np, meta_np, offs
 
 
 def has_kernel_shape(spec: CodeSpec) -> bool:
-    """Whether both kernels are instantiated for ``spec``: at most
+    """Whether both kernels' register instantiations take ``spec``: at most
     KERNEL_WORDS[-1] words per plane, and its (words per plane, spanned
-    words per stabilizer) in KERNEL_SHAPES."""
-    if -(-spec.nq // 64) > KERNEL_WORDS[-1]:
+    words per stabilizer) in KERNEL_SHAPES.  The window kernel has no other
+    form; the sweep kernel's large variant takes larger codes
+    (ops/sweep.py::sweep_kernel_fits)."""
+    if is_wide(spec):
         return False
-    offs = kernel_tables(spec)[2]
-    return (offs["nw"], offs["span"]) in KERNEL_SHAPES
+    return (kernel_words(spec.nq), spanned_words(spec)) in KERNEL_SHAPES
 
 
 def kernel_shape(spec: CodeSpec) -> Tuple[int, int]:
-    """(words per plane, spanned-word entries per stabilizer) of the kernels'
-    instantiation for ``spec``; a ``ValueError`` where none is built.  The
-    CUDA branches of both wrappers call it before any work."""
-    offs = kernel_tables(spec)[2]  # raises above KERNEL_WORDS[-1] words
-    shape = (offs["nw"], offs["span"])
+    """(words per plane, spanned-word entries per stabilizer) of the
+    register instantiation for ``spec``; a ``ValueError`` where none is
+    built.  The window kernel's CUDA branch calls it before any work."""
+    if is_wide(spec):
+        raise ValueError(
+            f"nq={spec.nq} needs {kernel_words(spec.nq)} words per plane; the "
+            f"window kernel is built for at most {KERNEL_WORDS[-1]} (nq <= "
+            f"{64 * KERNEL_WORDS[-1]}); its plain version on the CPU takes "
+            f"any size")
+    shape = (kernel_words(spec.nq), spanned_words(spec))
     if shape not in KERNEL_SHAPES:
         raise ValueError(f"no kernel for {shape[0]} words per plane and "
                          f"{shape[1]} spanned words per stabilizer")
     return shape
+
+
+@functools.lru_cache(maxsize=None)
+def spanned_words(spec: CodeSpec) -> int:
+    """Entries per stabilizer of the spanned-word table (``kernel_tables``'
+    ``span``, from the spec alone): the most 64-bit words one stabilizer's
+    support spans, 3 padded to 4 (the kernels take 1, 2 and 4)."""
+    stabs = np.unique(spec.color_stabs[spec.color_stabs < spec.n_stabs])
+    w = np.sort(np.where(spec.stab_ops[stabs] != 0,
+                         spec.stab_qubits[stabs] // 64, -1), axis=1)
+    first = np.ones_like(w, bool)  # the first of each run of one word
+    first[:, 1:] = w[:, 1:] != w[:, :-1]
+    span = int(((w >= 0) & first).sum(1).max())
+    return span + (span == 3)
 
 
 def window_table_words(offs) -> int:

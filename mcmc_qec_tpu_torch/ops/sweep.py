@@ -33,6 +33,16 @@ every chain, as the TPU kernel takes them, or a (B, 3) row per chain: the
 PT ladder's sweep, where each chain runs at its rung's temperature
 (``mcmc/ladder.py``, ``ops/dense_sweep.py``).
 
+Code sizes: up to 16 words per bit plane (nq <= 1024) a register
+instantiation ``sweep_kernel<words, spanned words, equal betas,
+recording>`` holds a chain's planes in registers; above it the large
+variant ``sweep_kernel_wide<spanned words, equal betas, recording>`` takes
+the word count at run time and holds the planes in shared memory, up to
+MAX_WORDS words (nq <= 16384; the wide spanned-word entry names a word in
+8 bits).  ``sweep_kernel_fits`` says from shapes alone whether the card
+takes a code; above the limit the CUDA branches raise a ``ValueError``
+before any work.  The plain versions take any size.
+
 Randomness: the uniform of stabilizer ``j`` of color ``c`` in sweep ``t``
 for chain ``b`` is ``u = (w >> 8) * 2**-24 + 1e-12`` (the compiled TPU
 path's form, pallas_sweep.py:130-134), where ``w`` is word ``j % 4`` of
@@ -59,25 +69,29 @@ import torch
 from ..models.base import CodeSpec
 from .dense_sweep import _color_tables
 from .ladder_window import (
-    KERNEL_WORDS,
     SMEM_LIMIT,
+    WIDE_WORDS,
     KernelCounter,
     _DRAW_BUDGET,
     _check,
     _draw_words,
     _plain_tables,
     _sm_count,
-    kernel_shape,
+    has_kernel_shape,
+    is_wide,
     kernel_tables,
+    kernel_words,
     lanes_per_rung,
+    spanned_words,
 )
 from .pauli import count_errors_xyz, make_hash_mults, pack_key
 from .philox import MASK32
 
-# most 64-bit words per bit plane the kernel is built for (nq <= 1024:
-# toric and planar d=21, rotated and XZZX d=31); a code's count is
-# ``kernel_words(nq)``
-MAX_WORDS = KERNEL_WORDS[-1]
+# most 64-bit words per bit plane the kernel takes (nq <= 16384: toric and
+# planar d=89, rotated and XZZX d=127), in its large variant above
+# KERNEL_WORDS[-1] (nq > 1024: toric and planar d >= 23, rotated and XZZX
+# d >= 33); a code's count is ``kernel_words(nq)``
+MAX_WORDS = WIDE_WORDS
 # threads per block of the kernel (csrc/sweep.cu::kSweepThreads)
 SWEEP_THREADS = 256
 # recording steps a warp stages per chain before it stores them: 16 steps
@@ -221,35 +235,97 @@ class SweepPlan(NamedTuple):
     region_bytes: int  # shared memory of one warp (its rows, or its tiles)
     tab_in_smem: bool  # tables in shared memory (else device memory)
     smem: int  # dynamic shared memory per block, bytes
+    mults_in_smem: bool  # hash multipliers in shared memory (else device)
 
 
-def tile_bytes(tile_steps: int) -> int:
+def tile_bytes(tile_steps: int, wide: bool = False) -> int:
     """Shared memory of one chain's staged tile: per step two 32-bit hashes
-    and the packed counts, each run padded by one word
-    (csrc/sweep.cu::sweep_kernel)."""
-    return 4 * (3 * tile_steps + 2)
+    and the counts (packed in one word, three words in the large variant),
+    each run padded by one word (csrc/sweep.cu)."""
+    return 4 * ((2 + (3 if wide else 1)) * tile_steps + 2)
 
 
-def sweep_smem_bytes(spec: CodeSpec, region_bytes: int, tab_in_smem: bool) -> int:
+def plane_words(spec: CodeSpec) -> int:
+    """64-bit words of one chain's planes in the large variant's shared
+    memory: X then Z, padded by one word so that the chains of a warp start
+    in different banks."""
+    return 2 * kernel_words(spec.nq) + 1
+
+
+def sweep_smem_bytes(spec: CodeSpec, region_bytes: int, tab_in_smem: bool,
+                     mults_in_smem: bool = True) -> int:
     """Dynamic shared memory of one block (csrc/sweep.cu::SweepLayout): the
-    spanned-word table if it sits there, the hash multipliers, the color
-    starts and packed spans, then each warp's region, 16-byte aligned."""
-    offs = kernel_tables(spec)[2]
-    tab = 8 * spec.n_stabs * 3 * offs["span"] if tab_in_smem else 0
-    head = tab + 8 * spec.nq + 4 * (offs["n_colors"] + 1 + spec.n_stabs)
+    spanned-word table if it sits there, the hash multipliers if they do,
+    the color starts and spanned-word entries (narrow, and wide in the
+    large variant), then each warp's region, 16-byte aligned."""
+    n_colors = len(spec.color_stabs)
+    n_ent = 2 if is_wide(spec) else 1
+    tab = 8 * spec.n_stabs * 3 * spanned_words(spec) if tab_in_smem else 0
+    head = (tab + 8 * spec.nq * int(mults_in_smem)
+            + 4 * (n_colors + 1 + n_ent * spec.n_stabs))
     return -(-head // 16) * 16 + region_bytes * (SWEEP_THREADS // 32)
 
 
 def _block_bytes(spec: CodeSpec, record: bool, lanes: int):
-    """(bytes of one warp's region, tables in shared memory, dynamic shared
-    memory of one block) at ``lanes`` lanes per chain (``sweep_plan``)."""
+    """(bytes of one warp's region, tables in shared memory, multipliers in
+    shared memory, dynamic shared memory of one block) at ``lanes`` lanes
+    per chain (``sweep_plan``).  A register instantiation's region holds
+    the warp's rows of u8 state or its tiles, and the multipliers always
+    sit in shared memory; the large variant's holds its chains' planes and
+    tiles, and its multipliers go to shared memory when the block still
+    fits with them."""
     cpw = 32 // lanes
-    region = cpw * spec.nq
-    if record:
-        region = max(region, cpw * tile_bytes(TILE_STEPS))
+    wide = is_wide(spec)
+    if wide:
+        region = cpw * 8 * plane_words(spec) + record * cpw * tile_bytes(
+            TILE_STEPS, True)
+    else:
+        region = cpw * spec.nq
+        if record:
+            region = max(region, cpw * tile_bytes(TILE_STEPS))
     region = -(-region // 16) * 16
-    in_smem = MIN_BLOCKS_PER_SM * sweep_smem_bytes(spec, region, True) <= SMEM_LIMIT
-    return region, in_smem, sweep_smem_bytes(spec, region, in_smem)
+    smem = functools.partial(sweep_smem_bytes, spec, region)
+    # the tables first (beside the multipliers the large variant reads only
+    # while recording), then the large variant's multipliers where they fit
+    mults = record or not wide
+    in_smem = MIN_BLOCKS_PER_SM * smem(True, mults) <= SMEM_LIMIT
+    if wide:
+        mults = record and smem(in_smem, True) <= SMEM_LIMIT
+    return region, in_smem, mults, smem(in_smem, mults)
+
+
+def _instantiated(spec: CodeSpec) -> bool:
+    """Whether the kernel is built for ``spec``'s shape: a register
+    instantiation up to 16 words per plane (``has_kernel_shape``), the large
+    variant up to MAX_WORDS words with 2 or 4 spanned words per
+    stabilizer."""
+    if is_wide(spec):
+        return -(-spec.nq // 64) <= MAX_WORDS and spanned_words(spec) in (2, 4)
+    return has_kernel_shape(spec)
+
+
+def sweep_kernel_fits(spec: CodeSpec, record: bool) -> bool:
+    """Whether the sweep kernel takes ``spec``, from shapes alone, before
+    any build or launch: it is built for the code's shape, and a block of
+    one chain a warp (32 lanes per chain) fits shared memory, so that
+    ``sweep_plan`` finds a launch.  The CUDA branches raise a ``ValueError``
+    before any work where it is False (``_require_kernel``)."""
+    return (_instantiated(spec)
+            and _block_bytes(spec, record, 32)[-1] <= SMEM_LIMIT)
+
+
+def _refusal(spec: CodeSpec) -> ValueError:
+    return ValueError(
+        f"nq={spec.nq}: no launch of the sweep kernel for this code "
+        f"({-(-spec.nq // 64)} words per plane, {spanned_words(spec)} spanned "
+        f"words per stabilizer); the card takes codes up to {MAX_WORDS} words "
+        f"per plane (nq <= {64 * MAX_WORDS}), the plain version on the CPU any "
+        f"size")
+
+
+def _require_kernel(spec: CodeSpec, record: bool) -> None:
+    if not sweep_kernel_fits(spec, record):
+        raise _refusal(spec)
 
 
 @functools.lru_cache(maxsize=None)
@@ -257,9 +333,12 @@ def least_lanes(spec: CodeSpec, record: bool) -> int:
     """Fewest lanes per chain whose block fits 227 KB of shared memory: 1
     up to 841 qubits (rotated and XZZX d=29); toric and planar d=21 (882
     qubits) and rotated and XZZX d=31 (961) take 2, as a warp's 32 rows of
-    u8 state would not fit at 1."""
+    u8 state would not fit at 1.  The large variant takes 1 at toric d=23
+    and rotated d=33, 2 at toric d=45 (32 chains' planes of 1 KB would not
+    fit at 1) and 16 near its limit (toric d=89).  32 where no lane count
+    fits (``sweep_kernel_fits`` is False)."""
     L = 1
-    while _block_bytes(spec, record, L)[2] > SMEM_LIMIT:
+    while L < 32 and _block_bytes(spec, record, L)[-1] > SMEM_LIMIT:
         L *= 2
     return L
 
@@ -267,20 +346,24 @@ def least_lanes(spec: CodeSpec, record: bool) -> int:
 def sweep_plan(spec: CodeSpec, record: bool, lanes: int) -> SweepPlan:
     """The launch of the sweep kernel for ``spec`` at ``lanes`` lanes per
     chain (``lanes_per_chain``, at least ``least_lanes``): 32 / L chains per
-    warp, SWEEP_THREADS threads per block; a warp's shared memory holds its
-    rows of u8 state (at the start and the end) and, while recording, its
-    chains' tiles of TILE_STEPS steps.  The tables go to shared memory when
-    MIN_BLOCKS_PER_SM blocks still fit on an SM beside them (toric d <=
-    13), else the kernel reads them from device memory."""
+    warp, SWEEP_THREADS threads per block.  In a register instantiation a
+    warp's shared memory holds its rows of u8 state (at the start and the
+    end) and, while recording, its chains' tiles of TILE_STEPS steps; in
+    the large variant it holds its chains' planes and tiles.  The tables go
+    to shared memory when MIN_BLOCKS_PER_SM blocks still fit on an SM
+    beside them (toric d <= 13), else the kernel reads them from device
+    memory."""
     L = lanes
     if L & (L - 1) or not 1 <= L <= 32:
         raise ValueError(f"lanes={L}: expected a power of two up to 32")
-    region, in_smem, smem = _block_bytes(spec, record, L)
+    if not _instantiated(spec):
+        raise _refusal(spec)
+    region, in_smem, mults, smem = _block_bytes(spec, record, L)
     if smem > SMEM_LIMIT:
         raise ValueError(f"a block of the sweep kernel needs {smem} B of shared "
                          f"memory ({spec.nq} qubits, {L} lanes per chain)")
     return SweepPlan(L, 32 // L, SWEEP_THREADS // L, TILE_STEPS, region,
-                     in_smem, smem)
+                     in_smem, smem, mults)
 
 
 class _Params(ctypes.Structure):
@@ -291,7 +374,7 @@ class _Params(ctypes.Structure):
         "equal_betas", "record", "lanes", "chains_per_block", "tile_steps",
         "region_bytes", "tab_in_smem", "smem",
     )] + [(n, ctypes.c_uint32) for n in ("key0", "key1")] + [
-        ("beta_stride", ctypes.c_int32)]
+        (n, ctypes.c_int32) for n in ("beta_stride", "mults_in_smem")]
 
 
 class _Buffers(ctypes.Structure):
@@ -328,7 +411,7 @@ def _static_fields(spec: CodeSpec, record: bool, lanes: int):
         n_stabs=spec.n_stabs, record=int(record), lanes=plan.lanes,
         chains_per_block=plan.chains_per_block, tile_steps=plan.tile_steps,
         region_bytes=plan.region_bytes, tab_in_smem=int(plan.tab_in_smem),
-        smem=plan.smem,
+        smem=plan.smem, mults_in_smem=int(plan.mults_in_smem),
     )
 
 
@@ -337,6 +420,7 @@ def _plan_params(spec: CodeSpec, B: int, steps: int, iters: int,
                  per_chain: bool = False):
     """(SweepPlan, ``_Params``) of a launch on a card with ``n_sm`` SMs;
     ``per_chain`` betas are a (B, 3) row per chain."""
+    _require_kernel(spec, record)
     lanes = max(lanes_per_chain(kernel_tables(spec)[2], B, n_sm),
                 least_lanes(spec, record))
     plan, fields = _static_fields(spec, record, lanes)
@@ -363,11 +447,15 @@ def launch_plan(spec: CodeSpec, B: int, record: bool, equal_betas: bool,
 @functools.lru_cache(maxsize=None)
 def _host_tables(spec: CodeSpec):
     """(spanned-word table (n_stabs * span * 3,) int64, meta: color starts
-    then packed spans (int32), hash multipliers (nq, 2) int32 bit
-    patterns) the kernel reads."""
+    then the narrow spanned-word entries and, in the large variant, the
+    wide ones (int32), hash multipliers (nq, 2) int32 bit patterns) the
+    kernel reads."""
     tab, meta, offs = kernel_tables(spec)
     n_c, m = offs["n_colors"], offs["m_span"]
-    meta_k = np.concatenate([meta[: n_c + 1], meta[m: m + spec.n_stabs]])
+    parts = [meta[: n_c + 1], meta[m: m + spec.n_stabs]]
+    if offs["m_wide"] is not None:
+        parts.append(meta[offs["m_wide"]: offs["m_wide"] + spec.n_stabs])
+    meta_k = np.concatenate(parts)
     mults = np.ascontiguousarray(make_hash_mults(spec).T).view(np.int32)
     return tab[offs["off_span"]:], meta_k, mults
 
@@ -383,7 +471,7 @@ def _launch(spec: CodeSpec, states: torch.Tensor, betas, *, steps: int,
     if nq != spec.nq:
         raise ValueError(f"states have {nq} qubits, spec {spec.nq}")
     record = seeds is not None
-    kernel_shape(spec)  # a ValueError for a code without an instantiation
+    _require_kernel(spec, record)  # a ValueError for a code the card cannot take
     _check(states, "states", (B, nq), torch.uint8, device)
     # a host array here would be a blocking copy per call: callers on the
     # hot path pass the betas as a tensor on the device

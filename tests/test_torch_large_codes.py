@@ -15,6 +15,10 @@
     ``PTEQResult.window``; a code the kernel cannot hold (xzzx d=31 at 31
     rungs) falls back on its own; a window whose kernel fails to build or
     launch raises and does not fall back.
+(e) Above 16 words per plane the window kernel's CUDA branch refuses the
+    code before any work, while the sweep kernel's passes its checks and
+    launches its large variant (the launch's params and tables seen
+    through a stand-in library).
 """
 
 import re
@@ -30,6 +34,8 @@ import mcmc_qec_tpu_torch.decoders.pteq as pteq_mod
 import mcmc_qec_tpu_torch.ops.ladder_window as lw
 from mcmc_qec_tpu_torch.decoders import PTEQ, PTEQ_alpha, PTEQConfig
 from mcmc_qec_tpu_torch.models import get_spec, np_eq_class
+
+from test_torch_codes_above_1024 import RecordingLibrary, fake_card
 
 CSRC = Path(lw.__file__).resolve().parent.parent / "csrc"
 # the Motivation's inputs: codes the JAX package decodes and the port
@@ -217,12 +223,11 @@ def test_a_failing_kernel_raises_and_does_not_fall_back(monkeypatch, error):
 
 
 def test_the_card_path_refuses_codes_above_1024_qubits():
-    """Above 16 words per plane (toric and planar d >= 23) both kernels'
-    CUDA branches raise before any work, naming the largest nq; the plain
-    versions still run them (the window above, the sampler in
-    tests/test_torch_sweep_sampler.py)."""
-    import mcmc_qec_tpu_torch.ops.sweep as sw
-
+    """Above 16 words per plane (toric and planar d >= 23) the window
+    kernel's CUDA branch raises before any work, naming the largest nq it
+    takes; its plain version still runs the window.  The sweep kernel takes
+    such codes in its large variant
+    (``test_the_sweep_kernel_takes_codes_above_1024_qubits``)."""
     spec = get_spec("toric", 23)
     state = torch.zeros((1, 3, spec.nq), dtype=torch.uint8)
     with pytest.raises(ValueError, match="nq=1058.*nq <= 1024"):
@@ -230,9 +235,8 @@ def test_the_card_path_refuses_codes_above_1024_qubits():
                    tops_burn=0, energy_chunk=1, top_exact=True,
                    equal_betas=True, exchange="sequential",
                    track_traces=False, fixed=None, device_tables={})
-    with pytest.raises(ValueError, match="nq=1058.*nq <= 1024"):
-        sw._launch(spec, state[:, 0], torch.ones(3), steps=1, iters=1,
-                   equal_betas=True, device_tables={})
+    assert not lw.has_kernel_shape(spec)
+    assert not lw.window_kernel_fits(spec, 3, True, 1)
     out = lw.make_ladder_window(spec, 3, 4, 1, 0.5, 0, 4, top_exact=True,
                                 equal_betas=True, rng="zeros")(
         state, torch.zeros((1, 3), dtype=torch.int32),
@@ -241,3 +245,33 @@ def test_the_card_path_refuses_codes_above_1024_qubits():
         torch.zeros(1, dtype=torch.int32), 0,
         torch.zeros((3, 3)), np.ones(3, np.float32))
     assert out[0].shape == state.shape
+
+
+@pytest.mark.parametrize("record", [False, True])
+def test_the_sweep_kernel_takes_codes_above_1024_qubits(monkeypatch, record):
+    """Toric d=23 (17 words per plane): the sweep kernel's CUDA branch
+    passes its checks and launches the large variant (the word count and
+    its 4 spanned words a stabilizer in the params, the wide entries in
+    the meta it is handed), where the window kernel refuses."""
+    import mcmc_qec_tpu_torch.ops.sweep as sw
+
+    spec = get_spec("toric", 23)
+    assert sw.sweep_kernel_fits(spec, record) and lw.is_wide(spec)
+    fake = RecordingLibrary()
+    states = torch.zeros((5, spec.nq), dtype=torch.uint8)
+    tables = {}
+    seeds = torch.zeros(3, dtype=torch.int64) if record else None
+    with fake_card(monkeypatch, lambda: fake):
+        out = sw._launch(spec, states, torch.ones(3), steps=3 if record else 1,
+                         iters=1, equal_betas=True, seeds=seeds,
+                         device_tables=tables)
+    assert sw.sweep_counts.launches == 1
+    P, = fake.params
+    assert (P["nw"], P["span"], P["nq"], P["record"]) == (17, 4, 1058, int(record))
+    plan = sw.sweep_plan(spec, record, P["lanes"])
+    assert P["smem"] == plan.smem <= lw.SMEM_LIMIT
+    assert P["region_bytes"] >= plan.chains_per_warp * 8 * (2 * 17 + 1)
+    _, meta, _ = tables[states.device]
+    assert len(meta) == len(spec.color_stabs) + 1 + 2 * spec.n_stabs
+    if record:
+        assert [t.shape for t in out[1:]] == [(5, 3, 2), (5, 3, 3)]

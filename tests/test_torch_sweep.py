@@ -178,17 +178,19 @@ def test_cpu_sweep_runs_plain_version_only():
 
 
 def test_kernel_refuses_codes_above_six_words():
-    """The kernel is built for up to 16 words per plane (toric d=21 has
-    nq=882; the limit was 6 words before the kernel read only the words a
-    stabilizer spans, then 12); the wrapper refuses toric d=23 (nq=1058)
-    with a ValueError before any launch, in both modes."""
-    from mcmc_qec_tpu_torch.ops.sweep import MAX_WORDS, _launch
+    """The kernel takes up to 256 words per plane (nq <= 16384: toric
+    d=89 has nq=15842; the limit was 6 words before the kernel read only
+    the words a stabilizer spans, then 12, then 16 before its large
+    variant held the planes in shared memory); the wrapper refuses toric
+    d=91 (nq=16562) with a ValueError before any launch, in both modes."""
+    from mcmc_qec_tpu_torch.ops.sweep import MAX_WORDS, _launch, sweep_kernel_fits
 
-    assert MAX_WORDS == 16
-    assert -(-jax_get_spec("toric", 21).nq // 64) <= MAX_WORDS
-    spec = spec_from_jax(jax_get_spec("toric", 23))
+    assert MAX_WORDS == 256
+    assert -(-jax_get_spec("toric", 89).nq // 64) <= MAX_WORDS
+    assert sweep_kernel_fits(spec_from_jax(jax_get_spec("toric", 89)), True)
+    spec = spec_from_jax(jax_get_spec("toric", 91))
     states = torch.zeros((2, spec.nq), dtype=torch.uint8)
     for seeds in (None, torch.zeros(3, dtype=torch.int64)):
-        with pytest.raises(ValueError, match="nq <= 1024"):
+        with pytest.raises(ValueError, match="nq=16562.*nq <= 16384"):
             _launch(spec, states, torch.zeros(3), steps=3, iters=1,
                     equal_betas=True, seeds=seeds, device_tables={})

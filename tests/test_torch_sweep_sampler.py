@@ -289,9 +289,9 @@ def test_wrappers_refuse():
         sw._launch(spec, states, torch.ones(4), seeds=seeds, **kw)
     with pytest.raises(ValueError, match="seeds must have shape"):
         sw._launch(spec, states, torch.ones(3), seeds=seeds[:2], **kw)
-    # the plan refuses codes above 16 words per plane (nq > 1024)
-    with pytest.raises(ValueError, match="nq <= 1024"):
-        sw._plan_params(get_spec("toric", 23), 4, 3, 1, True, True, N_SM)
+    # the plan refuses codes above 256 words per plane (nq > 16384)
+    with pytest.raises(ValueError, match="nq <= 16384"):
+        sw._plan_params(get_spec("toric", 91), 4, 3, 1, True, True, N_SM)
 
 
 def test_plain_sampler_runs_any_code_size_on_the_cpu():
