@@ -87,8 +87,8 @@ kernel against its plain PyTorch version on the card:
   chain); PTEQ_alpha at xzzx d=17 (the biased study one size up), PTEQ at
   rotated d=19 and toric d=21 and STDC at rotated d=19 through the
   kernels only, against failure and recovery bars, each with one window or
-  sampler launch timed against the plain version; PTEQ_alpha at xzzx d=31,
-  whose ladder no block of K2 holds, on the unfused window through K1.
+  sampler launch timed against the plain version; PTEQ_alpha at xzzx d=31
+  on the unfused window through K1 (``engine="sweep"``).
 - The golden-corpus studies (``studies.golden_replay``,
   ``studies.golden_ceiling``) through their ``run`` on 256 toric d=5
   syndromes drawn on the card (not the DRL failure set): PTEQ (K2), STDC
@@ -98,9 +98,18 @@ kernel against its plain PyTorch version on the card:
   64 words per plane) at every lane count, sweeps and recording sampler,
   equal, general and per-chain betas; its registers and spills, and 10
   sweeps at toric d=45 against the bound; STDC at toric d=25 and rotated
-  d=45 (recovery bar), PTEQ at toric d=23 on the unfused window and PTDC
-  at toric d=23 through K1 only, one launch a ladder step, each with one
-  launch timed against the plain version.
+  d=45 (recovery bar), PTEQ at toric d=23 on the unfused window
+  (``engine="sweep"``) and PTDC at toric d=23 through K1 only, one launch
+  a ladder step, each with one launch timed against the plain version.
+- The window kernel above 16 words, K2's large variant (planes in shared
+  memory): kernel vs plain version at toric d=23 and d=25, planar d=27,
+  rotated d=33, xzzx d=31 (16 words at 31 rungs) and d=37, every branch,
+  trace mode, even_odd, zeros, a fixed word and Philox, 1 to 32 lanes a
+  rung, a ragged last block; its registers and spills; PTEQ at toric
+  d=23 (one K2 launch a window, no K1) against the unfused decode of the
+  same call, PTEQ_alpha at xzzx d=33 against a failure bar, PTEQ at toric
+  d=25 B=128 with one window against its bound and the plain version, and
+  the large variant beside the register form at toric d=21.
 
 Each phase prints one line; any failed phase exits non-zero.  The line
 before the last is a JSON record of the kernels (launches on the main
@@ -338,8 +347,9 @@ STUDY_MAX_SIGMA = 4.0
 # at the biased study's configuration one size up (xzzx d=17, eta=10,
 # p=0.20, the study's cap 15 d**3); at p=0.05 PTEQ at rotated d=19 and
 # toric d=21 and STDC (engine "auto") at rotated d=19; and PTEQ_alpha at
-# xzzx d=31, whose 31-rung ladder no block of K2 holds, on the unfused
-# window.  Toric d=21's ladder rarely swaps its bottom pair (p=0.05
+# xzzx d=31 on the unfused window (``engine="sweep"``: K2 holds its 31-rung
+# ladder only in its large variant, phase 28, so the sweep kernel's
+# per-chain launch stays on a PTEQ path here).  Toric d=21's ladder rarely swaps its bottom pair (p=0.05
 # against 0.085 over 882 qubits): a chain passes from top to bottom about
 # once in 20,000-24,000 steps, so every row needs a cap of 240,000 to pass
 # the burn gate of two passes (at 12,000 no row did, at 48,000 the median
@@ -391,6 +401,39 @@ WIDE_STDC_BUDGET = dict(droplets=10, steps=1500)
 WIDE_MIN_RECOVERED = 0.98
 WIDE_PTEQ = dict(family="toric", d=23, p=0.05, B=16, max_steps=1200)
 WIDE_PTDC = dict(family="toric", d=23, p=0.05, B=16, droplets=1, steps=23 * 20)
+# the window kernel above 16 words and for ladders too large for its
+# registers (phase 28), K2's large variant
+# (csrc/ladder_window.cu::ladder_window_kernel_wide): (a) parity against
+# the plain version: (family, d, Nc, B, W, branch, exchange, traces, rng,
+# lanes per rung or None for the plan's); B=263 leaves a ragged last block
+# (2 syndromes a block on 132 SMs), Nc=3 at 32 and 1 lanes and other
+# counts move the rung masks; xzzx d=31 at 31 rungs reads the narrow
+# entries at 16 words; (c) decodes through the entry points: PTEQ at
+# toric d=23 as phase 27 runs it unfused, and PTEQ_alpha at xzzx d=33 (the
+# biased study's cell, eta=10, p=0.20) at a capped step count, failure
+# held to phase 25's bar; (d) PTEQ at toric d=25, B=128, with one window
+# timed against the bound and the plain version; (e) the large variant at
+# toric d=21 beside the register form <16, 4, true>, for the record
+WIDE_K2 = [
+    ("toric", 23, 23, 263, 24, "equal-exact", "sequential", True, "philox", None),
+    ("toric", 23, 23, 64, 24, "general-mh", "even_odd", False, "philox", None),
+    ("toric", 23, 3, 64, 24, "equal-exact", "even_odd", True, "philox", 32),
+    ("toric", 23, 3, 64, 24, "general-mh", "sequential", False, "philox", 1),
+    ("toric", 25, 25, 64, 24, "equal-exact", "sequential", False, "zeros", None),
+    ("toric", 25, 25, 64, 24, "general-exact", "even_odd", True, "philox", 2),
+    ("planar", 27, 27, 64, 24, "equal-exact", "sequential", True, "philox", None),
+    ("planar", 27, 27, 64, 24, "general-mh", "even_odd", False, 0x9E3779B9, None),
+    ("rotated", 33, 33, 64, 24, "equal-exact", "even_odd", True, "philox", None),
+    ("rotated", 33, 33, 64, 24, "general-mh", "sequential", True, "philox", 4),
+    ("xzzx", 31, 31, 64, 24, "general-exact", "sequential", True, "philox", None),
+    ("xzzx", 31, 31, 64, 24, "general-mh", "even_odd", False, "zeros", None),
+    ("xzzx", 37, 37, 64, 24, "general-exact", "even_odd", True, "philox", None),
+    ("xzzx", 37, 37, 64, 24, "general-mh", "sequential", False, 0x9E3779B9, None),
+]
+WIDE_K2_ALPHA = dict(family="xzzx", d=33, eta=10.0, p=0.20, B=64,
+                     max_steps=12000)
+WIDE_K2_TIMED = dict(family="toric", d=25, p=0.05, B=128, max_steps=1200)
+WIDE_K2_RECORD = dict(family="toric", d=21, p=0.05, B=64)
 # the golden-corpus studies on the card (phase 26): 256 toric d=5
 # syndromes drawn at p=0.15 (not the DRL failure set, which is not in the
 # repository), through studies.golden_replay.run (PTEQ at its production
@@ -2933,15 +2976,17 @@ def phase_large_codes():
                         bound_by=bound_by, name="sweep_sampler_rotated_d19",
                         instantiation=name, launches=k1, source="sweep.cu"))
 
-    # the unfused window where K2 cannot hold the ladder: xzzx d=31, Nc=31
+    # the unfused window asked for by name: xzzx d=31, Nc=31, whose ladder
+    # only K2's large variant holds
     m = LARGE_FALLBACK
     spec = fb_spec
-    check(not lw.window_kernel_fits(spec, m["d"], False, PROD["iters"]),
-          "K2 holds xzzx d=31 at 31 rungs: the fallback case is gone")
+    check(lw.window_form(spec, m["d"], False, PROD["iters"]) == "large",
+          "xzzx d=31 at 31 rungs is not the large variant's ladder")
     gen = torch.Generator(device="cuda").manual_seed(2044)
     states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
     cfg = PTEQConfig(max_steps=m["max_steps"], window=m["window"],
-                     iters=PROD["iters"], energy_chunk=PROD["energy_chunk"])
+                     iters=PROD["iters"], energy_chunk=PROD["energy_chunk"],
+                     engine="sweep")
     res, dt, k2, k2p, k1, k1p = _decode_counts(lambda: PTEQ_alpha(
         spec, states, m["p"], 1.0, cfg, seed=1, device="cuda"))
     kernels_only("PTEQ_alpha xzzx d=31", k2, k2p, k1, k1p, False, True)
@@ -2964,8 +3009,8 @@ def phase_large_codes():
     name = _k1_name(spec, False, False)
     lines.append(
         f"PTEQ_alpha {m['family']} d={m['d']} Nc={m['d']} B={m['B']} "
-        f"max_steps={m['max_steps']} window={m['window']} (predicate: K2 cannot "
-        f"hold the ladder; ran {res.window}): {dt:.2f} s, K1 {name} {k1} "
+        f"max_steps={m['max_steps']} window={m['window']} (engine sweep; ran "
+        f"{res.window}): {dt:.2f} s, K1 {name} {k1} "
         f"launches ({k1 // m['max_steps']} a ladder step), K2 {k2}, plain 0; "
         f"one ladder step's sweeps at {Rc} chains: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({bound_by})")
@@ -3085,9 +3130,10 @@ def phase_codes_above_1024(built):
     kernel's large variant: (a) parity at 17 to 64 words at every lane
     count; (b) its registers and spills from the build, one sweep launch at
     toric d=45 against its bound; (c) STDC at toric d=25 and rotated d=45,
-    PTEQ at toric d=23 on the unfused window and PTDC at toric d=23, only
-    K1 launching, each with its launch timed against the bound and the
-    plain version.  Returns the kernels line's entries."""
+    PTEQ at toric d=23 on the unfused window (``engine="sweep"``) and PTDC
+    at toric d=23, only K1 launching, each with its launch timed against
+    the bound and the plain version.  Returns the kernels line's entries
+    and the unfused PTEQ decode's seconds."""
     cases, worst, parts = 0, 0.0, []
     for i, (family, d, B) in enumerate(WIDE_PARITY):
         n, lanes, err = compare_wide(family, d, B, seed=900 + i)
@@ -3161,14 +3207,14 @@ def phase_codes_above_1024(built):
         entries.append(dict(t, name=f"sweep_sampler_wide_{m['family']}_d{m['d']}",
                             instantiation=name, launches=k1, source="sweep.cu"))
 
-    # PTEQ on the unfused window: K2 holds no code above 16 words
+    # PTEQ on the unfused window asked for by name (``engine="sweep"``), so
+    # that K1's large variant stays on a PTEQ path; phase 28 runs the same
+    # decode on K2's large variant
     m = WIDE_PTEQ
     spec = get_spec(m["family"], m["d"])
-    check(not lw.window_kernel_fits(spec, m["d"], True, PROD["iters"]),
-          f"K2 holds {m['family']} d={m['d']}")
     gen = torch.Generator(device="cuda").manual_seed(2070)
     states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
-    cfg = PTEQConfig(max_steps=m["max_steps"], **PROD)
+    cfg = PTEQConfig(max_steps=m["max_steps"], engine="sweep", **PROD)
     res, dt, k2, k2p, k1, k1p = _decode_counts(lambda: PTEQ(
         spec, states, m["p"], cfg, seed=1, device="cuda"))
     tag = f"PTEQ {m['family']} d={m['d']}"
@@ -3181,9 +3227,10 @@ def phase_codes_above_1024(built):
     b = _chain_rows(Rc, m["d"], m["p"], 2071)
     t = _wide_sweep_launch(spec, Rc, PROD["iters"], b, False, 2071, 20)
     name = _k1_name(spec, False, False)
+    unfused_s = dt
     lines.append(
         f"{tag} Nc={m['d']} p={m['p']} B={m['B']} max_steps={m['max_steps']} "
-        f"(window {res.window}): {dt:.2f} s, K1 {name} {k1} launches in "
+        f"engine sweep (window {res.window}): {dt:.2f} s, K1 {name} {k1} launches in "
         f"{ladder_steps} ladder steps, K2 {k2}, plain 0; converged "
         f"{res.converged.mean():.4f}; one ladder step's sweeps at {Rc} chains: "
         f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.1f} ms, bound "
@@ -3219,6 +3266,206 @@ def phase_codes_above_1024(built):
                         instantiation=name, launches=k1, source="sweep.cu"))
     print("phase 27 (c) codes above 1024 qubits through the entry points: "
           + "; ".join(lines), flush=True)
+    check(not fails, "; ".join(fails))
+    for e in entries:
+        e["err"] = max(e["err"], worst)
+    return entries, unfused_s
+
+
+def _k2_wide_name(spec, equal_betas):
+    """K2's large-variant instantiation ``wide<spanned words, EQ>`` with the
+    code's word count."""
+    offs = kernel_tables(spec)[2]
+    return (f"wide<{offs['span']}, {'true' if equal_betas else 'false'}> at "
+            f"{offs['nw']} words")
+
+
+class _window_form:
+    """Run K2 in ``form`` where both forms hold the ladder (the record of
+    phase 28 (e) only): ``window_form``'s choice is replaced while the
+    block runs."""
+
+    def __init__(self, form):
+        self.form = form
+
+    def __enter__(self):
+        self.saved = lw.window_form
+        lw.window_form = lambda *args: self.form
+
+    def __exit__(self, *exc):
+        lw.window_form = self.saved
+
+
+def phase_window_above_16_words(built, unfused_s):
+    """K2's large variant on the card (WIDE_K2* above): (a) every output
+    equal to the plain version's in every branch, mode and draw form at
+    17 to 23 words and at xzzx d=31's 31 rungs (16 words); (b) its
+    registers and spills from the build; (c) PTEQ at toric d=23 (one K2
+    launch a window, no K1) against phase 27's unfused decode
+    (``unfused_s`` seconds) and PTEQ_alpha at xzzx d=33; (d) PTEQ at
+    toric d=25, B=128, and one window against its bound and the plain
+    version; (e) the large variant at toric d=21 beside the register form.
+    Returns the kernels line's entries."""
+    worst, names = 0.0, set()
+    for i, (family, d, Nc, B, W, branch, exchange, traces, rng, lanes) in \
+            enumerate(WIDE_K2):
+        spec = get_spec(family, d)
+        eq = BRANCHES[branch][1]
+        check(lw.window_form(spec, Nc, eq, 2) == "large",
+              f"{family} d={d} Nc={Nc}: not the large variant's ladder")
+        worst = max(worst, compare_window(
+            family, d, Nc, B, W, 2, 4, 0.15, rng, 1300 + i, branch, exchange,
+            traces=traces, both_swaps=rng == "philox", lanes=lanes))
+        names.add(_k2_wide_name(spec, eq))
+    print(f"phase 28 (a) window kernel's large variant vs plain: "
+          f"{len(WIDE_K2)} cases ("
+          + "; ".join(f"{f} d={d} Nc={n} B={b} W={w} {br} {ex} traces={tr} "
+                      f"{rg} lanes={ln or 'plan'}"
+                      for f, d, n, b, w, br, ex, tr, rg, ln in WIDE_K2)
+          + f"), instantiations {sorted(names)}: all outputs equal, max abs "
+          f"err {worst}", flush=True)
+
+    regs = [ln for ln in ptxas_summary(built["ladder_window"].log) if "wide" in ln]
+    print(f"phase 28 (b) large variant build: "
+          f"{' | '.join(regs) or 'reused build'}", flush=True)
+
+    lines, fails, entries = [], [], []
+
+    def kernels_only(tag, k2, k2p, k1, k1p):
+        if k1 or k2p or k1p:
+            fails.append(f"{tag}: K1 {k1} launches, plain calls K2 {k2p}, K1 {k1p}")
+        if not k2:
+            fails.append(f"{tag}: K2 never launched")
+
+    def pteq_at(m, seed, tag):
+        spec = get_spec(m["family"], m["d"])
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
+        cfg = PTEQConfig(max_steps=m["max_steps"], **PROD)
+        res, dt, k2, k2p, k1, k1p = _decode_counts(lambda: PTEQ(
+            spec, states, m["p"], cfg, seed=1, device="cuda"))
+        kernels_only(tag, k2, k2p, k1, k1p)
+        windows = -(-int(res.steps.max()) // PROD["window"])
+        if res.window != "fused" or k2 != windows:
+            fails.append(f"{tag}: window {res.window}, {k2} K2 launches in "
+                         f"{windows} windows")
+        t = time_window(spec, states, m["d"],
+                        beta_ladder_depolarizing(m["p"], m["d"]),
+                        (1.0, 1.0, 1.0), True, LARGE_TIMED_W, seed)
+        return spec, states, res, dt, k2, windows, t
+
+    # (c) PTEQ at toric d=23, the decode phase 27 runs on the unfused window
+    m = WIDE_PTEQ
+    tag = f"PTEQ {m['family']} d={m['d']}"
+    spec, _, res, dt, k2, windows, t = pteq_at(m, 2070, tag)
+    name = _k2_wide_name(spec, True)
+    lines.append(
+        f"{tag} Nc={m['d']} p={m['p']} B={m['B']} max_steps={m['max_steps']} "
+        f"(window {res.window}): {dt:.2f} s against {unfused_s:.2f} s unfused "
+        f"(phase 27, this call; {unfused_s / dt:.1f}x), K2 {name} {k2} "
+        f"launches in {windows} windows, K1 0, plain 0; converged "
+        f"{res.converged.mean():.4f}; one W={LARGE_TIMED_W} window kernel "
+        f"{t['ms']:.3f} ms, plain {t['plain_ms']:.1f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}); launch "
+        f"{launch_line(spec, m['B'], m['d'], True)}")
+    entries.append(dict(t, name="ladder_window_wide_toric_d23",
+                        instantiation=name, launches=k2,
+                        source="ladder_window.cu"))
+
+    # PTEQ_alpha at the biased study's cell on xzzx d=33, capped steps
+    m = WIDE_K2_ALPHA
+    spec = get_spec(m["family"], m["d"])
+    px, py, pz = xyz_probs_from_biased(m["p"], m["eta"])
+    pz_tilde, alpha = biased_alpha_equivalent(m["p"], m["eta"])
+    gen = torch.Generator(device="cuda").manual_seed(2090)
+    states = sample_xyz(gen, spec, px, py, pz, (m["B"],), device="cuda")
+    truth = np_eq_class(spec, states.cpu().numpy())
+    cfg = PTEQConfig(max_steps=m["max_steps"], **PROD)
+    res, dt, k2, k2p, k1, k1p = _decode_counts(lambda: PTEQ_alpha(
+        spec, states, pz_tilde, alpha, cfg, seed=1, device="cuda"))
+    tag = f"PTEQ_alpha {m['family']} d={m['d']}"
+    kernels_only(tag, k2, k2p, k1, k1p)
+    failure = float(np.mean(res.distribution.argmax(-1) != truth))
+    if failure > LARGE_MAX_FAILURE:
+        fails.append(f"{tag}: failure {failure:.4f} > {LARGE_MAX_FAILURE:.4f}")
+    if res.window != "fused":
+        fails.append(f"{tag}: ran the {res.window} window")
+    t = time_window(spec, states, m["d"], beta_ladder_alpha(pz_tilde, alpha,
+                                                            m["d"]),
+                    (alpha, alpha, 1.0), False, LARGE_TIMED_W, 2091)
+    name = _k2_wide_name(spec, False)
+    lines.append(
+        f"{tag} Nc={m['d']} eta={m['eta']} p={m['p']} B={m['B']} max_steps="
+        f"{m['max_steps']} (window {res.window}): {m['B'] / dt:.1f} syn/s "
+        f"({dt:.2f} s), K2 {name} {k2} launches, K1 0, plain 0; failure "
+        f"{failure:.4f} (bar {LARGE_MAX_FAILURE:.4f}), converged "
+        f"{res.converged.mean():.4f}; one W={LARGE_TIMED_W} window kernel "
+        f"{t['ms']:.3f} ms, plain {t['plain_ms']:.1f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}); launch "
+        f"{launch_line(spec, m['B'], m['d'], False)}")
+    entries.append(dict(t, name="ladder_window_wide_xzzx_d33",
+                        instantiation=name, launches=k2,
+                        source="ladder_window.cu"))
+    print("phase 28 (c) the large variant through the entry points: "
+          + "; ".join(lines), flush=True)
+
+    # (d) toric d=25 at B=128: the decode, one window against its bound
+    # and the plain version, and a production window's ms
+    m = WIDE_K2_TIMED
+    tag = f"PTEQ {m['family']} d={m['d']}"
+    spec, states, res, dt, k2, windows, t = pteq_at(m, 2092, tag)
+    ls = init_ladder(spec, states, m["d"])
+    zeros = (torch.zeros((m["B"], spec.n_classes), dtype=torch.int32, device="cuda"),
+             torch.zeros((m["B"],), dtype=torch.int32, device="cuda"))
+    prod = make_ladder_window(spec, m["d"], PROD["window"], PROD["iters"], 0.5,
+                              2, PROD["energy_chunk"], **PROD_BRANCH)
+    betas = torch.as_tensor(beta_ladder_depolarizing(m["p"], m["d"]),
+                            dtype=torch.float32, device="cuda")
+    args = (ls.state, ls.flag, ls.tops0, *zeros, 3, betas, np.ones(3, np.float32))
+    prod(*args)
+    prod_ms = _time_ms(lambda: prod(*args), 3)
+    name = _k2_wide_name(spec, True)
+    print(f"phase 28 (d) {tag} Nc={m['d']} p={m['p']} B={m['B']} max_steps="
+          f"{m['max_steps']}: {dt:.2f} s, K2 {name} {k2} launches in {windows} "
+          f"windows; one W={LARGE_TIMED_W} window kernel {t['ms']:.3f} ms, "
+          f"plain {t['plain_ms']:.1f} ms ({t['plain_ms'] / t['ms']:.1f}x), bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+          f"{t['bound_ms'] / t['ms']:.1%} of the bound; a W={PROD['window']} "
+          f"window {prod_ms:.3f} ms; launch "
+          f"{launch_line(spec, m['B'], m['d'], True)}", flush=True)
+    entries.append(dict(t, name="ladder_window_wide_toric_d25",
+                        instantiation=name, launches=k2,
+                        source="ladder_window.cu"))
+
+    # (e) for the record: both forms at toric d=21, B=64, one production
+    # window each on the same inputs, outputs equal
+    m = WIDE_K2_RECORD
+    spec = get_spec(m["family"], m["d"])
+    gen = torch.Generator(device="cuda").manual_seed(2093)
+    states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
+    ls = init_ladder(spec, states, m["d"])
+    zeros = (torch.zeros((m["B"], spec.n_classes), dtype=torch.int32, device="cuda"),
+             torch.zeros((m["B"],), dtype=torch.int32, device="cuda"))
+    betas = torch.as_tensor(beta_ladder_depolarizing(m["p"], m["d"]),
+                            dtype=torch.float32, device="cuda")
+    args = (ls.state, ls.flag, ls.tops0, *zeros, 4, betas, np.ones(3, np.float32))
+    fn = make_ladder_window(spec, m["d"], PROD["window"], PROD["iters"], 0.5, 2,
+                            PROD["energy_chunk"], **PROD_BRANCH)
+    check(lw.window_form(spec, m["d"], True, PROD["iters"]) == "registers",
+          f"toric d={m['d']} left the register form")
+    timed = {}
+    for form in ("registers", "large"):
+        with _window_form(form):
+            out = fn(*args)
+            timed[form] = (out, _time_ms(lambda: fn(*args), 3))
+    err = compare_outputs(f"toric d={m['d']} large vs registers",
+                          timed["large"][0], timed["registers"][0],
+                          PROD["window"], both_swaps=False)
+    print(f"phase 28 (e) toric d={m['d']} B={m['B']} Nc={m['d']} W="
+          f"{PROD['window']}: large variant {_k2_wide_name(spec, True)} "
+          f"{timed['large'][1]:.3f} ms, register form {_k2_name(spec, True)} "
+          f"{timed['registers'][1]:.3f} ms; all outputs equal, max abs err "
+          f"{err}", flush=True)
     check(not fails, "; ".join(fails))
     for e in entries:
         e["err"] = max(e["err"], worst)
@@ -3325,7 +3572,9 @@ def main() -> int:
         phase = "golden studies on the card"
         phase_golden()
         phase = "codes above 1024 qubits on the card"
-        wide = phase_codes_above_1024(built)
+        wide, unfused_s = phase_codes_above_1024(built)
+        phase = "the window kernel above 16 words"
+        wide_k2 = phase_window_above_16_words(built, unfused_s)
     except PhaseFailed as e:
         print(f"FAILED phase {phase}: {e}", flush=True)
         return 1
@@ -3437,7 +3686,7 @@ def main() -> int:
         "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"],
         "library_ms": None,
-    } for e in large + wide]}))
+    } for e in large + wide + wide_k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -66,6 +66,26 @@
 // The tables sit in shared memory unless they leave no room for a group,
 // when they are read from device memory (toric d=19 at Nc=25).
 //
+// The large variant (ladder_window_kernel_wide<S, EQ>) takes the ladders
+// the registers cannot hold: codes above 16 words per plane (toric and
+// planar d >= 23, rotated and XZZX d >= 33, up to 256 words), and ladders
+// whose group of published chains and staged draws leaves no room in 227 KB
+// (xzzx d=31 at 31 rungs: the draws alone grow with iters * Nc * n_blk).
+// The word count is a run-time value.  A rung's planes sit in a slot of
+// its group's shared memory, a color is decided by the rung's L lanes, each
+// on whole Philox blocks it draws as it decides them (no staging), an
+// accepted flip XORed in at once (sweep.cuh::xor_shared, by 32-bit halves),
+// and a __syncwarp closes the color: the argument and the arithmetic of the
+// sweep kernel's large variant (sweep.cu), so every output equals the
+// register form's and the plain version's.  The exchange swaps the rungs'
+// slot indices, not their planes.  The tables are read from device memory.
+// What bounds it: as the register form, instruction issue on the
+// proposals; what holds it back is latency, one syndrome's few warps per SM
+// each deciding its lanes' proposals one after another (every decision
+// waits on its shared loads, and an accept on its atomics).
+// ops/ladder_window.py::window_form picks the form from shapes before any
+// launch.
+//
 // Built by mcmc_qec_tpu_torch/ops/_build.py (nvcc, no fast math, so logf is
 // the same function torch.log calls) and bound with ctypes.
 
@@ -86,6 +106,8 @@ struct WindowParams {
   int32_t n_tab, n_meta, off_class, off_key, off_span;
   int32_t m_draw, m_lut, m_b2e, m_span, m_blk, m_bcol, n_blk;
   int32_t equal_betas, top_exact, even_odd, traces, tab_in_smem, smem;
+  int32_t wide;    // the large variant (planes in shared memory)
+  int32_t m_wide;  // meta offset of the wide spanned-word entries, or -1
   float p_logical, w0, w1, w2, inv_chunk;
   uint32_t key0, key1, fixed_word;
 };
@@ -117,10 +139,13 @@ constexpr int kMaxThreads = 512;  // ops/ladder_window.py::MAX_THREADS
 constexpr int kMaxBarriers = 15;  // named barriers 1..15
 constexpr int kKeys = 4;          // hash components
 constexpr int kKeyBits = 6;       // bits per hash coefficient
+constexpr int kWide = 0;          // the NW of the large variant's dispatch
+constexpr int kWideWords = 256;   // most words of the large variant
 
 // Shared memory of one block, in bytes from its base; mirrored by
-// ops/ladder_window.py::smem_bytes and group_bytes.
-template <bool EQ>
+// ops/ladder_window.py::smem_bytes and group_bytes (wide_smem_bytes and
+// wide_group_bytes for the large variant, WIDE).
+template <bool EQ, bool WIDE = false>
 struct Layout {
   static constexpr int kCnt = EQ ? 1 : 3;  // counts per rung
   // within a group
@@ -131,7 +156,8 @@ struct Layout {
   size_t gate;    // f32 [iters]: gate u
   size_t mlogu;   // f32 [iters]: Metropolis-mix log u
   size_t dwords;  // u32 [3 * iters * n_draws]: logical-draw words
-  size_t perm, flag, cnt;  // i32 per rung position: [Nc], [Nc], [Nc][kCnt]
+  size_t perm, flag, cnt;  // i32 per rung position: [Nc], [Nc], [Nc][kCnt];
+                           // perm is the rung's slot in the large variant
   size_t swacc, eqc;       // i32 [Nc - 1], [K]
   size_t group_bytes;
   // in the block
@@ -139,8 +165,13 @@ struct Layout {
 
   __host__ __device__ explicit Layout(const WindowParams& P) {
     size_t off = 0;
-    pub = take(off, 8 * (size_t)2 * P.Nc * 2 * P.nw);
-    draws = take(off, 4 * (size_t)P.iters * P.Nc * 4 * P.n_blk);
+    if constexpr (WIDE) {
+      pub = take(off, 8 * (size_t)P.Nc * (2 * P.nw + 1));
+      draws = take(off, 0);
+    } else {
+      pub = take(off, 8 * (size_t)2 * P.Nc * 2 * P.nw);
+      draws = take(off, 4 * (size_t)P.iters * P.Nc * 4 * P.n_blk);
+    }
     xlogu = take(off, 4 * (size_t)(P.Nc - 1));
     gate = take(off, 4 * (size_t)P.iters);
     mlogu = take(off, 4 * (size_t)P.iters);
@@ -222,33 +253,13 @@ __device__ __forceinline__ void draw_item(const WindowParams& P, const int32_t* 
     if (live && 4 * g + e < n) draws[4 * d.k + e] = lu[e];
 }
 
-// The step's draws, over all the group's threads (item k = gt, gt + GT,
-// ...): ``draws`` [iters][Nc][4 * n_blk] gets log u of element j of color
-// c's use in iteration it on rung r at (it * Nc + r) * 4 * n_blk +
-// 4 * blk[c] + j (item k's four elements at 4 * k); then the exchange's
-// log u, and for a logical mix its gates, logical-draw words and
-// Metropolis log u (layout: ops/ladder_window.py).  ``first`` are the
-// thread's first kDrawBatch items, gt, gt + GT, ...; it takes kDrawBatch
-// at a time, moving kDrawBatch * GT = dq * n_blk + dkb items on; ``k0`` is
-// its first item past the sweeps, where its extras start, one at a time.
-constexpr int kDrawBatch = 2;
-
-__device__ __forceinline__ void draw_phase(const WindowParams& P, const int32_t* meta,
-                                           float* draws, float* xlogu, float* gate,
-                                           float* mlogu, uint32_t* dwords,
-                                           const DrawItem (&first)[kDrawBatch], int dq, int dkb,
-                                           int k0, int GT, int t, int b) {
-  const int nblk = P.n_blk, Nc = P.Nc;
-  const int n_sweep = P.iters * Nc * nblk;
-  DrawItem items[kDrawBatch];
-#pragma unroll
-  for (int i = 0; i < kDrawBatch; ++i) items[i] = first[i];
-  while (items[0].k < n_sweep) {
-#pragma unroll
-    for (int i = 0; i < kDrawBatch; ++i) draw_item(P, meta, draws, items[i], n_sweep, t, b);
-#pragma unroll
-    for (int i = 0; i < kDrawBatch; ++i) items[i].advance(kDrawBatch * GT, dq, dkb, nblk, Nc);
-  }
+// The step's draws past the sweeps, a thread taking the blocks x_first,
+// x_first + GT, ...: the exchange's log u, and for a logical mix its gates,
+// logical-draw words and Metropolis log u (layout: ops/ladder_window.py).
+__device__ __forceinline__ void draw_extras(const WindowParams& P, float* xlogu, float* gate,
+                                            float* mlogu, uint32_t* dwords, int x_first, int GT,
+                                            int t, int b) {
+  const int Nc = P.Nc;
   const int n_x = (Nc - 1 + 3) / 4;
   int n_g = 0, n_d = 0, n_m = 0;
   if (P.p_logical > 0.f) {
@@ -257,7 +268,7 @@ __device__ __forceinline__ void draw_phase(const WindowParams& P, const int32_t*
     n_m = P.top_exact ? 0 : (P.iters + 3) / 4;
   }
   const uint32_t G = (uint32_t)(P.iters * P.n_colors * Nc);
-  for (int x0 = k0 - n_sweep; x0 < n_x + n_g + n_d + n_m; x0 += GT) {
+  for (int x0 = x_first; x0 < n_x + n_g + n_d + n_m; x0 += GT) {
     int x = x0;
     uint32_t use;
     int n;
@@ -296,6 +307,36 @@ __device__ __forceinline__ void draw_phase(const WindowParams& P, const int32_t*
       }
     }
   }
+}
+
+// The step's draws, over all the group's threads (item k = gt, gt + GT,
+// ...): ``draws`` [iters][Nc][4 * n_blk] gets log u of element j of color
+// c's use in iteration it on rung r at (it * Nc + r) * 4 * n_blk +
+// 4 * blk[c] + j (item k's four elements at 4 * k); then the exchange's
+// log u, and for a logical mix its gates, logical-draw words and
+// Metropolis log u (draw_extras).  ``first`` are the thread's first
+// kDrawBatch items, gt, gt + GT, ...; it takes kDrawBatch at a time, moving
+// kDrawBatch * GT = dq * n_blk + dkb items on; ``k0`` is its first item
+// past the sweeps, where its extras start, one at a time.
+constexpr int kDrawBatch = 2;
+
+__device__ __forceinline__ void draw_phase(const WindowParams& P, const int32_t* meta,
+                                           float* draws, float* xlogu, float* gate,
+                                           float* mlogu, uint32_t* dwords,
+                                           const DrawItem (&first)[kDrawBatch], int dq, int dkb,
+                                           int k0, int GT, int t, int b) {
+  const int nblk = P.n_blk, Nc = P.Nc;
+  const int n_sweep = P.iters * Nc * nblk;
+  DrawItem items[kDrawBatch];
+#pragma unroll
+  for (int i = 0; i < kDrawBatch; ++i) items[i] = first[i];
+  while (items[0].k < n_sweep) {
+#pragma unroll
+    for (int i = 0; i < kDrawBatch; ++i) draw_item(P, meta, draws, items[i], n_sweep, t, b);
+#pragma unroll
+    for (int i = 0; i < kDrawBatch; ++i) items[i].advance(kDrawBatch * GT, dq, dkb, nblk, Nc);
+  }
+  draw_extras(P, xlogu, gate, mlogu, dwords, k0 - n_sweep, GT, t, b);
 }
 
 // One color on a rung whose L lanes each hold the rung's planes (X, Z).
@@ -435,6 +476,94 @@ __device__ __forceinline__ int32_t chain_key(const uint64_t (&X)[NW], const uint
     key += s << k;
   }
   return key;
+}
+
+// Steps 3-5 of a ladder step, on the group's thread 0, after the rungs
+// published their counts (``cnt``).  3) Replica exchange on a permutation
+// of the rungs: pair i = (i, i + 1) with its own uniform, element i;
+// sequential top->bottom, or even pairs then odd pairs (disjoint within a
+// phase, so deciding them one by one equals deciding them together).  A
+// swap exchanges the pair's ``perm`` entries, counts and flags (the
+// register form starts ``perm`` at the identity each step; the large
+// variant keeps its rungs' slots there).  4) Flags (src/mcmc.py:100-103):
+// set the top, count arrivals at the bottom.  5) The bottom rung's burn
+// gate, since_burn, burn_first and energy sums, a row of energies per
+// chunk.  Returns whether the step is burned.
+template <bool EQ>
+__device__ __forceinline__ bool exchange_step(const WindowParams& P, const WindowBuffers& buf,
+                                              const float* beta, const float* xlogu,
+                                              int32_t* perm, int32_t* flag, int32_t* cnt,
+                                              int32_t* swacc, int t, int b, int& tops,
+                                              int& since, int& bfirst,
+                                              int (&esum)[Layout<EQ>::kCnt], int& chunk_left,
+                                              int& chunk) {
+  constexpr int kCnt = Layout<EQ>::kCnt;
+  const int Nc = P.Nc;
+  const int n_pairs = Nc - 1;
+  for (int k = 0; k < n_pairs; ++k) {
+    int i;
+    if (P.even_odd) {
+      const int n_even = (n_pairs + 1) / 2;
+      i = k < n_even ? 2 * k : 2 * (k - n_even) + 1;
+    } else {
+      i = n_pairs - 1 - k;
+    }
+    const float* bl = beta + 3 * i;
+    const float* bh = beta + 3 * (i + 1);
+    int32_t* cl = cnt + i * kCnt;
+    int32_t* ch = cnt + (i + 1) * kCnt;
+    float logr;
+    if constexpr (EQ) {
+      logr = (bh[0] - bl[0]) * (float)(ch[0] - cl[0]);
+    } else {
+      // (dbx*dN_x + dby*dN_y) + dbz*dN_z, each operation rounded alone
+      logr = __fadd_rn(
+          __fadd_rn(__fmul_rn(__fsub_rn(bh[0], bl[0]), (float)(ch[0] - cl[0])),
+                    __fmul_rn(__fsub_rn(bh[1], bl[1]), (float)(ch[1] - cl[1]))),
+          __fmul_rn(__fsub_rn(bh[2], bl[2]), (float)(ch[2] - cl[2])));
+    }
+    if (logr >= 0.f || xlogu[i] < logr) {
+      int32_t v = perm[i];
+      perm[i] = perm[i + 1];
+      perm[i + 1] = v;
+      v = flag[i];
+      flag[i] = flag[i + 1];
+      flag[i + 1] = v;
+#pragma unroll
+      for (int q = 0; q < kCnt; ++q) {
+        v = cl[q];
+        cl[q] = ch[q];
+        ch[q] = v;
+      }
+      ++swacc[i];
+    }
+  }
+  flag[Nc - 1] = 1;
+  if (flag[0] == 1) {
+    ++tops;
+    flag[0] = 0;
+  }
+  const bool burned = tops >= P.tops_burn;
+  since += burned;
+  if (bfirst < 0 && burned) bfirst = t;
+#pragma unroll
+  for (int k = 0; k < kCnt; ++k) esum[k] += cnt[k];
+  if (--chunk_left == 0) {
+    float e;
+    if constexpr (EQ) {
+      e = (P.w0 * (float)esum[0]) * P.inv_chunk;
+    } else {
+      e = __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(P.w0, (float)esum[0]),
+                                        __fmul_rn(P.w1, (float)esum[1])),
+                              __fmul_rn(P.w2, (float)esum[2])),
+                    P.inv_chunk);
+    }
+    buf.energies[(size_t)chunk++ * P.B + b] = e;
+    chunk_left = P.energy_chunk;
+#pragma unroll
+    for (int k = 0; k < kCnt; ++k) esum[k] = 0;
+  }
+  return burned;
 }
 
 template <int NW>
@@ -581,78 +710,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) ladder_window_kernel(const Win
     group_sync(wpg, grp);
     int burned = 0;
     if (gt == 0) {
-      // 3) replica exchange on a permutation of the rungs: pair i = (i,
-      // i + 1) with its own uniform, element i; sequential top->bottom, or
-      // even pairs then odd pairs (disjoint within a phase, so deciding
-      // them one by one equals deciding them together).  A swap exchanges
-      // chains, counts and flags.
       for (int k = 0; k < Nc; ++k) perm[k] = k;
-      const int n_pairs = Nc - 1;
-      for (int k = 0; k < n_pairs; ++k) {
-        int i;
-        if (P.even_odd) {
-          const int n_even = (n_pairs + 1) / 2;
-          i = k < n_even ? 2 * k : 2 * (k - n_even) + 1;
-        } else {
-          i = n_pairs - 1 - k;
-        }
-        const float* bl = beta + 3 * i;
-        const float* bh = beta + 3 * (i + 1);
-        int32_t* cl = cnt + i * kCnt;
-        int32_t* ch = cnt + (i + 1) * kCnt;
-        float logr;
-        if constexpr (EQ) {
-          logr = (bh[0] - bl[0]) * (float)(ch[0] - cl[0]);
-        } else {
-          // (dbx*dN_x + dby*dN_y) + dbz*dN_z, each operation rounded alone
-          logr = __fadd_rn(
-              __fadd_rn(__fmul_rn(__fsub_rn(bh[0], bl[0]), (float)(ch[0] - cl[0])),
-                        __fmul_rn(__fsub_rn(bh[1], bl[1]), (float)(ch[1] - cl[1]))),
-              __fmul_rn(__fsub_rn(bh[2], bl[2]), (float)(ch[2] - cl[2])));
-        }
-        if (logr >= 0.f || xlogu[i] < logr) {
-          int32_t v = perm[i];
-          perm[i] = perm[i + 1];
-          perm[i + 1] = v;
-          v = flag[i];
-          flag[i] = flag[i + 1];
-          flag[i + 1] = v;
-#pragma unroll
-          for (int q = 0; q < kCnt; ++q) {
-            v = cl[q];
-            cl[q] = ch[q];
-            ch[q] = v;
-          }
-          ++swacc[i];
-        }
-      }
-      // 4) flags (src/mcmc.py:100-103): set the top, count arrivals at the bottom
-      flag[Nc - 1] = 1;
-      if (flag[0] == 1) {
-        ++tops;
-        flag[0] = 0;
-      }
-      // 5) bottom-rung observation
-      burned = tops >= P.tops_burn;
-      since += burned;
-      if (bfirst < 0 && burned) bfirst = t;
-#pragma unroll
-      for (int k = 0; k < kCnt; ++k) esum[k] += cnt[k];
-      if (--chunk_left == 0) {
-        float e;
-        if constexpr (EQ) {
-          e = (P.w0 * (float)esum[0]) * P.inv_chunk;
-        } else {
-          e = __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(P.w0, (float)esum[0]),
-                                            __fmul_rn(P.w1, (float)esum[1])),
-                                  __fmul_rn(P.w2, (float)esum[2])),
-                        P.inv_chunk);
-        }
-        buf.energies[(size_t)chunk++ * P.B + b] = e;
-        chunk_left = P.energy_chunk;
-#pragma unroll
-        for (int k = 0; k < kCnt; ++k) esum[k] = 0;
-      }
+      burned = exchange_step<EQ>(P, buf, beta, xlogu, perm, flag, cnt, swacc, t, b, tops, since,
+                                 bfirst, esum, chunk_left, chunk);
     }
     group_sync(wpg, grp);
     if (in_rung) load_planes(X, Z, pub_t + perm[r] * chain);
@@ -693,6 +753,318 @@ __global__ void __launch_bounds__(kMaxThreads, 1) ladder_window_kernel(const Win
   }
 }
 
+// ---------------------------------------------------------------------------
+// The large variant: planes in shared memory
+// ---------------------------------------------------------------------------
+
+// One color on a rung whose planes X, Z sit in its slot of the group's
+// shared memory: lane l takes the color's Philox blocks g = l, l + L, ...
+// whole, at the counter the register form stages (use (it * n_colors + c)
+// * Nc + r), decides their stabilizers 4g..4g+3 on the words the entry
+// names (the wide entry, 8 bits a word, above 16 words; the narrow one
+// up to 16) and XORs an accepted flip in at once.  A decision reads only
+// its own support, which no other stabilizer of the color touches, so
+// this decides as the planes before the color do; the caller's __syncwarp
+// closes the color.
+template <int S, bool EQ>
+__device__ __forceinline__ void sweep_color_wide(const WindowParams& P, uint64_t* X, uint64_t* Z,
+                                                 const uint64_t* stab, const int32_t* span,
+                                                 const uint32_t* wide, int c0, int n, int l,
+                                                 int L, uint32_t use, int t, int b, float bx,
+                                                 float by, float bz) {
+  const int nb = (n + 3) >> 2;
+  for (int g = l; g < nb; g += L) {
+    const uint4 v = draw_block(P, (uint32_t)g, use, (uint32_t)t, (uint32_t)b);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 4 * g + e;
+      if (j >= n) break;
+      const int s = c0 + j;
+      const uint32_t sp = (uint32_t)span[s];
+      int wm[S];
+#pragma unroll
+      for (int m = 0; m < S; ++m)
+        wm[m] = wide ? (int)((wide[s] >> (8 * m)) & 255u) : (int)((sp >> (12 + 4 * m)) & 15u);
+      uint64_t xm[S], zm[S];
+      const float logr =
+          proposal_logr_at<S, EQ>(X, Z, stab + (size_t)s * 3 * S, sp, wm, bx, by, bz, xm, zm);
+      if (logr >= 0.f || log_uniform(word_of(v, e)) < logr) {
+#pragma unroll
+        for (int m = 0; m < S; ++m) {
+          if (xm[m]) xor_shared(X + wm[m], xm[m]);
+          if (zm[m]) xor_shared(Z + wm[m], zm[m]);
+        }
+      }
+    }
+  }
+}
+
+// Sum of ``v`` over the L lanes of a rung (``mask``: its lanes).
+__device__ __forceinline__ int rung_sum(int v, unsigned mask, int L) {
+  for (int k = 1; k < L; k <<= 1) v += __shfl_xor_sync(mask, v, k);
+  return v;
+}
+
+// top_mix on the top rung's planes in shared memory: lane l takes the words
+// w = l, l + L, ...; a Metropolis round sums the count changes over the
+// rung's lanes, so every lane takes the one decision alike.
+__device__ __forceinline__ void top_mix_wide(const WindowParams& P, uint64_t* X, uint64_t* Z,
+                                             const uint64_t* tab, const int32_t* meta,
+                                             const float* bt, const float* gate,
+                                             const float* mlogu, const uint32_t* dwords, int l,
+                                             int L, unsigned mask) {
+  const int nw = P.nw;
+  for (int it = 0; it < P.iters; ++it) {
+    if (!(gate[it] < P.p_logical)) continue;
+    bool accept = P.top_exact;
+    if (!accept) {
+      int dx = 0, dy = 0, dz = 0;
+      for (int w = l; w < nw; w += L) {
+        uint64_t mx, mz;
+        mix_masks(P, tab, meta, dwords, it, w, mx, mz);
+        const uint64_t x = X[w], z = Z[w], nx = x ^ mx, nz = z ^ mz;
+        dx += __popcll(nx & ~nz) - __popcll(x & ~z);
+        dy += __popcll(nx & nz) - __popcll(x & z);
+        dz += __popcll(~nx & nz) - __popcll(~x & z);
+      }
+      dx = rung_sum(dx, mask, L);
+      dy = rung_sum(dy, mask, L);
+      dz = rung_sum(dz, mask, L);
+      const float logr = -__fadd_rn(
+          __fadd_rn(__fmul_rn(bt[0], (float)dx), __fmul_rn(bt[1], (float)dy)),
+          __fmul_rn(bt[2], (float)dz));
+      accept = logr >= 0.f || mlogu[it] < logr;
+    }
+    if (accept) {
+      for (int w = l; w < nw; w += L) {
+        uint64_t mx, mz;
+        mix_masks(P, tab, meta, dwords, it, w, mx, mz);
+        X[w] ^= mx;
+        Z[w] ^= mz;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ int class_of_wide(const uint64_t* X, const uint64_t* Z,
+                                             const WindowParams& P, const uint64_t* tab,
+                                             const int32_t* meta) {
+  const int nw = P.nw;
+  int bits = 0;
+  for (int f = 0; f < P.n_bits; ++f) {
+    const uint64_t* a = tab + P.off_class + (size_t)f * 2 * nw;
+    int par = 0;
+    for (int w = 0; w < nw; ++w) par += __popcll(a[w] & X[w]) + __popcll(a[nw + w] & Z[w]);
+    bits |= (par & 1) << f;
+  }
+  return meta[P.m_b2e + bits];
+}
+
+__device__ __forceinline__ int32_t chain_key_wide(const uint64_t* X, const uint64_t* Z, int nw,
+                                                  const uint64_t* keytab, int c) {
+  int32_t key = 0;
+  for (int k = 0; k < kKeyBits; ++k) {
+    const uint64_t* m = keytab + (size_t)(c * kKeyBits + k) * nw;
+    int32_t s = 0;
+    for (int w = 0; w < nw; ++w) {
+      const uint64_t x = X[w], z = Z[w];
+      s += __popcll(x & ~z & m[w]) + 2 * __popcll(x & z & m[w]) + 3 * __popcll(~x & z & m[w]);
+    }
+    key += s << k;
+  }
+  return key;
+}
+
+// ladder_window_kernel for ladders its registers cannot hold: more than 16
+// words per plane, or a group too large for the register form's shared
+// memory.  The word count is a run-time value.  Each rung's X and Z planes
+// sit in a slot of its group's shared memory (2 * nw + 1 words, the last
+// padding against bank conflicts between slots); a rung's L lanes sit in
+// one warp and each decides its Philox blocks of a color (sweep_color_wide),
+// so no draw is staged and shared memory does not grow with iters * Nc.
+// The exchange swaps slot indices (``perm`` holds each rung's slot across
+// steps), not planes, and the state is written back through them at the
+// end of the window.  Every other draw, the exchange, flags and readouts
+// are the register form's.
+template <int S, bool EQ>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    ladder_window_kernel_wide(const WindowParams P, const WindowBuffers buf) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Layout<EQ, true> lay(P);
+  constexpr int kCnt = Layout<EQ>::kCnt;
+  const int tid = threadIdx.x;
+  uint64_t* tab_copy = reinterpret_cast<uint64_t*>(smem_raw + lay.tab);
+  int32_t* meta = reinterpret_cast<int32_t*>(smem_raw + lay.meta);
+  float* beta = reinterpret_cast<float*>(smem_raw + lay.beta);
+  if (P.tab_in_smem)
+    for (int i = tid; i < P.n_tab; i += blockDim.x) tab_copy[i] = buf.tab[i];
+  for (int i = tid; i < P.n_meta; i += blockDim.x) meta[i] = buf.meta[i];
+  for (int i = tid; i < 3 * P.Nc; i += blockDim.x) beta[i] = buf.betas[i];
+  __syncthreads();  // the block's only barrier: from here on groups are independent
+  const uint64_t* tab = P.tab_in_smem ? tab_copy : buf.tab;
+
+  const int GT = 32 * P.warps_per_group;  // threads per group
+  const int grp = tid / GT, gt = tid - grp * GT;
+  const int b = blockIdx.x * P.groups_per_block + grp;
+  if (b >= P.B) return;
+  unsigned char* gbase = smem_raw + lay.group + grp * lay.group_bytes;
+  uint64_t* planes = reinterpret_cast<uint64_t*>(gbase + lay.pub);
+  float* xlogu = reinterpret_cast<float*>(gbase + lay.xlogu);
+  float* gate = reinterpret_cast<float*>(gbase + lay.gate);
+  float* mlogu = reinterpret_cast<float*>(gbase + lay.mlogu);
+  uint32_t* dwords = reinterpret_cast<uint32_t*>(gbase + lay.dwords);
+  int32_t* slot = reinterpret_cast<int32_t*>(gbase + lay.perm);
+  int32_t* flag = reinterpret_cast<int32_t*>(gbase + lay.flag);
+  int32_t* cnt = reinterpret_cast<int32_t*>(gbase + lay.cnt);
+  int32_t* swacc = reinterpret_cast<int32_t*>(gbase + lay.swacc);
+  int32_t* eqc = reinterpret_cast<int32_t*>(gbase + lay.eqc);
+
+  const int Nc = P.Nc, nq = P.nq, nw = P.nw, L = P.lanes, K = P.K;
+  const int r = gt >> P.lane_shift, l = gt & (L - 1);
+  const bool in_rung = r < Nc;
+  const int wpg = P.warps_per_group;
+  const size_t cs = 2 * (size_t)nw + 1;  // u64 per slot
+  // the rung's lanes within their warp, for the sums over them
+  const unsigned mask =
+      L == 32 ? 0xffffffffu : ((1u << L) - 1u) << ((unsigned)(gt & 31) & ~(unsigned)(L - 1));
+
+  // load: rung r's chain into slot r, bits ORed in by 32-bit halves
+  for (size_t i = gt; i < (size_t)Nc * cs; i += GT) planes[i] = 0;
+  for (int i = gt; i < Nc; i += GT) {
+    flag[i] = buf.flag_in[(size_t)b * Nc + i];
+    slot[i] = i;
+  }
+  for (int i = gt; i < Nc - 1; i += GT) swacc[i] = 0;
+  for (int i = gt; i < K; i += GT) eqc[i] = buf.eq_in[(size_t)b * K + i];
+  group_sync(wpg, grp);
+  {
+    const uint8_t* src = buf.state_in + (size_t)b * Nc * nq;
+    for (int i = gt; i < Nc * nq; i += GT) {
+      const uint32_t v = src[i];
+      if (!v) continue;
+      const int rr = i / nq, q = i - rr * nq;
+      unsigned* pl = reinterpret_cast<unsigned*>(planes + rr * cs);
+      const unsigned bit = 1u << (q & 31);
+      if ((v ^ (v >> 1)) & 1u) atomicOr(pl + (q >> 5), bit);
+      if ((v >> 1) & 1u) atomicOr(pl + 2 * nw + (q >> 5), bit);
+    }
+  }
+  int tops = 0, since = 0, bfirst = -1;
+  int esum[kCnt];
+#pragma unroll
+  for (int k = 0; k < kCnt; ++k) esum[k] = 0;
+  if (gt == 0) {
+    tops = buf.tops_in[b];
+    since = buf.since_in[b];
+  }
+  float bx = 0.f, by = 0.f, bz = 0.f;
+  if (in_rung) {
+    bx = beta[3 * r];
+    by = beta[3 * r + 1];
+    bz = beta[3 * r + 2];
+  }
+  const uint64_t* stab = tab + P.off_span;
+  const int32_t* span = meta + P.m_span;
+  const uint32_t* wide = P.m_wide >= 0 ? reinterpret_cast<const uint32_t*>(meta + P.m_wide)
+                                       : nullptr;
+  int chunk_left = P.energy_chunk, chunk = 0;  // steps to the next energy row
+  group_sync(wpg, grp);
+
+  for (int t = 0; t < P.window; ++t) {
+    draw_extras(P, xlogu, gate, mlogu, dwords, gt, GT, t, b);
+    uint64_t* X = planes + (in_rung ? (size_t)slot[r] : 0) * cs;
+    uint64_t* Z = X + nw;
+    // 1) colored sweeps; use of color c in iteration it on rung r
+    for (int it = 0; it < P.iters; ++it) {
+      for (int c = 0; c < P.n_colors; ++c) {
+        const int c0 = meta[c];
+        sweep_color_wide<S, EQ>(P, X, Z, stab, span, wide, c0, in_rung ? meta[c + 1] - c0 : 0,
+                                l, L, (uint32_t)((it * P.n_colors + c) * Nc + r), t, b, bx, by,
+                                bz);
+        __syncwarp();  // every flip of the color is in before the next reads
+      }
+    }
+    group_sync(wpg, grp);  // the step's extra draws are in
+    if (in_rung) {
+      // 2) top-rung logical mix
+      if (r == Nc - 1 && P.p_logical > 0.f)
+        top_mix_wide(P, X, Z, tab, meta, beta + 3 * r, gate, mlogu, dwords, l, L, mask);
+      // the rung's counts after the mix, over its lanes' words
+      int n[kCnt];
+#pragma unroll
+      for (int k = 0; k < kCnt; ++k) n[k] = 0;
+      for (int w = l; w < nw; w += L) {
+        const uint64_t x = X[w], z = Z[w];
+        if constexpr (EQ) {
+          n[0] += __popcll(x | z);
+        } else {
+          n[0] += __popcll(x & ~z);
+          n[1] += __popcll(x & z);
+          n[2] += __popcll(~x & z);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kCnt; ++k) n[k] = rung_sum(n[k], mask, L);
+      if (l == 0)
+#pragma unroll
+        for (int k = 0; k < kCnt; ++k) cnt[r * kCnt + k] = n[k];
+    }
+    group_sync(wpg, grp);
+    int burned = 0;
+    if (gt == 0)
+      burned = exchange_step<EQ>(P, buf, beta, xlogu, slot, flag, cnt, swacc, t, b, tops, since,
+                                 bfirst, esum, chunk_left, chunk);
+    group_sync(wpg, grp);
+    // the bottom rung's class (thread 0) and, in trace mode, its chain
+    // hash, component c on lane c % L
+    if (r == 0) {
+      const uint64_t* X0 = planes + (size_t)slot[0] * cs;
+      const size_t row = (size_t)t * P.B + b;
+      if (gt == 0 && (burned || P.traces)) {
+        const int cls = class_of_wide(X0, X0 + nw, P, tab, meta);
+        if (burned) ++eqc[cls];
+        if (P.traces) buf.eq_trace[row] = cls;
+      }
+      if (P.traces)
+        for (int c = l; c < kKeys; c += L)
+          buf.key_trace[row * kKeys + c] = chain_key_wide(X0, X0 + nw, nw, tab + P.off_key, c);
+    }
+    __syncwarp();  // the bottom rung is read before its next sweep
+  }
+  group_sync(wpg, grp);
+
+  // store: rung r's chain from its slot
+  {
+    uint8_t* dst = buf.state_out + (size_t)b * Nc * nq;
+    for (int i = gt; i < Nc * nq; i += GT) {
+      const int rr = i / nq, q = i - rr * nq;
+      const uint64_t* pl = planes + (size_t)slot[rr] * cs;
+      const uint32_t x = (uint32_t)(pl[q >> 6] >> (q & 63)) & 1u;
+      const uint32_t z = (uint32_t)(pl[nw + (q >> 6)] >> (q & 63)) & 1u;
+      dst[i] = (uint8_t)(x ^ (z * 3u));
+    }
+  }
+  for (int i = gt; i < Nc; i += GT) buf.flag_out[(size_t)b * Nc + i] = flag[i];
+  for (int i = gt; i < K; i += GT) buf.eq_out[(size_t)b * K + i] = eqc[i];
+  for (int i = gt; i < Nc - 1; i += GT) buf.swap_acc[(size_t)b * (Nc - 1) + i] = swacc[i];
+  if (gt == 0) {
+    buf.tops_out[b] = tops;
+    buf.since_out[b] = since;
+    buf.burn_any[b] = bfirst >= 0 ? 1 : 0;
+    buf.burn_first[b] = bfirst > 0 ? bfirst : 0;
+  }
+}
+
+// The kernel of ``F<NW, S, EQ>``: a register instantiation, or the large
+// variant for NW == kWide.
+template <int NW, int S, bool EQ>
+inline void (*kernel_of())(const WindowParams, const WindowBuffers) {
+  if constexpr (NW == kWide)
+    return ladder_window_kernel_wide<S, EQ>;
+  else
+    return ladder_window_kernel<NW, S, EQ>;
+}
+
 template <int NW, int S, bool EQ>
 cudaError_t launch(const WindowParams& P, const WindowBuffers& buf, cudaStream_t stream) {
   const int threads = 32 * P.warps_per_group * P.groups_per_block;
@@ -702,29 +1074,31 @@ cudaError_t launch(const WindowParams& P, const WindowBuffers& buf, cudaStream_t
     return cudaErrorInvalidValue;
   if (P.traces && (buf.eq_trace == nullptr || buf.key_trace == nullptr))
     return cudaErrorInvalidValue;
-  const size_t smem = Layout<EQ>(P).bytes;
+  const size_t smem = Layout<EQ, NW == kWide>(P).bytes;
   if (smem != (size_t)P.smem) return cudaErrorInvalidValue;  // the wrapper's plan differs
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ladder_window_kernel<NW, S, EQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel_of<NW, S, EQ>(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int blocks = (P.B + P.groups_per_block - 1) / P.groups_per_block;
-  ladder_window_kernel<NW, S, EQ><<<blocks, threads, smem, stream>>>(P, buf);
+  if constexpr (NW == kWide)
+    ladder_window_kernel_wide<S, EQ><<<blocks, threads, smem, stream>>>(P, buf);
+  else
+    ladder_window_kernel<NW, S, EQ><<<blocks, threads, smem, stream>>>(P, buf);
   return cudaGetLastError();
 }
 
 template <int NW, int S, bool EQ>
 int resident_blocks(const WindowParams& P) {
-  const size_t smem = Layout<EQ>(P).bytes;
+  const size_t smem = Layout<EQ, NW == kWide>(P).bytes;
   if (smem > 48 * 1024 &&
-      cudaFuncSetAttribute(ladder_window_kernel<NW, S, EQ>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cudaFuncSetAttribute(kernel_of<NW, S, EQ>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess)
     return -1;
   int n = -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, ladder_window_kernel<NW, S, EQ>, 32 * P.warps_per_group * P.groups_per_block,
+          &n, kernel_of<NW, S, EQ>(), 32 * P.warps_per_group * P.groups_per_block,
           smem) != cudaSuccess)
     return -1;
   return n;
@@ -743,11 +1117,19 @@ struct Resident {
 };
 
 // Run ``F<NW, S, EQ>`` for the launch's words per plane, spanned words per
-// stabilizer (ops/ladder_window.py::KERNEL_SHAPES) and sweep form, or
-// return ``bad``.
+// stabilizer (ops/ladder_window.py::KERNEL_SHAPES; in the large variant,
+// NW = kWide, 1, 2 or 4 spanned words at any word count up to kWideWords)
+// and sweep form, or return ``bad``.
 template <template <int, int, bool> class F, class... A>
 int dispatch(const WindowParams& P, int bad, A... args) {
   const bool eq = P.equal_betas != 0;
+  if (P.wide) {
+    if (P.nw > kWideWords || (size_t)P.nw * 64 < (size_t)P.nq) return bad;
+    if (P.span == 1) return eq ? F<kWide, 1, true>::run(P, args...) : F<kWide, 1, false>::run(P, args...);
+    if (P.span == 2) return eq ? F<kWide, 2, true>::run(P, args...) : F<kWide, 2, false>::run(P, args...);
+    if (P.span == 4) return eq ? F<kWide, 4, true>::run(P, args...) : F<kWide, 4, false>::run(P, args...);
+    return bad;
+  }
 #define MQT_SHAPE(W, SP)                                            \
   if (P.nw == W && P.span == SP)                                   \
     return eq ? F<W, SP, true>::run(P, args...) : F<W, SP, false>::run(P, args...);

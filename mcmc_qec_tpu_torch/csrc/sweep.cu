@@ -353,10 +353,6 @@ __global__ void __launch_bounds__(kSweepThreads, NW <= 2 ? 4 : (NW <= 6 ? 2 : 1)
 // The large variant: more than 16 words per plane, planes in shared memory
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void xor_shared(uint64_t* a, uint64_t v) {
-  atomicXor(reinterpret_cast<unsigned long long*>(a), (unsigned long long)v);
-}
-
 // One color of sweep ``t`` on a chain whose planes X and Z (``nw`` words
 // each) sit in shared memory: lane l draws the color's Philox blocks g = l,
 // l + L, ... and decides their stabilizers as sweep_color does, each on the
@@ -376,35 +372,13 @@ __device__ __forceinline__ void sweep_color_wide(uint64_t* X, uint64_t* Z, const
       const int j = 4 * g + e;
       if (j >= n) break;
       const int s = c0 + j;
-      const uint64_t* ent = stab + (size_t)s * 3 * S;
       const uint32_t sp = (uint32_t)span[s], wd = wide[s];
       int wm[S];
-      uint64_t xm[S], zm[S];
-      int d0 = 0, tx = 0, tz = 0;  // dN (equal betas) or dN_y and the overlaps
 #pragma unroll
-      for (int m = 0; m < S; ++m) {
-        wm[m] = (int)((wd >> (8 * m)) & 255u);
-        const uint64_t su = ent[3 * m];
-        xm[m] = ent[3 * m + 1];
-        zm[m] = ent[3 * m + 2];
-        const uint64_t x = X[wm[m]], z = Z[wm[m]];
-        if constexpr (EQ) {
-          d0 += __popcll(((x ^ xm[m]) | (z ^ zm[m])) & su) - __popcll((x | z) & su);
-        } else {
-          tx += __popcll(x & xm[m]);
-          tz += __popcll(z & zm[m]);
-          d0 += __popcll((x ^ xm[m]) & (z ^ zm[m]) & su) - __popcll(x & z & su);
-        }
-      }
-      float logr;
-      if constexpr (EQ) {
-        logr = -(bx * (float)d0);
-      } else {
-        const int cx = (int)((sp >> 4) & 15), cz = (int)((sp >> 8) & 15);
-        const int d1 = (cx - 2 * tx) - d0, d3 = (cz - 2 * tz) - d0;
-        logr = -__fadd_rn(__fadd_rn(__fmul_rn(bx, (float)d1), __fmul_rn(by, (float)d0)),
-                          __fmul_rn(bz, (float)d3));
-      }
+      for (int m = 0; m < S; ++m) wm[m] = (int)((wd >> (8 * m)) & 255u);
+      uint64_t xm[S], zm[S];
+      const float logr =
+          proposal_logr_at<S, EQ>(X, Z, stab + (size_t)s * 3 * S, sp, wm, bx, by, bz, xm, zm);
       if (logr >= 0.f || logf(uniform24(word_of(v, e))) < logr) {
 #pragma unroll
         for (int m = 0; m < S; ++m) {

@@ -13,11 +13,13 @@ unfused ladder steps (``mcmc/ladder.py::make_ladder_step``) with the same
 outputs: ``"sweep"`` (the sweep kernel's general branch at a row of betas
 per chain, then the top-rung logical mix), ``"literal"`` and ``"pallas"``
 (the literal update, as the JAX package runs both, pteq.py:309-312 and
-ladder.py:156-157).  Where the window kernel cannot hold a code's ladder
-(``ops/ladder_window.py::window_kernel_fits``, decided from shapes before
-any build or launch) the fused engine runs the ``"sweep"`` window instead,
-the JAX package's fallback (pteq.py:306-309); ``PTEQResult.window`` says
-which window ran.
+ladder.py:156-157).  The window kernel runs a ladder in its register
+form or, where the registers cannot hold it (above 16 words per plane,
+or a group too large for their shared memory), in its large variant;
+where neither holds it (``ops/ladder_window.py::window_kernel_fits``,
+decided from shapes before any build or launch) the fused engine runs the
+``"sweep"`` window instead, the JAX package's fallback (pteq.py:306-309);
+``PTEQResult.window`` says which window ran.
 
 Semantics kept from the JAX decoder (and through it from the reference,
 decoders.py:25-105): convergence is checked once per window, every syndrome
@@ -127,10 +129,11 @@ class PTEQResult:
     shortest_overflow: Optional[np.ndarray] = None
     # device-batch sizes after each compaction (empty = never compacted)
     buckets: Tuple[int, ...] = ()
-    # the window that ran: "fused" (the window kernel, or its plain version
-    # on the CPU) or the unfused ladder step's engine ("sweep", "literal",
-    # "pallas"); "sweep" under engine="auto" or "fused" where the window
-    # kernel cannot hold the ladder (ops/ladder_window.py::window_kernel_fits)
+    # the window that ran: "fused" (the window kernel in either form, or its
+    # plain version on the CPU) or the unfused ladder step's engine
+    # ("sweep", "literal", "pallas"); "sweep" under engine="auto" or
+    # "fused" where no form of the window kernel holds the ladder
+    # (ops/ladder_window.py::window_kernel_fits)
     window: str = "fused"
 
 
@@ -251,10 +254,10 @@ def _get_window_fn(spec: CodeSpec, Nc: int, cfg: PTEQConfig,
         return _WINDOW_CACHE[key]
     if engine == "fused" and not window_kernel_fits(spec, Nc, equal_betas,
                                                     cfg.iters):
-        # the window kernel has no instantiation or block for this code and
-        # ladder: the same math, unfused (the JAX package's documented
-        # fallback, pteq.py:306-309); on the card each ladder step's sweeps
-        # are one launch of the sweep kernel
+        # neither form of the window kernel holds this code's ladder: the
+        # same math, unfused (the JAX package's documented fallback,
+        # pteq.py:306-309); on the card each ladder step's sweeps are one
+        # launch of the sweep kernel
         engine = "sweep"
     if engine != "fused":
         fn = _unfused_window(spec, Nc, cfg, track_shortest, top_exact_accept,

@@ -9,6 +9,14 @@ window).  ``make_ladder_window`` returns a function with the exact
   first use, ``ops/_build.py``) once per window, or raises;
 - a CPU tensor runs ``ladder_window_reference``, the plain version.
 
+The kernel has two forms, picked from shapes before any launch
+(``window_form``): the register form, each rung's planes in its lanes'
+registers (``KERNEL_SHAPES``, up to 16 words per plane), and the large
+variant, the planes in shared memory and the word count a run-time value,
+for every ladder the registers cannot hold (codes above 16 words per
+plane, up to WIDE_WORDS; groups too large for the register form's shared
+memory).  Both compute the same function.
+
 Every branch of the TPU kernel is ported:
 
 - the sweep: equal per-Pauli betas (acceptance on the total error count,
@@ -51,7 +59,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,11 +73,15 @@ from .philox import MASK32, philox4x32
 # code's word count is rounded up to the next; the extra words stay zero).
 # 16 words (nq <= 1024) is the most, and the narrow spanned-word entry packs
 # a word index in 4 bits.  Above 16 words the tables hold the code's exact
-# word count and a wide entry, 8 bits a word index, which only the sweep
-# kernel's large variant reads (ops/sweep.py::MAX_WORDS)
+# word count and a wide entry, 8 bits a word index, which the large
+# variants of both kernels read (ops/sweep.py::MAX_WORDS)
 KERNEL_WORDS = (1, 2, 3, 4, 6, 8, 12, 16)
-# most words per plane an 8-bit word index of the wide entry names
+# most words per plane an 8-bit word index of the wide entry names, and
+# so the most the kernels' large variants take (nq <= 16384)
 WIDE_WORDS = 256
+# spanned-word entries per stabilizer the window kernel's large variant is
+# instantiated for (csrc/ladder_window.cu::dispatch)
+WIDE_SPANS = (1, 2, 4)
 # (words per plane, spanned-word entries per stabilizer) both kernels are
 # instantiated for (csrc/ladder_window.cu::dispatch, csrc/sweep.cu::dispatch):
 # a stabilizer spanning 3 words is padded to 4 entries.  Rotated and XZZX
@@ -490,7 +502,7 @@ class _Params(ctypes.Structure):
         "n_tab", "n_meta", "off_class", "off_key", "off_span",
         "m_draw", "m_lut", "m_b2e", "m_span", "m_blk", "m_bcol", "n_blk",
         "equal_betas", "top_exact", "even_odd", "traces", "tab_in_smem",
-        "smem",
+        "smem", "wide", "m_wide",
     )] + [(n, ctypes.c_float) for n in (
         "p_logical", "w0", "w1", "w2", "inv_chunk",
     )] + [(n, ctypes.c_uint32) for n in ("key0", "key1", "fixed_word")]
@@ -517,8 +529,8 @@ def kernel_words(nq: int) -> int:
 
 def is_wide(spec: CodeSpec) -> bool:
     """Whether ``spec`` needs more than KERNEL_WORDS[-1] words per plane:
-    the wide spanned-word entries, and of the kernels only the sweep
-    kernel's large variant."""
+    the wide spanned-word entries, and the kernels' large variants (no
+    register instantiation holds its planes)."""
     return -(-spec.nq // 64) > KERNEL_WORDS[-1]
 
 
@@ -583,8 +595,9 @@ def kernel_tables(spec: CodeSpec):
     its first Philox block of a sweep use's draws (one block per four
     stabilizers), per such block its color, bits_to_eq, and above 16 words
     per plane (``m_wide``; None below) per stabilizer its wide entry.  The
-    window kernel reads the table from ``off_draw`` on; it takes codes up
-    to 16 words per plane only (``kernel_shape``)."""
+    window kernel reads the table from ``off_draw`` on, in either form
+    (``window_form``); above WIDE_WORDS words per plane no entry can name
+    a word and the tables are not built."""
     nq = spec.nq
     nw = kernel_words(nq)
     tab, meta = [], []
@@ -657,26 +670,28 @@ def kernel_tables(spec: CodeSpec):
 def has_kernel_shape(spec: CodeSpec) -> bool:
     """Whether both kernels' register instantiations take ``spec``: at most
     KERNEL_WORDS[-1] words per plane, and its (words per plane, spanned
-    words per stabilizer) in KERNEL_SHAPES.  The window kernel has no other
-    form; the sweep kernel's large variant takes larger codes
-    (ops/sweep.py::sweep_kernel_fits)."""
+    words per stabilizer) in KERNEL_SHAPES.  Both kernels have a large
+    variant beside them, which takes larger codes and, in the window
+    kernel, ladders too large for the registers (``window_form``;
+    ops/sweep.py::sweep_kernel_fits)."""
     if is_wide(spec):
         return False
     return (kernel_words(spec.nq), spanned_words(spec)) in KERNEL_SHAPES
 
 
 def kernel_shape(spec: CodeSpec) -> Tuple[int, int]:
-    """(words per plane, spanned-word entries per stabilizer) of the
-    register instantiation for ``spec``; a ``ValueError`` where none is
-    built.  The window kernel's CUDA branch calls it before any work."""
-    if is_wide(spec):
+    """(words per plane, spanned-word entries per stabilizer) of the kernel
+    that takes ``spec``: its register instantiation up to 16 words per
+    plane, the large variant's (the code's own word count) above; a
+    ``ValueError`` above WIDE_WORDS words, where neither is built."""
+    need = -(-spec.nq // 64)
+    if need > WIDE_WORDS:
         raise ValueError(
-            f"nq={spec.nq} needs {kernel_words(spec.nq)} words per plane; the "
-            f"window kernel is built for at most {KERNEL_WORDS[-1]} (nq <= "
-            f"{64 * KERNEL_WORDS[-1]}); its plain version on the CPU takes "
-            f"any size")
+            f"nq={spec.nq} needs {need} words per plane; the kernels take at "
+            f"most {WIDE_WORDS} (nq <= {64 * WIDE_WORDS}); the plain versions "
+            f"on the CPU take any size")
     shape = (kernel_words(spec.nq), spanned_words(spec))
-    if shape not in KERNEL_SHAPES:
+    if not is_wide(spec) and shape not in KERNEL_SHAPES:
         raise ValueError(f"no kernel for {shape[0]} words per plane and "
                          f"{shape[1]} spanned words per stabilizer")
     return shape
@@ -702,26 +717,63 @@ def window_table_words(offs) -> int:
     return offs["n_tab"] - offs["off_draw"]
 
 
+def _group_scalars(Nc: int, K: int, equal_betas: bool, iters: int,
+                   n_draws: int) -> int:
+    """4-byte entries of a group's shared memory beside its chains and
+    sweep draws, in either form: the exchange's log-uniforms, the mix's
+    gates, log-uniforms and logical-draw words, and per rung its
+    permutation entry, flag and counts, then the swap counts and the class
+    histogram."""
+    n_cnt = 1 if equal_betas else 3
+    return ((Nc - 1) + 2 * iters + 3 * iters * n_draws + 2 * Nc + Nc * n_cnt
+            + (Nc - 1) + K)
+
+
 def group_bytes(offs, Nc: int, K: int, equal_betas: bool, iters: int,
                 n_draws: int) -> int:
-    """Shared memory of one syndrome's group
+    """Shared memory of one syndrome's group in the register form
     (csrc/ladder_window.cu::Layout): its Nc chains published for the
     exchange, twice (by step parity), the step's log-uniforms of every
-    sweep and its other draws, and the per-rung permutation, flag and
-    counts, swap counts and class histogram, rounded up to 8 bytes."""
-    n_cnt = 1 if equal_betas else 3
-    n4 = (iters * Nc * 4 * offs["n_blk"] + (Nc - 1) + 2 * iters
-          + 3 * iters * n_draws + 2 * Nc + Nc * n_cnt + (Nc - 1) + K)
+    sweep and ``_group_scalars``, rounded up to 8 bytes."""
+    n4 = (iters * Nc * 4 * offs["n_blk"]
+          + _group_scalars(Nc, K, equal_betas, iters, n_draws))
     return -(-(8 * 2 * Nc * 2 * offs["nw"] + 4 * n4) // 8) * 8
+
+
+def wide_group_bytes(offs, Nc: int, K: int, equal_betas: bool, iters: int,
+                     n_draws: int) -> int:
+    """Shared memory of one syndrome's group in the large variant
+    (csrc/ladder_window.cu::Layout<EQ, true>): the planes of its Nc
+    chains, one slot each of 2 * nw + 1 words (X, Z and a padding word,
+    against bank conflicts between slots), and ``_group_scalars``; no
+    sweep draws (each lane draws its Philox blocks as it decides them),
+    rounded up to 8 bytes."""
+    n4 = _group_scalars(Nc, K, equal_betas, iters, n_draws)
+    return -(-(8 * Nc * (2 * offs["nw"] + 1) + 4 * n4) // 8) * 8
+
+
+def _block_bytes(offs, Nc: int, groups: int, group: int,
+                 tab_in_smem: bool) -> int:
+    """A block's dynamic shared memory: the window's tables (or none),
+    ``groups`` groups of ``group`` bytes, the meta and the betas."""
+    return (8 * window_table_words(offs) * int(tab_in_smem) + groups * group
+            + 4 * offs["n_meta"] + 4 * 3 * Nc)
 
 
 def smem_bytes(offs, Nc: int, K: int, groups: int, equal_betas: bool,
                iters: int, n_draws: int, tab_in_smem: bool) -> int:
-    """Dynamic shared memory of one block of ``groups`` groups
-    (csrc/ladder_window.cu::Layout)."""
-    return (8 * window_table_words(offs) * int(tab_in_smem)
-            + groups * group_bytes(offs, Nc, K, equal_betas, iters, n_draws)
-            + 4 * offs["n_meta"] + 4 * 3 * Nc)
+    """Dynamic shared memory of one block of ``groups`` groups in the
+    register form (csrc/ladder_window.cu::Layout)."""
+    return _block_bytes(offs, Nc, groups, group_bytes(
+        offs, Nc, K, equal_betas, iters, n_draws), tab_in_smem)
+
+
+def wide_smem_bytes(offs, Nc: int, K: int, groups: int, equal_betas: bool,
+                    iters: int, n_draws: int, tab_in_smem: bool) -> int:
+    """Dynamic shared memory of one block of ``groups`` groups in the
+    large variant."""
+    return _block_bytes(offs, Nc, groups, wide_group_bytes(
+        offs, Nc, K, equal_betas, iters, n_draws), tab_in_smem)
 
 
 def lanes_per_rung(offs, Nc: int) -> int:
@@ -741,17 +793,13 @@ class BlockShape(NamedTuple):
     smem: int  # dynamic shared memory per block, bytes
 
 
-def block_shape(offs, Nc: int, K: int, B: int, n_sm: int, equal_betas: bool,
-                iters: int, n_draws: int) -> BlockShape:
-    """The launch of one window: ``lanes_per_rung`` lanes per rung, a
-    syndrome's Nc * lanes threads padded to whole warps, and
-    groups per block spread so that the batch covers about every SM once,
-    within the thread bound, the named barriers of multi-warp groups and
-    227 KB of shared memory.  The tables go to shared memory when one
-    group fits beside them, else the kernel reads them from device memory
-    (toric d=19: 85 KB of tables fit beside a 19-rung group of 125 KB, not
-    beside a 25-rung one)."""
-    L = lanes_per_rung(offs, Nc)
+def _pack_groups(L: int, Nc: int, B: int, n_sm: int, smem,
+                 tab_in_smem: bool, what: str) -> BlockShape:
+    """The launch of one window at ``L`` lanes per rung: a syndrome's
+    Nc * L threads padded to whole warps, and groups per block spread so
+    that the batch covers about every SM once, within the thread bound,
+    the named barriers of multi-warp groups and 227 KB of shared memory
+    (``smem(groups, tab_in_smem)``)."""
     if L & (L - 1) or not 1 <= L <= 32:
         raise ValueError(f"lanes={L}: expected a power of two up to 32")
     wpg = -(-Nc * L // 32)
@@ -760,36 +808,116 @@ def block_shape(offs, Nc: int, K: int, B: int, n_sm: int, equal_betas: bool,
         cap = min(cap, MAX_NAMED_BARRIERS)
     if cap < 1:
         raise ValueError(f"Nc={Nc} x lanes={L} exceeds {MAX_THREADS} threads")
+    gpb = max(1, min(cap, -(-B // n_sm)))
+    while gpb > 1 and smem(gpb, tab_in_smem) > SMEM_LIMIT:
+        gpb -= 1
+    if smem(gpb, tab_in_smem) > SMEM_LIMIT:
+        raise ValueError(f"one syndrome's ladder ({what}) does not fit in "
+                         f"shared memory")
+    return BlockShape(L, wpg, gpb, 32 * wpg * gpb, tab_in_smem,
+                      smem(gpb, tab_in_smem))
+
+
+def block_shape(offs, Nc: int, K: int, B: int, n_sm: int, equal_betas: bool,
+                iters: int, n_draws: int) -> BlockShape:
+    """The launch of one window in the register form: ``lanes_per_rung``
+    lanes per rung, packed by ``_pack_groups``, the tables in shared
+    memory when one group fits beside them, else read from device memory
+    (toric d=19: 85 KB of tables fit beside a 19-rung group of 125 KB, not
+    beside a 25-rung one)."""
     smem = functools.partial(smem_bytes, offs, Nc, K, equal_betas=equal_betas,
                              iters=iters, n_draws=n_draws)
-    tab_in_smem = smem(1, tab_in_smem=True) <= SMEM_LIMIT
-    gpb = max(1, min(cap, -(-B // n_sm)))
-    while gpb > 1 and smem(gpb, tab_in_smem=tab_in_smem) > SMEM_LIMIT:
-        gpb -= 1
-    if smem(gpb, tab_in_smem=tab_in_smem) > SMEM_LIMIT:
-        raise ValueError(f"one syndrome's ladder (Nc={Nc}, {offs['nw']} words "
-                         f"per plane) does not fit in shared memory")
-    return BlockShape(L, wpg, gpb, 32 * wpg * gpb, tab_in_smem,
-                      smem(gpb, tab_in_smem=tab_in_smem))
+    return _pack_groups(lanes_per_rung(offs, Nc), Nc, B, n_sm,
+                        lambda g, t: smem(g, tab_in_smem=t),
+                        smem(1, tab_in_smem=True) <= SMEM_LIMIT,
+                        f"Nc={Nc}, {offs['nw']} words per plane")
+
+
+def wide_lanes(offs, Nc: int) -> int:
+    """Lanes per rung of the large variant: ``lanes_per_rung`` (8 for every
+    code above 16 words) where Nc of them fit a block's MAX_THREADS
+    threads, otherwise the most that fit (a power of two, at least 1 for
+    Nc <= MAX_THREADS)."""
+    fit = 1 << max(0, (MAX_THREADS // max(Nc, 1)).bit_length() - 1)
+    return min(lanes_per_rung(offs, Nc), fit)
+
+
+def wide_block_shape(offs, Nc: int, K: int, B: int, n_sm: int,
+                     equal_betas: bool, iters: int, n_draws: int
+                     ) -> BlockShape:
+    """The launch of one window in the large variant: ``wide_lanes`` lanes
+    per rung, packed by ``_pack_groups`` (rotated d=37 at 37 rungs: 8
+    lanes, ten warps and 14 KB a syndrome), the tables read from device
+    memory: a toric d=25 window is 10% faster so at B=128 and 5% at
+    B=1024 than with the tables in shared memory (on an H100,
+    chip_window_probe.py), and the shared memory is left to the groups."""
+    smem = functools.partial(wide_smem_bytes, offs, Nc, K,
+                             equal_betas=equal_betas, iters=iters,
+                             n_draws=n_draws)
+    return _pack_groups(wide_lanes(offs, Nc), Nc, B, n_sm,
+                        lambda g, t: smem(g, tab_in_smem=t), False,
+                        f"Nc={Nc}, {offs['nw']} words per plane, large "
+                        f"variant")
+
+
+def window_form(spec: CodeSpec, Nc: int, equal_betas: bool,
+                iters: int) -> Optional[str]:
+    """Which form of the window kernel runs a window of ``Nc`` rungs of
+    ``spec``, decided from shapes alone, before any build or launch:
+
+    - ``"registers"``: the code has a register instantiation
+      (``has_kernel_shape``), one syndrome's Nc x ``lanes_per_rung``
+      threads fit a block and one group fits 227 KB of shared memory with
+      the tables in device memory;
+    - ``"large"`` failing that: the large variant, the planes in shared
+      memory, takes at most WIDE_WORDS words per plane, one group of Nc
+      rungs at ``wide_lanes`` (at least one lane a rung, so Nc <=
+      MAX_THREADS) and its group in 227 KB with the tables in device
+      memory;
+    - None beyond both, where PTEQ runs the unfused window
+      (decoders/pteq.py::_get_window_fn), as the JAX package does where
+      its fused kernel does not fit (pteq.py:306-309).
+
+    Codes of 16 words or fewer keep the register form wherever it fits;
+    ``block_shape`` and ``wide_block_shape`` find a launch at every batch
+    of the form it names."""
+    K, nd = spec.n_classes, len(spec.logical_draws)
+    if has_kernel_shape(spec):
+        offs = kernel_tables(spec)[2]
+        threads = 32 * -(-Nc * lanes_per_rung(offs, Nc) // 32)
+        if threads <= MAX_THREADS and smem_bytes(
+                offs, Nc, K, 1, equal_betas, iters, nd,
+                tab_in_smem=False) <= SMEM_LIMIT:
+            return "registers"
+    if -(-spec.nq // 64) > WIDE_WORDS or not 1 <= Nc <= MAX_THREADS:
+        return None
+    offs = kernel_tables(spec)[2]
+    if offs["span"] not in WIDE_SPANS:
+        return None
+    if wide_smem_bytes(offs, Nc, K, 1, equal_betas, iters, nd,
+                       tab_in_smem=False) > SMEM_LIMIT:
+        return None
+    return "large"
 
 
 def window_kernel_fits(spec: CodeSpec, Nc: int, equal_betas: bool,
                        iters: int) -> bool:
-    """Whether the window kernel can run a window of ``Nc`` rungs of
-    ``spec``: it is instantiated for the code (``has_kernel_shape``), one
-    syndrome's Nc x ``lanes_per_rung`` threads fit a block, and one group
-    fits 227 KB of shared memory with the tables in device memory, so that
-    ``block_shape`` finds a launch at every batch.  Decided from shapes
-    alone, before any build or launch: where it is False, PTEQ runs the
-    unfused window instead (decoders/pteq.py::_get_window_fn), as the JAX
-    package does where its fused kernel does not fit."""
-    if not has_kernel_shape(spec):
-        return False
-    offs = kernel_tables(spec)[2]
-    threads = 32 * -(-Nc * lanes_per_rung(offs, Nc) // 32)
-    return threads <= MAX_THREADS and smem_bytes(
-        offs, Nc, spec.n_classes, 1, equal_betas, iters,
-        len(spec.logical_draws), tab_in_smem=False) <= SMEM_LIMIT
+    """Whether either form of the window kernel runs a window of ``Nc``
+    rungs of ``spec`` (``window_form`` is not None).  Where it is False,
+    PTEQ runs the unfused window instead (decoders/pteq.py::_get_window_fn),
+    as the JAX package does where its fused kernel does not fit."""
+    return window_form(spec, Nc, equal_betas, iters) is not None
+
+
+def window_limit(spec: CodeSpec, Nc: int) -> str:
+    """Why no form of the window kernel holds ``Nc`` rungs of ``spec``,
+    naming the large variant's limits."""
+    return (f"no form of the window kernel holds Nc={Nc} rungs of nq="
+            f"{spec.nq} ({-(-spec.nq // 64)} words per plane): the large "
+            f"variant takes at most {WIDE_WORDS} words per plane (nq <= "
+            f"{64 * WIDE_WORDS}), {MAX_THREADS} rungs and one syndrome's "
+            f"planes, 8 * Nc * (2 * words + 1) bytes, within {SMEM_LIMIT} B "
+            f"of shared memory; the plain version on the CPU takes any size")
 
 
 @functools.lru_cache(maxsize=None)
@@ -822,12 +950,17 @@ def _kernel_entry():
 
 def _layout_fields(spec: CodeSpec, B: int, Nc: int, iters: int,
                    equal_betas: bool, device: torch.device):
-    """(BlockShape, the ``_Params`` fields that set the kernel's shape and
-    shared-memory layout) of a window launch on ``device``."""
+    """(BlockShape, the ``_Params`` fields that set the kernel's form,
+    shape and shared-memory layout) of a window launch on ``device``; a
+    ``ValueError`` where no form holds the ladder (``window_form``)."""
+    form = window_form(spec, Nc, equal_betas, iters)
+    if form is None:
+        raise ValueError(window_limit(spec, Nc))
     _, _, offs = kernel_tables(spec)
     K, n_draws = spec.n_classes, len(spec.logical_draws)
-    shape = block_shape(offs, Nc, K, B, _sm_count(device), equal_betas, iters,
-                        n_draws)
+    plan = block_shape if form == "registers" else wide_block_shape
+    shape = plan(offs, Nc, K, B, _sm_count(device), equal_betas, iters,
+                 n_draws)
     base = offs["off_draw"]  # the window kernel's table starts there
     return shape, dict(
         B=B, Nc=Nc, nq=spec.nq, nw=offs["nw"], K=K, n_bits=spec.n_class_bits,
@@ -842,15 +975,17 @@ def _layout_fields(spec: CodeSpec, B: int, Nc: int, iters: int,
         m_lut=offs["m_lut"], m_b2e=offs["m_b2e"], m_span=offs["m_span"],
         m_blk=offs["m_blk"], m_bcol=offs["m_bcol"], n_blk=offs["n_blk"],
         equal_betas=int(equal_betas), tab_in_smem=int(shape.tab_in_smem),
-        smem=shape.smem,
+        smem=shape.smem, wide=int(form == "large"),
+        m_wide=-1 if offs["m_wide"] is None else offs["m_wide"],
     )
 
 
 def launch_plan(spec: CodeSpec, B: int, Nc: int, iters: int,
                 equal_betas: bool, device="cuda"):
     """(BlockShape, blocks of it one SM holds at once) of a window launch
-    at this shape on a CUDA ``device``: the occupancy calculator's answer
-    for the built kernel's registers, threads and shared memory."""
+    at this shape on a CUDA ``device``, in the form ``window_form`` picks:
+    the occupancy calculator's answer for the built kernel's registers,
+    threads and shared memory."""
     from . import _build
 
     device = torch.device(device)
@@ -874,7 +1009,8 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
     K = spec.n_classes
     if nq != spec.nq:
         raise ValueError(f"state has {nq} qubits, spec {spec.nq}")
-    kernel_shape(spec)
+    if window_form(spec, Nc, equal_betas, iters) is None:
+        raise ValueError(window_limit(spec, Nc))
     _check(state, "state", (B, Nc, nq), torch.uint8, device)
     _check(flag, "flag", (B, Nc), torch.int32, device)
     _check(tops0, "tops0", (B,), torch.int32, device)
@@ -978,10 +1114,10 @@ def make_ladder_window(
     per call, counted in ``ladder_window_counts.launches``), CPU runs
     ``ladder_window_reference`` (counted in ``plain_calls``); any other
     device raises.  Only the kernel is bounded by the code's size: the CUDA
-    branch raises a ``ValueError`` before it launches for a code without an
-    instantiation (``kernel_shape``) or a ladder no block holds
-    (``block_shape``; ``window_kernel_fits`` says so up front); the plain
-    version takes any code.
+    branch runs the register form or the large variant (``window_form``)
+    and raises a ``ValueError`` before it launches where neither holds the
+    ladder (``window_limit``; ``window_kernel_fits`` says so up front);
+    the plain version takes any code.
     ``rng="zeros"`` makes every random draw 0 and an integer ``rng`` makes
     every draw that 32-bit word (parity tests and the chip smoke check
     only)."""

@@ -20,9 +20,10 @@ through what the CPU can reach of it.
     equals the JAX one on the same injected uniforms.
 (d) The slice as a whole: STDC at toric d=23, p=0.02, on the same 8
     syndromes through both packages (each recovers at least 7 and they
-    agree on at least 7 argmaxes); PTEQ at toric d=23 runs the unfused
-    window ("sweep", one sweep call a ladder step, no window-kernel call)
-    and its window keeps every rung's syndrome.
+    agree on at least 7 argmaxes); PTEQ at toric d=23 with
+    ``engine="sweep"`` runs the unfused window (one sweep call a ladder
+    step, no window-kernel call) and its window keeps every rung's
+    syndrome.
 (e) ``sweep_kernel_fits`` is exactly where ``sweep_plan`` finds a launch,
     for every family up to the limit (256 words per plane) and past it;
     above it ``_launch`` raises before any work, and a failing build or
@@ -332,9 +333,10 @@ def test_pteq_at_toric_d23_runs_the_unfused_window():
     spec = get_spec("toric", 23)
     Nc, W, B, p = 3, 8, 2, 0.02
     s = _states(spec, B, seed=24, p=p)
+    # the unfused window asked for by name (the window kernel's large
+    # variant holds this ladder, tests/test_torch_window_above_1024.py)
     cfg = PTEQConfig(Nc=Nc, max_steps=W, window=W, iters=1, energy_chunk=4,
-                     tops_burn=0)
-    assert not lw.window_kernel_fits(spec, Nc, True, cfg.iters)
+                     tops_burn=0, engine="sweep")
     pteq_mod._WINDOW_CACHE.clear()
     lw.ladder_window_counts.reset()
     sw.sweep_counts.reset()

@@ -3,25 +3,30 @@
 (a) ``KERNEL_SHAPES`` is exactly the list both CUDA sources instantiate
     (the ``MQT_SHAPE`` lines of ``csrc/ladder_window.cu`` and
     ``csrc/sweep.cu``), and every code up to 16 words per plane has one.
-(b) ``window_kernel_fits`` says exactly where ``block_shape`` finds a
-    launch of the window kernel.
+(b) ``window_form`` says exactly where ``block_shape`` finds a launch of
+    the window kernel's register form and, where it does not,
+    ``wide_block_shape`` one of its large variant; ``window_kernel_fits``
+    is True exactly where either does.
 (c) PTEQ at rotated d=15 and toric d=21 and PTEQ_alpha at xzzx d=15 decode
     under the default ``engine="auto"`` in the port and in the JAX package
     on the same syndromes: same shapes, valid distributions, and at p=0.02
     both call the true class on every row (no tolerance).
 (d) ``_get_window_fn`` picks the unfused sweep window exactly where the
-    predicate says the window kernel cannot hold the ladder (the JAX
+    predicate says no form of the window kernel holds the ladder (the JAX
     package's fallback), keyed as the JAX cache is, and says so in
-    ``PTEQResult.window``; a code the kernel cannot hold (xzzx d=31 at 31
-    rungs) falls back on its own; a window whose kernel fails to build or
-    launch raises and does not fall back.
-(e) Above 16 words per plane the window kernel's CUDA branch refuses the
-    code before any work, while the sweep kernel's passes its checks and
-    launches its large variant (the launch's params and tables seen
-    through a stand-in library).
+    ``PTEQResult.window``; a ladder beyond both forms (513 rungs, more
+    than a block has threads) falls back on its own; a window whose kernel
+    fails to build or launch raises and does not fall back, in either
+    form.
+(e) Above 16 words per plane both kernels' CUDA branches pass their checks
+    and launch their large variants (the launch's params and tables seen
+    through a stand-in library); the window kernel's refuses, before any
+    work and naming the limit, only a ladder no form holds.
 """
 
+import contextlib
 import re
+import types
 from pathlib import Path
 
 import numpy as np
@@ -80,11 +85,16 @@ def test_every_code_up_to_1024_qubits_has_an_instantiation(family):
         spec = get_spec(family, d)
         fits = spec.nq <= 1024
         assert lw.has_kernel_shape(spec) == fits, (family, d)
+        nw, span = lw.kernel_shape(spec)
         if fits:
-            assert lw.kernel_shape(spec) in lw.KERNEL_SHAPES
-        else:
-            with pytest.raises(ValueError, match="nq <= 1024"):
-                lw.kernel_shape(spec)
+            assert (nw, span) in lw.KERNEL_SHAPES
+        else:  # the large variants' shape: the code's own word count
+            assert nw == -(-spec.nq // 64) > lw.KERNEL_WORDS[-1]
+            assert span in lw.WIDE_SPANS
+    # past the wide entry's 8-bit word index no kernel takes the code
+    with pytest.raises(ValueError, match="nq <= 16384"):
+        lw.kernel_shape(get_spec(family, 91 if family in ("toric", "planar")
+                                 else 129))
 
 
 @pytest.mark.parametrize("family,d", [("toric", 5), ("xzzx", 13),
@@ -94,25 +104,32 @@ def test_every_code_up_to_1024_qubits_has_an_instantiation(family):
 def test_predicate_is_where_block_shape_finds_a_launch(family, d):
     spec = get_spec(family, d)
     nd, K = len(spec.logical_draws), spec.n_classes
+    offs = lw.kernel_tables(spec)[2]
+
+    def launches(plan, Nc, eq, iters):
+        try:
+            plan(offs, Nc, K, 512, 132, eq, iters, nd)
+            return True
+        except ValueError:
+            return False
+
     for Nc in (3, 5, d, 2 * d):
         for eq in (True, False):
             for iters in (1, 2):
-                fits = lw.window_kernel_fits(spec, Nc, eq, iters)
-                if not lw.has_kernel_shape(spec):
-                    assert not fits
-                    continue
-                offs = lw.kernel_tables(spec)[2]
-                try:
-                    lw.block_shape(offs, Nc, K, 512, 132, eq, iters, nd)
-                    launches = True
-                except ValueError:
-                    launches = False
-                assert fits == launches, (Nc, eq, iters)
-    # the largest ladders the kernel holds, and one it does not
-    assert lw.window_kernel_fits(get_spec("toric", 21), 21, True, 2)
-    assert lw.window_kernel_fits(get_spec("xzzx", 29), 29, False, 2)
-    assert not lw.window_kernel_fits(get_spec("xzzx", 31), 31, False, 2)
-    assert not lw.window_kernel_fits(get_spec("toric", 23), 4, True, 2)
+                form = lw.window_form(spec, Nc, eq, iters)
+                assert lw.window_kernel_fits(spec, Nc, eq, iters) == (form is not None)
+                registers = lw.has_kernel_shape(spec) and launches(
+                    lw.block_shape, Nc, eq, iters)
+                assert (form == "registers") == registers, (Nc, eq, iters)
+                if not registers:
+                    assert (form == "large") == launches(
+                        lw.wide_block_shape, Nc, eq, iters), (Nc, eq, iters)
+    # the largest ladders the register form holds, and the large variant's
+    assert lw.window_form(get_spec("toric", 21), 21, True, 2) == "registers"
+    assert lw.window_form(get_spec("xzzx", 29), 29, False, 2) == "registers"
+    assert lw.window_form(get_spec("xzzx", 31), 31, False, 2) == "large"
+    assert lw.window_form(get_spec("toric", 23), 4, True, 2) == "large"
+    assert not lw.window_kernel_fits(get_spec("toric", 5), 513, True, 2)
 
 
 def _states(spec, B, seed, p=0.02):
@@ -184,28 +201,32 @@ def test_fallback_follows_the_predicate(monkeypatch):
 
 
 def test_a_code_the_kernel_cannot_hold_falls_back():
-    """xzzx d=31 at its default 31 rungs and two sweeps a step: no block of
-    the window kernel holds the ladder, so PTEQ_alpha runs the unfused
-    sweep window."""
-    spec = get_spec("xzzx", 31)
-    assert not lw.window_kernel_fits(spec, 31, False, 2)
-    s = _states(spec, 2, seed=9)
-    cfg = PTEQConfig(max_steps=24, window=12, iters=2, energy_chunk=12,
+    """Toric d=3 at 513 rungs and two sweeps a step: more rungs than a
+    block has threads, so neither form of the window kernel holds the
+    ladder and PTEQ runs the unfused sweep window."""
+    spec = get_spec("toric", 3)
+    Nc = lw.MAX_THREADS + 1
+    assert not lw.window_kernel_fits(spec, Nc, True, 2)
+    s = _states(spec, 2, seed=9, p=0.1)
+    cfg = PTEQConfig(Nc=Nc, max_steps=24, window=12, iters=2, energy_chunk=12,
                      tops_burn=0)
-    res = PTEQ_alpha(spec, s, 0.02, 1.0, cfg=cfg, device="cpu")
+    res = PTEQ(spec, s, 0.02, cfg, device="cpu")
     assert res.window == "sweep"
     assert res.distribution.shape == (2, spec.n_classes)
     np.testing.assert_array_equal(res.distribution.argmax(1), np_eq_class(spec, s))
 
 
+@pytest.mark.parametrize("family,d", [("rotated", 15), ("toric", 23)])
 @pytest.mark.parametrize("error", [
     "nvcc failed (build)",
     "ladder_window kernel launch failed: cudaError 209",
 ])
-def test_a_failing_kernel_raises_and_does_not_fall_back(monkeypatch, error):
-    """Where the predicate says the kernel holds the window, a failure to
-    build or launch it reaches the caller: no ``try`` turns it into the
-    unfused window."""
+def test_a_failing_kernel_raises_and_does_not_fall_back(monkeypatch, error,
+                                                        family, d):
+    """Where the predicate says a form of the kernel holds the window (the
+    register form at rotated d=15, the large variant at toric d=23), a
+    failure to build or launch it reaches the caller: no ``try`` turns it
+    into the unfused window."""
     def failing(*args, **kwargs):
         def fn(*a):
             raise RuntimeError(error)
@@ -216,34 +237,72 @@ def test_a_failing_kernel_raises_and_does_not_fall_back(monkeypatch, error):
 
     monkeypatch.setattr(pteq_mod, "make_ladder_window", failing)
     monkeypatch.setattr(pteq_mod, "_unfused_window", no_fallback)
-    spec = get_spec("rotated", 15)
+    spec = get_spec(family, d)
+    assert lw.window_kernel_fits(spec, SMALL["Nc"], True, SMALL["iters"])
     with pytest.raises(RuntimeError, match=re.escape(error)):
         PTEQ(spec, _states(spec, 2, seed=10), 0.02, PTEQConfig(**SMALL),
              device="cpu")
 
 
-def test_the_card_path_refuses_codes_above_1024_qubits():
-    """Above 16 words per plane (toric and planar d >= 23) the window
-    kernel's CUDA branch raises before any work, naming the largest nq it
-    takes; its plain version still runs the window.  The sweep kernel takes
-    such codes in its large variant
-    (``test_the_sweep_kernel_takes_codes_above_1024_qubits``)."""
+class WindowLibrary:
+    """The window library's entry point without a card: records each
+    launch's params and returns 0 (success)."""
+
+    def __init__(self):
+        self.params = []
+
+    def mqt_ladder_window(self, P, bufs, stream):
+        self.params.append({n: getattr(P._obj, n) for n, _ in P._obj._fields_})
+        return 0
+
+
+def test_the_card_path_refuses_codes_above_1024_qubits(monkeypatch):
+    """The window kernel's CUDA branch takes toric d=23 (17 words per
+    plane) in its large variant: its checks pass and it launches with the
+    wide entries' offset, the code's word count and the plan's shared
+    memory.  It refuses, before any work and naming the limit, only a
+    ladder no form holds: a code past 256 words per plane (planar d=91,
+    nq=16562) or more rungs than a block has threads.  The plain version
+    runs both windows."""
     spec = get_spec("toric", 23)
-    state = torch.zeros((1, 3, spec.nq), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="nq=1058.*nq <= 1024"):
-        lw._launch(spec, state, *[None] * 7, window=1, iters=1, p_logical=0.5,
-                   tops_burn=0, energy_chunk=1, top_exact=True,
-                   equal_betas=True, exchange="sequential",
-                   track_traces=False, fixed=None, device_tables={})
-    assert not lw.has_kernel_shape(spec)
-    assert not lw.window_kernel_fits(spec, 3, True, 1)
-    out = lw.make_ladder_window(spec, 3, 4, 1, 0.5, 0, 4, top_exact=True,
+    fake = WindowLibrary()
+    monkeypatch.setattr(lw, "_kernel_entry", lambda: fake.mqt_ladder_window)
+    monkeypatch.setattr(lw, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    B, Nc = 5, 3
+    args = (torch.zeros((B, Nc, spec.nq), dtype=torch.uint8),
+            torch.zeros((B, Nc), dtype=torch.int32),
+            torch.zeros(B, dtype=torch.int32),
+            torch.zeros((B, spec.n_classes), dtype=torch.int32),
+            torch.zeros(B, dtype=torch.int32), 0, torch.zeros((Nc, 3)),
+            np.ones(3, np.float32))
+    kw = dict(window=4, iters=1, p_logical=0.5, tops_burn=0, energy_chunk=4,
+              top_exact=True, equal_betas=True, exchange="sequential",
+              track_traces=False, fixed=None)
+    lw.ladder_window_counts.reset()
+    tables = {}
+    out = lw._launch(spec, *args, device_tables=tables, **kw)
+    assert lw.ladder_window_counts.launches == 1
+    P, = fake.params
+    offs = lw.kernel_tables(spec)[2]
+    assert (P["wide"], P["nw"], P["span"], P["m_wide"]) == (1, 17, 4, offs["m_wide"])
+    shape = lw.wide_block_shape(offs, Nc, spec.n_classes, B, 132, True, 1,
+                                len(spec.logical_draws))
+    assert (P["lanes"], P["smem"]) == (shape.lanes, shape.smem)
+    assert out[0].shape == (B, Nc, spec.nq)
+    _, meta = tables[torch.device("cpu")]
+    assert len(meta) == offs["n_meta"] > offs["m_wide"]
+    for big, n in ((get_spec("planar", 91), 3), (get_spec("toric", 5), 513)):
+        state = torch.zeros((1, n, big.nq), dtype=torch.uint8)
+        with pytest.raises(ValueError, match=f"nq={big.nq}.*nq <= 16384"):
+            lw._launch(big, state, *[None] * 7, device_tables={}, **kw)
+    assert fake.params == [P] and lw.ladder_window_counts.launches == 1
+    state = args[0][:1]
+    out = lw.make_ladder_window(spec, Nc, 4, 1, 0.5, 0, 4, top_exact=True,
                                 equal_betas=True, rng="zeros")(
-        state, torch.zeros((1, 3), dtype=torch.int32),
-        torch.zeros(1, dtype=torch.int32),
-        torch.zeros((1, spec.n_classes), dtype=torch.int32),
-        torch.zeros(1, dtype=torch.int32), 0,
-        torch.zeros((3, 3)), np.ones(3, np.float32))
+        state, *(a[:1] for a in args[1:5]), 0, args[6], args[7])
     assert out[0].shape == state.shape
 
 
