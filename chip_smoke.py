@@ -110,6 +110,14 @@ kernel against its plain PyTorch version on the card:
   same call, PTEQ_alpha at xzzx d=33 against a failure bar, PTEQ at toric
   d=25 B=128 with one window against its bound and the plain version, and
   the large variant beside the register form at toric d=21.
+- The redesigned large variant (2 bits a qubit, a proposal one table
+  entry and four 32-bit loads, up to 1024 threads a block), which
+  ``window_form`` gives every code of 12 words per plane or more: kernel
+  vs plain version and vs the register form on the same inputs at toric
+  d=17, 19 and 21, planar d=21, rotated d=27 and 29 and xzzx d=25, at the
+  plan's lanes and at 16 and 32; phase 25's PTEQ at toric d=21 through it;
+  W=60 windows at toric d=23 B=16, xzzx d=33 B=64 and toric d=25 B=128
+  and B=1024 against their bounds.
 
 Each phase prints one line; any failed phase exits non-zero.  The line
 before the last is a JSON record of the kernels (launches on the main
@@ -185,7 +193,6 @@ from mcmc_qec_tpu_torch.ops.ladder_window import (
     _N_EXTRA_USES,
     _rng_layout,
     kernel_tables,
-    kernel_words,
     ladder_window_counts,
     ladder_window_reference,
     launch_plan,
@@ -434,6 +441,27 @@ WIDE_K2_ALPHA = dict(family="xzzx", d=33, eta=10.0, p=0.20, B=64,
                      max_steps=12000)
 WIDE_K2_TIMED = dict(family="toric", d=25, p=0.05, B=128, max_steps=1200)
 WIDE_K2_RECORD = dict(family="toric", d=21, p=0.05, B=64)
+# the redesigned large variant (phase 29), which ``window_form`` gives the
+# 12- and 16-word codes: (a) every output equal to the plain version's and
+# to the register form's on the same inputs (family, d, Nc, B, W, branch,
+# exchange, traces, rng, lanes per rung of the large variant or None for
+# the plan's; B=263 puts two syndromes on an SM); (b) phase 25's PTEQ at
+# toric d=21, B=64, through the form ``window_form`` picks; (c) W=60
+# windows against their bounds: phase 28's at toric d=23 B=16, xzzx d=33
+# B=64 and toric d=25 B=128, and a PTEQ window at toric d=25 B=1024 (four
+# syndromes a block at eight lanes a rung, two waves)
+FORMS_K2 = [
+    ("toric", 21, 21, 64, 24, "equal-exact", "sequential", True, "philox", None),
+    ("toric", 21, 21, 32, 24, "general-mh", "even_odd", False, "philox", 16),
+    ("rotated", 29, 29, 128, 24, "equal-exact", "even_odd", True, "philox", None),
+    ("rotated", 29, 29, 64, 24, "general-exact", "sequential", False, 0x9E3779B9, 32),
+    ("planar", 21, 21, 64, 24, "general-mh", "sequential", True, "philox", None),
+    ("toric", 19, 19, 263, 24, "equal-exact", "sequential", False, "philox", None),
+    ("toric", 17, 17, 64, 24, "general-exact", "even_odd", True, "zeros", 32),
+    ("rotated", 27, 27, 128, 24, "equal-exact", "sequential", True, "philox", 16),
+    ("xzzx", 25, 25, 64, 24, "general-mh", "even_odd", False, "philox", None),
+]
+WIDE_K2_BATCH = dict(family="toric", d=25, p=0.05, B=1024, max_steps=600)
 # the golden-corpus studies on the card (phase 26): 256 toric d=5
 # syndromes drawn at p=0.15 (not the DRL failure set, which is not in the
 # repository), through studies.golden_replay.run (PTEQ at its production
@@ -516,12 +544,12 @@ def _card_rates():
     return torch.cuda.get_device_properties(0).multi_processor_count, mhz * 1e6
 
 
-def bound_ms(n_bytes: float, popc64: float, philox_blocks: float,
+def bound_ms(n_bytes: float, popc: float, philox_blocks: float,
              imad: float = 0.0):
     """(least ms, "bytes" or "operations") of ``roofline.bound_ms`` at this
     card's SM count and clock."""
     n_sm, clock = _card_rates()
-    return roofline.bound_ms(n_bytes, popc64, philox_blocks, imad, n_sm=n_sm,
+    return roofline.bound_ms(n_bytes, popc, philox_blocks, imad, n_sm=n_sm,
                              clock_hz=clock)
 
 
@@ -605,10 +633,11 @@ def branch_ladder(branch, p, Nc):
 
 def compare_window(family, d, Nc, B, W, iters, C, p, rng, seed,
                    branch="equal-exact", exchange="sequential", traces=False,
-                   both_swaps=True, lanes=None):
+                   both_swaps=True, lanes=None, form=None, out=None):
     """Kernel vs plain version on the card, same inputs and draws; returns
     the largest absolute difference over all outputs.  ``lanes`` overrides
-    the lanes per rung."""
+    the lanes per rung, ``form`` the form ``window_form`` picks; the
+    kernel's outputs are appended to ``out`` where it is a list."""
     spec = get_spec(family, d)
     inputs = _ladder_inputs(spec, B, Nc, seed, "cuda")
     ladder, weights = branch_ladder(branch, p, Nc)
@@ -617,20 +646,24 @@ def compare_window(family, d, Nc, B, W, iters, C, p, rng, seed,
     top_exact, equal_betas = BRANCHES[branch]
     kw = dict(top_exact=top_exact, equal_betas=equal_betas, exchange=exchange,
               track_traces=traces)
-    default_lanes = lw.lanes_per_rung
+    default_lanes = lw.lanes_per_rung, lw.wide_lanes
     try:
         if lanes is not None:
             lw.lanes_per_rung = lambda offs, Nc: lanes
-        kern = make_ladder_window(spec, Nc, W, iters, 0.5, 2, C, rng=rng,
-                                  **kw)(*inputs, seed, betas, w)
+            lw.wide_lanes = lambda offs, Nc, per_sm: lanes
+        with _window_form(form):
+            kern = make_ladder_window(spec, Nc, W, iters, 0.5, 2, C, rng=rng,
+                                      **kw)(*inputs, seed, betas, w)
         torch.cuda.synchronize()
     finally:
-        lw.lanes_per_rung = default_lanes
+        lw.lanes_per_rung, lw.wide_lanes = default_lanes
+    if out is not None:
+        out.append(kern)
     plain = ladder_window_reference(
         spec, *inputs, seed, betas, w, window=W, iters=iters, p_logical=0.5,
         tops_burn=2, energy_chunk=C, rng=rng, **kw)
     tag = (f"{family} d={d} Nc={Nc} B={B} {branch} {exchange} traces={traces} "
-           f"{rng} lanes={lanes or 'default'}")
+           f"{rng} lanes={lanes or 'default'} form={form or 'picked'}")
     return compare_outputs(tag, kern, plain, W, both_swaps)
 
 
@@ -800,7 +833,7 @@ def phase_timing():
           f"kernel {r['ms']:.3f} ms, plain version {r['plain_ms']:.1f} ms "
           f"({r['plain_ms'] / r['ms']:.1f}x); all nine outputs equal, max abs "
           f"err {r['err']}; bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-          f"{r['proposals']} proposals, {r['popc']} 64-bit popcounts, "
+          f"{r['proposals']} proposals, {r['popc']} 32-bit popcounts, "
           f"{r['blocks']} Philox blocks); launch: "
           f"{launch_line(spec, B, Nc, True)}", flush=True)
     return r
@@ -1157,7 +1190,10 @@ def phase_branch_parity() -> float:
     combination of sweep form and mix kind with both exchange schedules,
     at xzzx d=5 (1 word per plane; Philox and zero draws), xzzx d=13 (3),
     toric d=13 (6) and toric d=19 (12 words; tables in device memory),
-    traces on in half the cases of each."""
+    traces on in half the cases of each.  Toric d=19 runs the register
+    form by name (``window_form`` gives 12-word codes the large variant,
+    phase 29), so its 12-word instantiation stays held to the plain
+    version."""
     worst, n = 0.0, 0
     for i, (branch, exchange) in enumerate(COMBOS):
         for rng in ("philox", "zeros"):
@@ -1170,7 +1206,7 @@ def phase_branch_parity() -> float:
         for i, (branch, exchange) in enumerate(COMBOS):
             worst = max(worst, compare_window(
                 family, d, d, B, W, 2, 4, 0.15, "philox", 400 + i, branch,
-                exchange, traces=i % 2 == 0))
+                exchange, traces=i % 2 == 0, form="registers"))
             n += 1
     # xzzx d=13's four-warp groups with a ragged last block (B=263: 2 per
     # block), and toric d=19 with 25 rungs, whose tables leave no room for
@@ -1181,7 +1217,7 @@ def phase_branch_parity() -> float:
             exchange, traces=i % 2 == 1))
         worst = max(worst, compare_window(
             "toric", 19, 25, 16, 8, 2, 4, 0.15, "philox", 520 + i, branch,
-            exchange, traces=i % 2 == 0))
+            exchange, traces=i % 2 == 0, form="registers"))
         n += 2
     print(f"phase 11 window kernel vs plain, other branches: {n} cases "
           f"(general/exact, general/Metropolis and equal/exact mix x "
@@ -1377,24 +1413,19 @@ def phase_general_timing():
         energy_chunk=C, **branch)), 1)
     err = compare_outputs(f"xzzx d=13 B={B} W={W} general philox", kern_out,
                           plain_out[0], W)
-    nw = kernel_words(spec.nq)
     proposals = B * Nc * W * iters * spec.n_stabs
     _, _, n_xblocks = _rng_layout(spec, Nc, iters)
     blocks = (B * Nc * W * iters * philox_blocks_per_sweep(spec)
               + B * W * (_N_EXTRA_USES - 1) * n_xblocks)
     popc = B * Nc * W * iters * popc_per_sweep(spec, False)
-    n_bytes = _nbytes(*args[:5], betas, *kern_out)
-    bound, bound_by = bound_ms(n_bytes, popc, blocks)
-    # the count before the kernel took only spanned words: 6 popcounts on
-    # every word of the plane
-    dense, _ = bound_ms(n_bytes, 6 * nw * proposals, blocks)
+    bound, bound_by = bound_ms(_nbytes(*args[:5], betas, *kern_out), popc,
+                               blocks)
     print(f"phase 14 one general-branch window xzzx d={m['d']} B={B} Nc={Nc} "
           f"W={W} iters={iters} C={C} (alpha ladder, exact mix): kernel "
           f"{ms:.3f} ms, plain version {plain_ms:.1f} ms ({plain_ms / ms:.1f}x); "
           f"all outputs equal, max abs err {err}; bound {bound:.4f} ms "
-          f"({bound_by}; {proposals} proposals, {popc} 64-bit popcounts on "
-          f"the spanned words, {blocks} Philox blocks; {dense:.4f} ms counting "
-          f"6 popcounts on each of {nw} words); launch: "
+          f"({bound_by}; {proposals} proposals, {popc} 32-bit popcounts, "
+          f"{blocks} Philox blocks); launch: "
           f"{launch_line(spec, B, Nc, False)}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
                 bound_by=bound_by)
@@ -2794,7 +2825,8 @@ def phase_large_codes():
     running (no plain call), at the bars written in PERF.md before the
     first run, each with its launches, instantiations and one window (or
     sampler launch) timed against the plain version.  Returns the kernel
-    line's entries of the decodes."""
+    line's entries of the decodes and, by (family, d), the PTEQ decodes'
+    seconds, K2 launches, windows and form."""
     worst_k2 = 0.0
     names_k2 = set()
     for i, (family, d, Nc, B, W, branch, exchange, traces, rng) in \
@@ -2802,7 +2834,7 @@ def phase_large_codes():
         worst_k2 = max(worst_k2, compare_window(
             family, d, Nc, B, W, 2, 4, 0.15, rng, 600 + i, branch, exchange,
             traces=traces, both_swaps=rng == "philox"))
-        names_k2.add(_k2_name(get_spec(family, d), BRANCHES[branch][1]))
+        names_k2.add(_k2_form_name(get_spec(family, d), Nc, BRANCHES[branch][1]))
     general = betas_xyz(0.05, 0.02, 0.1)
     worst_k1, n_k1, names_k1 = 0.0, 0, set()
     for i, (family, d, B) in enumerate(LARGE_K1):
@@ -2848,7 +2880,7 @@ def phase_large_codes():
           flush=True)
     worst = max(worst_k2, worst_k1)
 
-    lines, fails, entries = [], [], []
+    lines, fails, entries, decodes = [], [], [], {}
 
     def kernels_only(tag, k2, k2p, k1, k1p, want_k2, want_k1):
         if k2p or k1p:
@@ -2877,7 +2909,7 @@ def phase_large_codes():
     t = time_window(spec, states, m["d"], beta_ladder_alpha(pz_tilde, alpha,
                                                             m["d"]),
                     (alpha, alpha, 1.0), False, LARGE_TIMED_W, 41)
-    name = _k2_name(spec, False)
+    name = _k2_form_name(spec, m["d"], False)
     lines.append(
         f"PTEQ_alpha {m['family']} d={m['d']} Nc={m['d']} eta={m['eta']} "
         f"p={m['p']} B={m['B']} max_steps={m['max_steps']} (window {res.window}): "
@@ -2909,8 +2941,14 @@ def phase_large_codes():
         if rec < LARGE_MIN_RECOVERED:
             fails.append(f"{tag}: recovered {rec:.4f} < {LARGE_MIN_RECOVERED}")
         windows = -(-int(res.steps.max()) // PROD["window"])
-        name = (f"K2 {_k2_name(spec, True)} {k2} launches" if fused else
+        form = lw.window_form(spec, m["d"], True, PROD["iters"])
+        name = (f"K2 {_k2_form_name(spec, m['d'], True)} ({form}) {k2} "
+                f"launches" if fused else
                 f"K1 {_k1_name(spec, False, False)} {k1} launches")
+        decodes[(m["family"], m["d"])] = dict(seconds=dt, launches=k2,
+                                              windows=windows, form=form,
+                                              window=res.window,
+                                              recovered=rec)
         t = time_window(spec, states, m["d"],
                         beta_ladder_depolarizing(m["p"], m["d"]),
                         (1.0, 1.0, 1.0), True, LARGE_TIMED_W, 42 + i)
@@ -2929,7 +2967,7 @@ def phase_large_codes():
             f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}); launch {launch_line(spec, m['B'], m['d'], True)}")
         entries.append(dict(t, name=f"ladder_window_{m['family']}_d{m['d']}",
-                            instantiation=_k2_name(spec, True),
+                            instantiation=_k2_form_name(spec, m["d"], True),
                             launches=k2, source="ladder_window.cu"))
 
     # STDC at rotated d=19 through K1's recording sampler
@@ -3022,7 +3060,7 @@ def phase_large_codes():
     check(not fails, "; ".join(fails))
     for e in entries:
         e["err"] = max(e["err"], worst)
-    return entries
+    return entries, decodes
 
 
 class _lanes_per_chain:
@@ -3156,8 +3194,9 @@ def phase_codes_above_1024(built):
           f"{m['n_sweeps']} sweeps of {m['R']} chains at {m['family']} d={m['d']} "
           f"({_k1_name(spec, True, False)}): kernel {t['ms']:.3f} ms, plain "
           f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
-          f"({t['bound_by']}; {roofline.spanned_word_count(spec)} spanned words "
-          f"a sweep), {t['bound_ms'] / t['ms']:.1%} of the bound; launch L="
+          f"({t['bound_by']}; {roofline.spanned_word_count(spec)} spanned words, "
+          f"{popc_per_sweep(spec, True)} popcounts a sweep), "
+          f"{t['bound_ms'] / t['ms']:.1%} of the bound; launch L="
           f"{plan.lanes}, {plan.chains_per_warp} chains per warp, {resident} "
           f"blocks per SM, {plan.smem} B shared memory, multipliers in "
           f"{'shared' if plan.mults_in_smem else 'device'} memory", flush=True)
@@ -3273,24 +3312,32 @@ def phase_codes_above_1024(built):
 
 
 def _k2_wide_name(spec, equal_betas):
-    """K2's large-variant instantiation ``wide<spanned words, EQ>`` with the
-    code's word count."""
+    """K2's large-variant instantiation ``wide<EQ>`` with the code's word
+    count."""
     offs = kernel_tables(spec)[2]
-    return (f"wide<{offs['span']}, {'true' if equal_betas else 'false'}> at "
-            f"{offs['nw']} words")
+    return f"wide<{'true' if equal_betas else 'false'}> at {offs['nw']} words"
+
+
+def _k2_form_name(spec, Nc, equal_betas):
+    """The K2 instantiation ``window_form`` picks for Nc rungs of ``spec``
+    at PROD's sweeps a step."""
+    if lw.window_form(spec, Nc, equal_betas, PROD["iters"]) == "large":
+        return _k2_wide_name(spec, equal_betas)
+    return _k2_name(spec, equal_betas)
 
 
 class _window_form:
-    """Run K2 in ``form`` where both forms hold the ladder (the record of
-    phase 28 (e) only): ``window_form``'s choice is replaced while the
-    block runs."""
+    """Run K2 in ``form`` where both forms hold the ladder (parity and the
+    record of both forms only): ``window_form``'s choice is replaced while
+    the block runs; None keeps it."""
 
     def __init__(self, form):
         self.form = form
 
     def __enter__(self):
         self.saved = lw.window_form
-        lw.window_form = lambda *args: self.form
+        if self.form is not None:
+            lw.window_form = lambda *args: self.form
 
     def __exit__(self, *exc):
         lw.window_form = self.saved
@@ -3451,8 +3498,7 @@ def phase_window_above_16_words(built, unfused_s):
     args = (ls.state, ls.flag, ls.tops0, *zeros, 4, betas, np.ones(3, np.float32))
     fn = make_ladder_window(spec, m["d"], PROD["window"], PROD["iters"], 0.5, 2,
                             PROD["energy_chunk"], **PROD_BRANCH)
-    check(lw.window_form(spec, m["d"], True, PROD["iters"]) == "registers",
-          f"toric d={m['d']} left the register form")
+    pick = lw.window_form(spec, m["d"], True, PROD["iters"])
     timed = {}
     for form in ("registers", "large"):
         with _window_form(form):
@@ -3465,11 +3511,95 @@ def phase_window_above_16_words(built, unfused_s):
           f"{PROD['window']}: large variant {_k2_wide_name(spec, True)} "
           f"{timed['large'][1]:.3f} ms, register form {_k2_name(spec, True)} "
           f"{timed['registers'][1]:.3f} ms; all outputs equal, max abs err "
-          f"{err}", flush=True)
+          f"{err}; window_form picks {pick}", flush=True)
     check(not fails, "; ".join(fails))
     for e in entries:
         e["err"] = max(e["err"], worst)
     return entries
+
+
+def phase_window_forms(built, decodes, wide_k2):
+    """The redesigned large variant on the card (FORMS_K2, WIDE_K2_BATCH
+    above): (a) at the 12- and 16-word codes, where ``window_form`` now
+    picks it, every output equal to the plain version's and to the
+    register form's on the same inputs; its registers and spills; (b)
+    phase 25's PTEQ at toric d=21 (``decodes``): form, launches, seconds;
+    (c) W=60 windows against their bounds, phase 28's (``wide_k2``) and
+    one of a PTEQ decode at toric d=25 B=1024.  Returns the kernels line's
+    entries."""
+    worst, names = 0.0, set()
+    for i, (family, d, Nc, B, W, branch, exchange, traces, rng, lanes) in \
+            enumerate(FORMS_K2):
+        spec = get_spec(family, d)
+        eq = BRANCHES[branch][1]
+        check(lw.window_form(spec, Nc, eq, PROD["iters"]) == "large",
+              f"{family} d={d} Nc={Nc}: window_form does not pick the large "
+              f"variant")
+        outs = []
+        for form, ln in (("large", lanes), ("registers", None)):
+            worst = max(worst, compare_window(
+                family, d, Nc, B, W, 2, 4, 0.15, rng, 2900 + i, branch,
+                exchange, traces=traces, both_swaps=rng == "philox",
+                lanes=ln, form=form, out=outs))
+        worst = max(worst, compare_outputs(
+            f"{family} d={d} Nc={Nc} large vs registers", outs[0], outs[1], W,
+            both_swaps=False))
+        names.add(f"{_k2_wide_name(spec, eq)} beside {_k2_name(spec, eq)}")
+    regs = [ln for ln in ptxas_summary(built["ladder_window"].log) if "wide" in ln]
+    check(not built["ladder_window"].seconds
+          or (regs and all(ln.endswith(" 0 bytes spilled") for ln in regs)),
+          f"the large variant spills, or its build printed no summary: {regs}")
+    print(f"phase 29 (a) large variant vs plain and vs the register form at "
+          f"12 and 16 words: {len(FORMS_K2)} cases ("
+          + "; ".join(f"{f} d={d} Nc={n} B={b} W={w} {br} {ex} traces={tr} "
+                      f"{rg} lanes={ln or 'plan'}"
+                      for f, d, n, b, w, br, ex, tr, rg, ln in FORMS_K2)
+          + f"), {sorted(names)}: all outputs equal, max abs err {worst}; "
+          f"large variant build: {' | '.join(regs) or 'reused build'}",
+          flush=True)
+
+    d21 = decodes[("toric", 21)]
+    m = LARGE_PTEQ[1]
+    check(d21["form"] == "large" and d21["window"] == "fused"
+          and d21["launches"] == d21["windows"],
+          f"toric d=21: form {d21['form']}, window {d21['window']}, "
+          f"{d21['launches']} K2 launches in {d21['windows']} windows")
+    print(f"phase 29 (b) phase 25's PTEQ toric d=21 B={m['B']} p={m['p']} "
+          f"max_steps={m['max_steps']}: form {d21['form']} "
+          f"({_k2_wide_name(get_spec('toric', 21), True)}), {d21['launches']} "
+          f"K2 launches in {d21['windows']} windows, {d21['seconds']:.2f} s, "
+          f"recovered {d21['recovered']:.4f}", flush=True)
+
+    m = WIDE_K2_BATCH
+    spec = get_spec(m["family"], m["d"])
+    gen = torch.Generator(device="cuda").manual_seed(2094)
+    states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
+    cfg = PTEQConfig(max_steps=m["max_steps"], **PROD)
+    res, dt, k2, k2p, k1, k1p = _decode_counts(lambda: PTEQ(
+        spec, states, m["p"], cfg, seed=1, device="cuda"))
+    check(k2 >= 1 and not (k2p or k1 or k1p) and res.window == "fused",
+          f"toric d=25 B={m['B']}: {k2} K2 launches, plain {k2p}, K1 {k1}, "
+          f"{k1p}, window {res.window}")
+    t = time_window(spec, states, m["d"], beta_ladder_depolarizing(m["p"], m["d"]),
+                    (1.0, 1.0, 1.0), True, LARGE_TIMED_W, 2095)
+    entry = dict(t, name="ladder_window_wide_toric_d25_b1024",
+                 instantiation=_k2_wide_name(spec, True), launches=k2,
+                 source="ladder_window.cu")
+    timed = {e["name"]: e for e in wide_k2}
+    shapes = (("toric d=23 B=16", timed["ladder_window_wide_toric_d23"]),
+              ("xzzx d=33 B=64", timed["ladder_window_wide_xzzx_d33"]),
+              ("toric d=25 B=128", timed["ladder_window_wide_toric_d25"]),
+              (f"toric d=25 B={m['B']}", entry))
+    print(f"phase 29 (c) W={LARGE_TIMED_W} windows of the large variant "
+          f"against their bounds: "
+          + "; ".join(f"{what} {e['ms']:.3f} ms, bound {e['bound_ms']:.4f} ms "
+                      f"({e['bound_by']}), {e['bound_ms'] / e['ms']:.1%} of it, "
+                      f"plain {e['plain_ms']:.1f} ms" for what, e in shapes)
+          + f"; PTEQ toric d=25 B={m['B']} max_steps={m['max_steps']}: "
+          f"{dt:.2f} s, {k2} K2 launch(es); launch "
+          f"{launch_line(spec, m['B'], m['d'], True)}", flush=True)
+    entry["err"] = max(entry["err"], worst)
+    return [entry]
 
 
 def phase_golden():
@@ -3568,13 +3698,15 @@ def main() -> int:
         phase = "threshold studies on the card"
         k2_study = phase_studies()
         phase = "large codes on the card"
-        large = phase_large_codes()
+        large, decodes = phase_large_codes()
         phase = "golden studies on the card"
         phase_golden()
         phase = "codes above 1024 qubits on the card"
         wide, unfused_s = phase_codes_above_1024(built)
         phase = "the window kernel above 16 words"
         wide_k2 = phase_window_above_16_words(built, unfused_s)
+        phase = "the redesigned large variant and the choice of form"
+        forms = phase_window_forms(built, decodes, wide_k2)
     except PhaseFailed as e:
         print(f"FAILED phase {phase}: {e}", flush=True)
         return 1
@@ -3686,7 +3818,7 @@ def main() -> int:
         "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"],
         "library_ms": None,
-    } for e in large + wide + wide_k2]}))
+    } for e in large + wide + wide_k2 + forms]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

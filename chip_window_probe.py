@@ -13,16 +13,30 @@ change parent`` compares two commits on one card.  Per root it prints:
 - the shared-memory atomic instructions in the SASS of both built
   libraries (``cuobjdump -sass``; ``ATOMS.CAST.SPIN.64`` is a
   compare-and-swap loop, ``ATOMS.XOR`` and ``ATOMS.OR`` single
-  instructions);
+  instructions), and the registers and spilled bytes of each instantiation
+  of K2's large variant (ptxas);
 - K2's register form: one production window (W=600, iters=2, C=12, zero
   top rung) at the smoke check's shapes: toric d=5 B=2048, toric d=13
   B=512, xzzx d=13 B=512 (general betas) and toric d=21 B=64;
-- K2's large variant, where the checkout has one
-  (``ops/ladder_window.py::window_form``): one W=60 window at toric d=23
-  B=16, toric d=25 B=128 and B=1024 and rotated d=37 B=128; at toric d=25
-  B=128 the same window at 0, 1 and 2 sweeps a step (what the sweeps take
-  of a step) and with the tables in shared memory instead of device
-  memory;
+- K2's large variant (``ops/ladder_window.py::window_form``): one W=60
+  window at toric d=23 B=16, toric d=25 B=128 and B=1024, xzzx d=33 B=64
+  (general betas) and rotated d=37 B=128, each with its launch (lanes per
+  rung, threads, syndromes per block, and the blocks an SM holds by the
+  occupancy calculator); at toric d=25 B=128 the same window at 0, 1 and
+  2 sweeps a step, and, where the root has the qubit table, with that
+  table in device memory instead of shared memory and at other lane
+  counts (8, 16, 32 at B=128; 2, 4, 8 at B=1024);
+- both forms, each forced, on one production window at the 16-word
+  shapes (toric d=21 B=64, rotated d=29 B=128) and the 12-word shapes
+  (toric d=17 B=64, toric d=19 B=512, rotated d=27 B=128, xzzx d=25 B=512
+  general), and for the record below 12 words (toric d=15 and d=13 and
+  xzzx d=13 at B=512, toric d=5 at B=2048): the measurement
+  ``window_form``'s rule rests on;
+- two decodes through ``PTEQ``: toric d=23 B=16 cap 1200 and
+  ``PTEQ_alpha`` xzzx d=33 eta=10 p=0.20 B=64 cap 12,000 (the smoke
+  check's phase 28 (c) inputs), with their window, K2 launches and a
+  SHA-256 of every array of the result, so two roots' lines show equal
+  results;
 - K1: the 450-step sampler over 65,536 toric d=5 chains, and its large
   variant: 10 sweeps of 16,384 toric d=45 chains and the samplers at
   toric d=25 (40,960 chains x 40 steps) and rotated d=45 (5,120 x 150).
@@ -34,6 +48,8 @@ Needs a CUDA device; imports no jax.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import hashlib
 import re
 import subprocess
 import sys
@@ -95,6 +111,33 @@ def one(root: str) -> int:
         ops = re.findall(r"\b(ATOMS\.[A-Z0-9.]+)", sass)
         print(f"{tag} {name} library: shared atomics in SASS "
               f"{ {op: ops.count(op) for op in sorted(set(ops))} }", flush=True)
+    wide, name, spill = [], None, None
+    for ln in built["ladder_window"].log.splitlines():
+        if "entry function" in ln:
+            m = re.search(r"ladder_window_kernel_wideI((?:L[ib]\d+E)+)E", ln)
+            name = m and ", ".join(
+                ("true" if v == "1" else "false") if k == "b" else v
+                for k, v in re.findall(r"L([ib])(\d+)E", m[1]))
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m[1]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            wide.append(f"wide<{name}>: {m[1]} registers, {spill} bytes spilled")
+            name = None
+    print(f"{tag} K2 large variant, ptxas: {' | '.join(wide) or 'none'}",
+          flush=True)
+
+    @contextlib.contextmanager
+    def forced(form):
+        """Run K2 in ``form`` (or ``window_form``'s pick for None)."""
+        pick = lw.window_form
+        if form is not None:
+            lw.window_form = lambda *args: form
+        try:
+            yield
+        finally:
+            lw.window_form = pick
 
     def ladder(family, d, B, p, seed=5):
         spec = get_spec(family, d)
@@ -105,57 +148,133 @@ def one(root: str) -> int:
                  torch.zeros((B,), dtype=torch.int32, device="cuda"))
         return spec, (ls.state, ls.flag, ls.tops0, *zeros)
 
-    def window(family, d, B, p, W, reps, equal_betas=True, iters=2):
+    def window(family, d, B, p, W, reps, equal_betas=True, iters=2, form=None):
         spec, state = ladder(family, d, B, p)
         if equal_betas:
             betas, w = beta_ladder_depolarizing(p, d), np.ones(3, np.float32)
         else:
             betas, w = beta_ladder_alpha(p, 2.0, d), np.asarray([2, 2, 1], np.float32)
         betas = torch.as_tensor(betas, dtype=torch.float32, device="cuda")
-        fn = lw.make_ladder_window(spec, d, W, iters, 0.5, 2, 12, top_exact=True,
-                                   equal_betas=equal_betas)
-        return _time_ms(lambda: fn(*state, 3, betas, w), reps)
+        with forced(form):
+            fn = lw.make_ladder_window(spec, d, W, iters, 0.5, 2, 12,
+                                       top_exact=True, equal_betas=equal_betas)
+            return _time_ms(lambda: fn(*state, 3, betas, w), reps)
+
+    def plan(family, d, B, equal_betas=True, form=None):
+        spec = get_spec(family, d)
+        with forced(form):
+            shape, n = lw.launch_plan(spec, B, d, 2, equal_betas)
+        return (f"L={shape.lanes}, {shape.threads} threads and "
+                f"{shape.groups_per_block} syndromes a block, {n} block(s) an "
+                f"SM by occupancy, tables in "
+                f"{'shared' if shape.tab_in_smem else 'device'} memory")
 
     for family, d, B, p, eq, reps in (("toric", 5, 2048, 0.15, True, 5),
                                       ("toric", 13, 512, 0.15, True, 3),
                                       ("xzzx", 13, 512, 0.1, False, 3),
                                       ("toric", 21, 64, 0.05, True, 2)):
-        ms = window(family, d, B, p, 600, reps, eq)
+        ms = window(family, d, B, p, 600, reps, eq, form="registers")
         print(f"{tag} K2 register form, {family} d={d} B={B} W=600 "
               f"{'equal' if eq else 'general'} betas: {ms:.4f} ms", flush=True)
 
-    if hasattr(lw, "window_form"):
-        for family, d, B in (("toric", 23, 16), ("toric", 25, 128),
-                             ("toric", 25, 1024), ("rotated", 37, 128)):
-            ms = window(family, d, B, 0.05, 60, 3)
-            print(f"{tag} K2 large variant, {family} d={d} B={B} W=60: {ms:.4f} "
-                  f"ms, {ms / 60 * 1e3:.1f} us a step", flush=True)
-        for iters in (0, 1, 2):
-            ms = window("toric", 25, 128, 0.05, 60, 3, iters=iters)
-            print(f"{tag} K2 large variant, toric d=25 B=128 W=60 at {iters} "
-                  f"sweep(s) a step: {ms:.4f} ms", flush=True)
+    for family, d, B, eq in (("toric", 23, 16, True), ("toric", 25, 128, True),
+                             ("toric", 25, 1024, True), ("xzzx", 33, 64, False),
+                             ("rotated", 37, 128, True)):
+        ms = window(family, d, B, 0.05, 60, 3, eq)
+        print(f"{tag} K2 large variant, {family} d={d} B={B} W=60 "
+              f"{'equal' if eq else 'general'} betas: {ms:.4f} ms, "
+              f"{ms / 60 * 1e3:.1f} us a step; {plan(family, d, B, eq)}",
+              flush=True)
+    for iters in (0, 1, 2):
+        ms = window("toric", 25, 128, 0.05, 60, 3, iters=iters)
+        print(f"{tag} K2 large variant, toric d=25 B=128 W=60 at {iters} "
+              f"sweep(s) a step: {ms:.4f} ms", flush=True)
 
+    if hasattr(lw, "qubit_table"):
         @contextlib.contextmanager
-        def tables_in_shared_memory():
-            plan = lw.wide_block_shape
+        def qubit_table_in_device_memory():
+            wide_plan = lw.wide_block_shape
 
-            def in_smem(offs, Nc, K, B, n_sm, equal_betas, iters, n_draws):
-                smem = lambda g, t: lw.wide_smem_bytes(  # noqa: E731
-                    offs, Nc, K, g, equal_betas, iters, n_draws, t)
-                return lw._pack_groups(lw.wide_lanes(offs, Nc), Nc, B, n_sm,
-                                       smem, True, "tables in shared memory")
+            def in_device(offs, Nc, K, B, n_sm, equal_betas, iters, n_draws):
+                shape = wide_plan(offs, Nc, K, B, n_sm, equal_betas, iters,
+                                  n_draws)
+                return shape._replace(tab_in_smem=False, smem=lw.wide_smem_bytes(
+                    offs, Nc, K, shape.groups_per_block, equal_betas, iters,
+                    n_draws, False))
 
-            lw.wide_block_shape = in_smem
+            lw.wide_block_shape = in_device
             try:
                 yield
             finally:
-                lw.wide_block_shape = plan
+                lw.wide_block_shape = wide_plan
 
-        with tables_in_shared_memory():
+        with qubit_table_in_device_memory():
             for B in (128, 1024):
                 ms = window("toric", 25, B, 0.05, 60, 3)
-                print(f"{tag} K2 large variant, toric d=25 B={B} W=60, tables "
-                      f"in shared memory: {ms:.4f} ms", flush=True)
+                print(f"{tag} K2 large variant, toric d=25 B={B} W=60, qubit "
+                      f"table in device memory: {ms:.4f} ms", flush=True)
+
+        plan_lanes = lw.wide_lanes
+        for B, lanes in ((128, (8, 16, 32)), (1024, (2, 4, 8))):
+            for L in lanes:
+                lw.wide_lanes = lambda offs, Nc, per_sm: L
+                try:
+                    ms = window("toric", 25, B, 0.05, 60, 3)
+                finally:
+                    lw.wide_lanes = plan_lanes
+                print(f"{tag} K2 large variant, toric d=25 B={B} W=60 at {L} "
+                      f"lanes a rung: {ms:.4f} ms", flush=True)
+
+    for family, d, B, eq in (("toric", 21, 64, True), ("rotated", 29, 128, True),
+                             ("toric", 17, 64, True), ("toric", 19, 512, True),
+                             ("rotated", 27, 128, True), ("xzzx", 25, 512, False),
+                             ("toric", 15, 512, True), ("toric", 13, 512, True),
+                             ("xzzx", 13, 512, False), ("toric", 5, 2048, True)):
+        spec = get_spec(family, d)
+        words = lw.kernel_words(spec.nq)
+        times = {form: window(family, d, B, 0.05, 600, 2, eq, form=form)
+                 for form in ("registers", "large")}
+        print(f"{tag} K2 both forms, {family} d={d} ({words} words) B={B} "
+              f"W=600 {'equal' if eq else 'general'} betas: register form "
+              f"{times['registers']:.4f} ms, large variant "
+              f"{times['large']:.4f} ms ({plan(family, d, B, eq, 'large')}); "
+              f"window_form picks {lw.window_form(spec, d, eq, 2)}", flush=True)
+
+    def digest(res):
+        h = hashlib.sha256()
+        for f in dataclasses.fields(res):
+            v = getattr(res, f.name)
+            if isinstance(v, torch.Tensor):
+                v = v.cpu().numpy()
+            if isinstance(v, np.ndarray):
+                h.update(f.name.encode() + np.ascontiguousarray(v).tobytes())
+        h.update(repr((res.buckets, res.window)).encode())
+        return h.hexdigest()[:16]
+
+    from mcmc_qec_tpu_torch.decoders import PTEQ, PTEQ_alpha, PTEQConfig
+    from mcmc_qec_tpu_torch.models.noise import (
+        biased_alpha_equivalent, sample_xyz, xyz_probs_from_biased)
+    prod = dict(window=600, iters=2, energy_chunk=12)
+    spec = get_spec("toric", 23)
+    gen = torch.Generator(device="cuda").manual_seed(2070)
+    st = sample_depolarizing(gen, spec, 0.05, (16,))
+    lw.ladder_window_counts.reset()
+    res = PTEQ(spec, st, 0.05, PTEQConfig(max_steps=1200, **prod), seed=1,
+               device="cuda")
+    print(f"{tag} PTEQ toric d=23 B=16 cap 1200: window {res.window}, "
+          f"{lw.ladder_window_counts.launches} K2 launches, result sha256 "
+          f"{digest(res)}", flush=True)
+    spec = get_spec("xzzx", 33)
+    px, py, pz = xyz_probs_from_biased(0.20, 10.0)
+    pz_tilde, alpha = biased_alpha_equivalent(0.20, 10.0)
+    gen = torch.Generator(device="cuda").manual_seed(2090)
+    st = sample_xyz(gen, spec, px, py, pz, (64,), device="cuda")
+    lw.ladder_window_counts.reset()
+    res = PTEQ_alpha(spec, st, pz_tilde, alpha, PTEQConfig(max_steps=12000, **prod),
+                     seed=1, device="cuda")
+    print(f"{tag} PTEQ_alpha xzzx d=33 B=64 cap 12000: window {res.window}, "
+          f"{lw.ladder_window_counts.launches} K2 launches, result sha256 "
+          f"{digest(res)}", flush=True)
 
     def states(spec, R, seed):
         gen = torch.Generator(device="cuda").manual_seed(seed)

@@ -66,23 +66,46 @@
 // The tables sit in shared memory unless they leave no room for a group,
 // when they are read from device memory (toric d=19 at Nc=25).
 //
-// The large variant (ladder_window_kernel_wide<S, EQ>) takes the ladders
-// the registers cannot hold: codes above 16 words per plane (toric and
-// planar d >= 23, rotated and XZZX d >= 33, up to 256 words), and ladders
-// whose group of published chains and staged draws leaves no room in 227 KB
-// (xzzx d=31 at 31 rungs: the draws alone grow with iters * Nc * n_blk).
-// The word count is a run-time value.  A rung's planes sit in a slot of
-// its group's shared memory, a color is decided by the rung's L lanes, each
-// on whole Philox blocks it draws as it decides them (no staging), an
-// accepted flip XORed in at once (sweep.cuh::xor_shared, by 32-bit halves),
-// and a __syncwarp closes the color: the argument and the arithmetic of the
-// sweep kernel's large variant (sweep.cu), so every output equals the
-// register form's and the plain version's.  The exchange swaps the rungs'
-// slot indices, not their planes.  The tables are read from device memory.
-// What bounds it: as the register form, instruction issue on the
-// proposals; what holds it back is latency, one syndrome's few warps per SM
-// each deciding its lanes' proposals one after another (every decision
-// waits on its shared loads, and an accept on its atomics).
+// The large variant (ladder_window_kernel_wide<EQ>) takes the ladders the
+// registers cannot hold: codes above 16 words per plane (toric and planar
+// d >= 23, rotated and XZZX d >= 33, up to 256 words), ladders whose group
+// of published chains and staged draws leaves no room in 227 KB (xzzx d=31
+// at 31 rungs), and, where it is faster, codes the registers hold
+// (ops/ladder_window.py::window_form).  The word count is a run-time value.
+// What bounds it is what bounds the register form.  What keeps a kernel of
+// this shape from that bound is latency: with the planes in shared memory,
+// a lane that decides its proposals one after another waits on each
+// decision's loads (about twenty in a spanned-word layout) and an accept's
+// atomics, and one syndrome of a few warps per SM hides none of it.  The
+// design:
+//   - Per-qubit proposals.  A stabilizer is one 64-bit entry of the qubit
+//     table (ops/ladder_window.py::qubit_table): its (at most four) qubits,
+//     14 bits each, and their ops, 2 bits each.  A rung's chain sits in a
+//     slot of shared memory with 2 bits a qubit (x, z), 16 qubits a 32-bit
+//     word, so a proposal is one entry and four 32-bit loads, its qubits'
+//     states packed into 8 bits, and its count changes a few popcounts of
+//     those 8 bits: the same integers as the register form's spanned-word
+//     popcounts, so the same logr and decision.
+//   - Decide, then apply.  A lane takes whole Philox blocks of a color
+//     (blocks l, l + L, ...; the register form's counters, the same logf).
+//     It issues the loads of its next block before it decides the current
+//     one, decides the block's four stabilizers, then XORs the accepted
+//     flips in, one 32-bit shared atomic (ATOMS.XOR) a qubit: lanes of a
+//     rung share words.  A color's supports are disjoint and a decision
+//     reads only its own qubits' bits, which no other stabilizer of the
+//     color flips, so every order decides as the planes before the color
+//     do; a __syncwarp closes the color.
+//   - A full SM.  Up to 1024 threads a block at 64 registers a thread (its
+//     own launch bounds), 32 lanes a rung where one syndrome takes an SM
+//     (toric d=25 at B=128: 25 warps an SM) and fewer where the batch puts
+//     several syndromes on an SM, so that up to 32 warps stay resident
+//     (ops/ladder_window.py::wide_lanes).  Thread 0's exchange state and
+//     the rung's betas are read from shared memory, so no thread spills.
+// The exchange swaps the rungs' slot indices, not their planes.  The top
+// rung's mix, the counts and the bottom rung's class and hash split the
+// words over a rung's lanes and combine them with shuffles.  The qubit
+// table sits in shared memory where it fits beside the groups, every other
+// table in device memory.
 // ops/ladder_window.py::window_form picks the form from shapes before any
 // launch.
 //
@@ -106,8 +129,10 @@ struct WindowParams {
   int32_t n_tab, n_meta, off_class, off_key, off_span;
   int32_t m_draw, m_lut, m_b2e, m_span, m_blk, m_bcol, n_blk;
   int32_t equal_betas, top_exact, even_odd, traces, tab_in_smem, smem;
-  int32_t wide;    // the large variant (planes in shared memory)
-  int32_t m_wide;  // meta offset of the wide spanned-word entries, or -1
+  int32_t wide;    // the large variant (planes in shared memory); there
+                   // n_tab counts the qubit table's entries (one per
+                   // stabilizer, in shared memory if tab_in_smem) and
+                   // n_meta the meta words copied to shared memory
   float p_logical, w0, w1, w2, inv_chunk;
   uint32_t key0, key1, fixed_word;
 };
@@ -133,9 +158,11 @@ struct WindowBuffers {
   const float* betas;   // (Nc, 3)
   const uint64_t* tab;  // logical-draw (from 0), class, hash and spanned-word masks
   const int32_t* meta;  // color starts, draw starts, op LUT, spans, blocks, bits_to_eq
+  const uint64_t* qtab;  // the large variant's qubit table, one entry per stabilizer
 };
 
 constexpr int kMaxThreads = 512;  // ops/ladder_window.py::MAX_THREADS
+constexpr int kWideMaxThreads = 1024;  // the large variant: WIDE_MAX_THREADS
 constexpr int kMaxBarriers = 15;  // named barriers 1..15
 constexpr int kKeys = 4;          // hash components
 constexpr int kKeyBits = 6;       // bits per hash coefficient
@@ -148,6 +175,9 @@ constexpr int kWideWords = 256;   // most words of the large variant
 template <bool EQ, bool WIDE = false>
 struct Layout {
   static constexpr int kCnt = EQ ? 1 : 3;  // counts per rung
+  // the large variant's scalars before the energy sums: burn flag, tops,
+  // since_burn, burn_first, steps to the next energy row, energy row
+  static constexpr int kScal = 6;
   // within a group
   size_t pub;     // u64 [2][Nc][X words | Z words]: chains published for
                   // the exchange, by step parity
@@ -159,14 +189,16 @@ struct Layout {
   size_t perm, flag, cnt;  // i32 per rung position: [Nc], [Nc], [Nc][kCnt];
                            // perm is the rung's slot in the large variant
   size_t swacc, eqc;       // i32 [Nc - 1], [K]
+  size_t scal;             // i32 [kScal + kCnt], the large variant only: the
+                           // step's burn flag and thread 0's exchange state
   size_t group_bytes;
   // in the block
   size_t tab, group, meta, beta, bytes;
 
   __host__ __device__ explicit Layout(const WindowParams& P) {
     size_t off = 0;
-    if constexpr (WIDE) {
-      pub = take(off, 8 * (size_t)P.Nc * (2 * P.nw + 1));
+    if constexpr (WIDE) {  // u32 [Nc][4 * nw + 1]: 2 bits a qubit, a padding word
+      pub = take(off, 4 * (size_t)P.Nc * (4 * P.nw + 1));
       draws = take(off, 0);
     } else {
       pub = take(off, 8 * (size_t)2 * P.Nc * 2 * P.nw);
@@ -181,6 +213,7 @@ struct Layout {
     cnt = take(off, 4 * (size_t)P.Nc * kCnt);
     swacc = take(off, 4 * (size_t)(P.Nc - 1));
     eqc = take(off, 4 * (size_t)P.K);
+    scal = take(off, WIDE ? 4 * (size_t)(kScal + kCnt) : 0);
     group_bytes = (off + 7) & ~(size_t)7;
     off = 0;
     tab = take(off, P.tab_in_smem ? 8 * (size_t)P.n_tab : 0);
@@ -754,48 +787,123 @@ __global__ void __launch_bounds__(kMaxThreads, 1) ladder_window_kernel(const Win
 }
 
 // ---------------------------------------------------------------------------
-// The large variant: planes in shared memory
+// The large variant: planes in shared memory, 2 bits a qubit
 // ---------------------------------------------------------------------------
 
-// One color on a rung whose planes X, Z sit in its slot of the group's
-// shared memory: lane l takes the color's Philox blocks g = l, l + L, ...
-// whole, at the counter the register form stages (use (it * n_colors + c)
-// * Nc + r), decides their stabilizers 4g..4g+3 on the words the entry
-// names (the wide entry, 8 bits a word, above 16 words; the narrow one
-// up to 16) and XORs an accepted flip in at once.  A decision reads only
-// its own support, which no other stabilizer of the color touches, so
-// this decides as the planes before the color do; the caller's __syncwarp
-// closes the color.
-template <int S, bool EQ>
-__device__ __forceinline__ void sweep_color_wide(const WindowParams& P, uint64_t* X, uint64_t* Z,
-                                                 const uint64_t* stab, const int32_t* span,
-                                                 const uint32_t* wide, int c0, int n, int l,
-                                                 int L, uint32_t use, int t, int b, float bx,
-                                                 float by, float bz) {
+// Qubit k (0-3) of a qubit-table entry and the 2-bit ops of all four
+// (ops/ladder_window.py::qubit_table): qubit k in bits 14k..14k+13, its op
+// (x | z << 1, 0 for no qubit) in bits 56 + 2k and 57 + 2k.
+__device__ __forceinline__ int entry_qubit(uint64_t e, int k) {
+  return (int)((e >> (14 * k)) & 0x3FFFu);
+}
+
+__device__ __forceinline__ uint32_t entry_ops(uint64_t e) { return (uint32_t)(e >> 56); }
+
+// The 2-bit states (x | z << 1) of an entry's four qubits in a slot ``W``
+// (qubit q in bits 2 (q % 16) and 2 (q % 16) + 1 of word q / 16), packed as
+// the ops are: one 32-bit load a qubit, none of them waiting on another.
+// A missing qubit reads qubit 0; its op is 0, so it changes no count.
+__device__ __forceinline__ uint32_t entry_states(const uint32_t* W, uint64_t e) {
+  uint32_t s = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int q = entry_qubit(e, k);
+    s |= ((W[q >> 4] >> ((q & 15) << 1)) & 3u) << (2 * k);
+  }
+  return s;
+}
+
+// logr of flipping a stabilizer whose qubits are in states ``s`` under ops
+// ``o`` (both packed 2 bits a qubit): the integers of sweep.cuh::add_word
+// and logr_of, counted on the stabilizer's qubits instead of its spanned
+// words.  Equal betas: dN = (qubits in error after) - (before).  General
+// betas: tx, tz the overlaps of x and z with the op's X and Z parts, dN_y
+// the Y count's change, cx, cz the op's X and Z qubits; the same
+// expression, rounded alike.
+template <bool EQ>
+__device__ __forceinline__ float entry_logr(uint32_t s, uint32_t o, float bx, float by,
+                                            float bz) {
+  const uint32_t ns = s ^ o;
+  if constexpr (EQ) {
+    const int d0 = __popc((ns | (ns >> 1)) & 0x55u) - __popc((s | (s >> 1)) & 0x55u);
+    return -(bx * (float)d0);
+  } else {
+    const int tx = __popc(s & o & 0x55u), tz = __popc(s & o & 0xAAu);
+    const int d0 = __popc(ns & (ns >> 1) & 0x55u) - __popc(s & (s >> 1) & 0x55u);
+    const int d1 = (__popc(o & 0x55u) - 2 * tx) - d0, d3 = (__popc(o & 0xAAu) - 2 * tz) - d0;
+    return -__fadd_rn(__fadd_rn(__fmul_rn(bx, (float)d1), __fmul_rn(by, (float)d0)),
+                      __fmul_rn(bz, (float)d3));
+  }
+}
+
+// XOR an accepted entry's ops into the slot: one 32-bit shared atomic a
+// qubit (ATOMS.XOR; lanes of a rung may flip other bits of the word).
+__device__ __forceinline__ void entry_flip(uint32_t* W, uint64_t e) {
+  const uint32_t o = entry_ops(e);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t ok = (o >> (2 * k)) & 3u;
+    if (ok) {
+      const int q = entry_qubit(e, k);
+      atomicXor(W + (q >> 4), ok << ((q & 15) << 1));
+    }
+  }
+}
+
+// The states and ops of Philox block g of a color (stabilizers c0 + 4g ..
+// c0 + 4g + 3; past the color's n an empty entry), stabilizer e's 8 bits at
+// bits 8e of each: two registers a block, so a lane holds the next block's
+// beside the current one within 64 registers.
+__device__ __forceinline__ void load_block(const uint32_t* W, const uint64_t* qtab, int c0, int n,
+                                           int g, uint32_t& st, uint32_t& ops) {
+  st = ops = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint64_t ent = 4 * g + e < n ? qtab[c0 + 4 * g + e] : 0ull;
+    st |= entry_states(W, ent) << (8 * e);
+    ops |= entry_ops(ent) << (8 * e);
+  }
+}
+
+// One color on a rung whose chain sits in slot ``W``: lane l takes the
+// color's Philox blocks g = l, l + L, ... whole, at the counter the register
+// form stages (use (it * n_colors + c) * Nc + r).  Per block it first
+// issues the next block's loads, then decides its four stabilizers on the
+// states it loaded, then XORs the accepted ones in (their entries read
+// again).  The supports of a color are disjoint and a decision reads only
+// its own qubits, which no other stabilizer of the color flips, so every
+// order of loads and flips decides as the planes before the color do; the
+// caller's __syncwarp closes the color.  A padded entry's ops are 0: it
+// flips nothing and its entry is not read again.  The rung's betas ``br``
+// are read from shared memory a block at a time, not held in registers
+// across the window.
+template <bool EQ>
+__device__ __forceinline__ void sweep_color_wide(const WindowParams& P, uint32_t* W,
+                                                 const uint64_t* qtab, int c0, int n, int l,
+                                                 int L, uint32_t use, int t, int b,
+                                                 const float* br) {
   const int nb = (n + 3) >> 2;
+  if (l >= nb) return;
+  uint32_t st, ops;
+  load_block(W, qtab, c0, n, l, st, ops);
   for (int g = l; g < nb; g += L) {
+    uint32_t st_n, ops_n;
+    load_block(W, qtab, c0, g + L < nb ? n : 0, g + L, st_n, ops_n);
     const uint4 v = draw_block(P, (uint32_t)g, use, (uint32_t)t, (uint32_t)b);
+    const float bx = br[0], by = EQ ? 0.f : br[1], bz = EQ ? 0.f : br[2];
+    unsigned acc = 0;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int j = 4 * g + e;
-      if (j >= n) break;
-      const int s = c0 + j;
-      const uint32_t sp = (uint32_t)span[s];
-      int wm[S];
-#pragma unroll
-      for (int m = 0; m < S; ++m)
-        wm[m] = wide ? (int)((wide[s] >> (8 * m)) & 255u) : (int)((sp >> (12 + 4 * m)) & 15u);
-      uint64_t xm[S], zm[S];
       const float logr =
-          proposal_logr_at<S, EQ>(X, Z, stab + (size_t)s * 3 * S, sp, wm, bx, by, bz, xm, zm);
-      if (logr >= 0.f || log_uniform(word_of(v, e)) < logr) {
-#pragma unroll
-        for (int m = 0; m < S; ++m) {
-          if (xm[m]) xor_shared(X + wm[m], xm[m]);
-          if (zm[m]) xor_shared(Z + wm[m], zm[m]);
-        }
-      }
+          entry_logr<EQ>((st >> (8 * e)) & 255u, (ops >> (8 * e)) & 255u, bx, by, bz);
+      // every uniform is < 1, so log u < 0 and logr >= 0 accepts
+      if (logr >= 0.f || log_uniform(word_of(v, e)) < logr) acc |= 1u << e;
     }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (((acc >> e) & 1u) && ((ops >> (8 * e)) & 255u)) entry_flip(W, qtab[c0 + 4 * g + e]);
+    st = st_n;
+    ops = ops_n;
   }
 }
 
@@ -805,10 +913,46 @@ __device__ __forceinline__ int rung_sum(int v, unsigned mask, int L) {
   return v;
 }
 
-// top_mix on the top rung's planes in shared memory: lane l takes the words
-// w = l, l + L, ...; a Metropolis round sums the count changes over the
-// rung's lanes, so every lane takes the one decision alike.
-__device__ __forceinline__ void top_mix_wide(const WindowParams& P, uint64_t* X, uint64_t* Z,
+// Bit i of x to bit 2i, and back.
+__device__ __forceinline__ uint32_t spread16(uint32_t x) {
+  x &= 0xFFFFu;
+  x = (x | (x << 8)) & 0x00FF00FFu;
+  x = (x | (x << 4)) & 0x0F0F0F0Fu;
+  x = (x | (x << 2)) & 0x33333333u;
+  return (x | (x << 1)) & 0x55555555u;
+}
+
+__device__ __forceinline__ uint32_t compact16(uint32_t x) {
+  x &= 0x55555555u;
+  x = (x | (x >> 1)) & 0x33333333u;
+  x = (x | (x >> 2)) & 0x0F0F0F0Fu;
+  x = (x | (x >> 4)) & 0x00FF00FFu;
+  return (x | (x >> 8)) & 0xFFFFu;
+}
+
+// The X and Z plane words w (qubits 64w .. 64w + 63) of a slot.
+__device__ __forceinline__ void plane_words(const uint32_t* W, int w, uint64_t& x, uint64_t& z) {
+  x = z = 0;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const uint32_t u = W[4 * w + h];
+    x |= (uint64_t)compact16(u) << (16 * h);
+    z |= (uint64_t)compact16(u >> 1) << (16 * h);
+  }
+}
+
+// XOR plane words (mx, mz) into word w of a slot.
+__device__ __forceinline__ void xor_plane_words(uint32_t* W, int w, uint64_t mx, uint64_t mz) {
+#pragma unroll
+  for (int h = 0; h < 4; ++h)
+    W[4 * w + h] ^= spread16((uint32_t)(mx >> (16 * h))) |
+                    (spread16((uint32_t)(mz >> (16 * h))) << 1);
+}
+
+// top_mix on the top rung's slot: lane l takes the plane words w = l, l +
+// L, ...; a Metropolis round sums the count changes over the rung's lanes,
+// so every lane takes the one decision alike.
+__device__ __forceinline__ void top_mix_wide(const WindowParams& P, uint32_t* W,
                                              const uint64_t* tab, const int32_t* meta,
                                              const float* bt, const float* gate,
                                              const float* mlogu, const uint32_t* dwords, int l,
@@ -820,9 +964,10 @@ __device__ __forceinline__ void top_mix_wide(const WindowParams& P, uint64_t* X,
     if (!accept) {
       int dx = 0, dy = 0, dz = 0;
       for (int w = l; w < nw; w += L) {
-        uint64_t mx, mz;
+        uint64_t mx, mz, x, z;
         mix_masks(P, tab, meta, dwords, it, w, mx, mz);
-        const uint64_t x = X[w], z = Z[w], nx = x ^ mx, nz = z ^ mz;
+        plane_words(W, w, x, z);
+        const uint64_t nx = x ^ mx, nz = z ^ mz;
         dx += __popcll(nx & ~nz) - __popcll(x & ~z);
         dy += __popcll(nx & nz) - __popcll(x & z);
         dz += __popcll(~nx & nz) - __popcll(~x & z);
@@ -839,76 +984,88 @@ __device__ __forceinline__ void top_mix_wide(const WindowParams& P, uint64_t* X,
       for (int w = l; w < nw; w += L) {
         uint64_t mx, mz;
         mix_masks(P, tab, meta, dwords, it, w, mx, mz);
-        X[w] ^= mx;
-        Z[w] ^= mz;
+        xor_plane_words(W, w, mx, mz);
       }
     }
   }
 }
 
-__device__ __forceinline__ int class_of_wide(const uint64_t* X, const uint64_t* Z,
-                                             const WindowParams& P, const uint64_t* tab,
-                                             const int32_t* meta) {
+// class_of on a slot, the words split over the rung's lanes and their
+// parities XORed together; every lane gets the class (``gmeta``: the meta
+// in device memory, where bits_to_eq is).
+__device__ __forceinline__ int class_of_wide(const uint32_t* W, const WindowParams& P,
+                                             const uint64_t* tab, const int32_t* gmeta, int l,
+                                             int L, unsigned mask) {
   const int nw = P.nw;
   int bits = 0;
-  for (int f = 0; f < P.n_bits; ++f) {
-    const uint64_t* a = tab + P.off_class + (size_t)f * 2 * nw;
-    int par = 0;
-    for (int w = 0; w < nw; ++w) par += __popcll(a[w] & X[w]) + __popcll(a[nw + w] & Z[w]);
-    bits |= (par & 1) << f;
-  }
-  return meta[P.m_b2e + bits];
-}
-
-__device__ __forceinline__ int32_t chain_key_wide(const uint64_t* X, const uint64_t* Z, int nw,
-                                                  const uint64_t* keytab, int c) {
-  int32_t key = 0;
-  for (int k = 0; k < kKeyBits; ++k) {
-    const uint64_t* m = keytab + (size_t)(c * kKeyBits + k) * nw;
-    int32_t s = 0;
-    for (int w = 0; w < nw; ++w) {
-      const uint64_t x = X[w], z = Z[w];
-      s += __popcll(x & ~z & m[w]) + 2 * __popcll(x & z & m[w]) + 3 * __popcll(~x & z & m[w]);
+  for (int w = l; w < nw; w += L) {
+    uint64_t x, z;
+    plane_words(W, w, x, z);
+    for (int f = 0; f < P.n_bits; ++f) {
+      const uint64_t* a = tab + P.off_class + (size_t)f * 2 * nw;
+      bits ^= ((__popcll(a[w] & x) + __popcll(a[nw + w] & z)) & 1) << f;
     }
-    key += s << k;
   }
-  return key;
+  for (int k = 1; k < L; k <<= 1) bits ^= __shfl_xor_sync(mask, bits, k);
+  return gmeta[P.m_b2e + bits];
 }
 
-// ladder_window_kernel for ladders its registers cannot hold: more than 16
-// words per plane, or a group too large for the register form's shared
-// memory.  The word count is a run-time value.  Each rung's X and Z planes
-// sit in a slot of its group's shared memory (2 * nw + 1 words, the last
-// padding against bank conflicts between slots); a rung's L lanes sit in
-// one warp and each decides its Philox blocks of a color (sweep_color_wide),
-// so no draw is staged and shared memory does not grow with iters * Nc.
-// The exchange swaps slot indices (``perm`` holds each rung's slot across
-// steps), not planes, and the state is written back through them at the
-// end of the window.  Every other draw, the exchange, flags and readouts
-// are the register form's.
-template <int S, bool EQ>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+// chain_key's four components on a slot, the words split over the rung's
+// lanes and summed (the sums are exact integers, so the order is free).
+__device__ __forceinline__ void chain_keys_wide(const uint32_t* W, int nw, const uint64_t* keytab,
+                                                int l, int L, unsigned mask,
+                                                int32_t (&key)[kKeys]) {
+#pragma unroll
+  for (int c = 0; c < kKeys; ++c) key[c] = 0;
+  for (int w = l; w < nw; w += L) {
+    uint64_t x, z;
+    plane_words(W, w, x, z);
+    const uint64_t ex = x & ~z, ey = x & z, ez = ~x & z;
+#pragma unroll
+    for (int c = 0; c < kKeys; ++c) {
+      for (int k = 0; k < kKeyBits; ++k) {
+        const uint64_t m = keytab[(size_t)(c * kKeyBits + k) * nw + w];
+        key[c] += (__popcll(ex & m) + 2 * __popcll(ey & m) + 3 * __popcll(ez & m)) << k;
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kKeys; ++c) key[c] = rung_sum(key[c], mask, L);
+}
+
+// ladder_window_kernel for the ladders of the large variant (the header).
+// The word count is a run-time value.  Each rung's chain sits in a slot of
+// its group's shared memory (4 * nw + 1 words of 32 bits, 2 bits a qubit,
+// the last a padding word against bank conflicts between slots); a rung's
+// L lanes sit in one warp and each decides its Philox blocks of a color
+// (sweep_color_wide), so no draw is staged and shared memory does not grow
+// with iters * Nc.  The exchange swaps slot indices (``slot`` holds each
+// rung's slot across steps), not planes, and the state is written back
+// through them at the end of the window.  Every other draw, the exchange,
+// flags and readouts are the register form's.
+template <bool EQ>
+__global__ void __launch_bounds__(kWideMaxThreads, 1)
     ladder_window_kernel_wide(const WindowParams P, const WindowBuffers buf) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Layout<EQ, true> lay(P);
   constexpr int kCnt = Layout<EQ>::kCnt;
   const int tid = threadIdx.x;
-  uint64_t* tab_copy = reinterpret_cast<uint64_t*>(smem_raw + lay.tab);
+  uint64_t* qtab_copy = reinterpret_cast<uint64_t*>(smem_raw + lay.tab);
   int32_t* meta = reinterpret_cast<int32_t*>(smem_raw + lay.meta);
   float* beta = reinterpret_cast<float*>(smem_raw + lay.beta);
   if (P.tab_in_smem)
-    for (int i = tid; i < P.n_tab; i += blockDim.x) tab_copy[i] = buf.tab[i];
+    for (int i = tid; i < P.n_tab; i += blockDim.x) qtab_copy[i] = buf.qtab[i];
   for (int i = tid; i < P.n_meta; i += blockDim.x) meta[i] = buf.meta[i];
   for (int i = tid; i < 3 * P.Nc; i += blockDim.x) beta[i] = buf.betas[i];
   __syncthreads();  // the block's only barrier: from here on groups are independent
-  const uint64_t* tab = P.tab_in_smem ? tab_copy : buf.tab;
+  const uint64_t* tab = buf.tab;
 
   const int GT = 32 * P.warps_per_group;  // threads per group
   const int grp = tid / GT, gt = tid - grp * GT;
   const int b = blockIdx.x * P.groups_per_block + grp;
   if (b >= P.B) return;
   unsigned char* gbase = smem_raw + lay.group + grp * lay.group_bytes;
-  uint64_t* planes = reinterpret_cast<uint64_t*>(gbase + lay.pub);
+  uint32_t* planes = reinterpret_cast<uint32_t*>(gbase + lay.pub);
   float* xlogu = reinterpret_cast<float*>(gbase + lay.xlogu);
   float* gate = reinterpret_cast<float*>(gbase + lay.gate);
   float* mlogu = reinterpret_cast<float*>(gbase + lay.mlogu);
@@ -918,17 +1075,22 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   int32_t* cnt = reinterpret_cast<int32_t*>(gbase + lay.cnt);
   int32_t* swacc = reinterpret_cast<int32_t*>(gbase + lay.swacc);
   int32_t* eqc = reinterpret_cast<int32_t*>(gbase + lay.eqc);
+  // thread 0's exchange state sits in shared memory, not in every thread's
+  // registers: burned, tops, since, bfirst, chunk_left, chunk, esum[kCnt]
+  int32_t* scal = reinterpret_cast<int32_t*>(gbase + lay.scal);
+  int(&esum)[kCnt] = *reinterpret_cast<int(*)[kCnt]>(scal + Layout<EQ>::kScal);
 
   const int Nc = P.Nc, nq = P.nq, nw = P.nw, L = P.lanes, K = P.K;
   const int r = gt >> P.lane_shift, l = gt & (L - 1);
   const bool in_rung = r < Nc;
   const int wpg = P.warps_per_group;
-  const size_t cs = 2 * (size_t)nw + 1;  // u64 per slot
+  const int n16 = 4 * nw;       // words of 16 qubits per chain
+  const size_t cs = n16 + 1;    // u32 per slot
   // the rung's lanes within their warp, for the sums over them
   const unsigned mask =
       L == 32 ? 0xffffffffu : ((1u << L) - 1u) << ((unsigned)(gt & 31) & ~(unsigned)(L - 1));
 
-  // load: rung r's chain into slot r, bits ORed in by 32-bit halves
+  // load: rung r's chain into slot r, a qubit's 2 bits ORed in
   for (size_t i = gt; i < (size_t)Nc * cs; i += GT) planes[i] = 0;
   for (int i = gt; i < Nc; i += GT) {
     flag[i] = buf.flag_in[(size_t)b * Nc + i];
@@ -943,44 +1105,35 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       const uint32_t v = src[i];
       if (!v) continue;
       const int rr = i / nq, q = i - rr * nq;
-      unsigned* pl = reinterpret_cast<unsigned*>(planes + rr * cs);
-      const unsigned bit = 1u << (q & 31);
-      if ((v ^ (v >> 1)) & 1u) atomicOr(pl + (q >> 5), bit);
-      if ((v >> 1) & 1u) atomicOr(pl + 2 * nw + (q >> 5), bit);
+      const uint32_t s = ((v ^ (v >> 1)) & 1u) | (v & 2u);  // x | z << 1
+      atomicOr(planes + rr * cs + (q >> 4), s << ((q & 15) << 1));
     }
   }
-  int tops = 0, since = 0, bfirst = -1;
-  int esum[kCnt];
-#pragma unroll
-  for (int k = 0; k < kCnt; ++k) esum[k] = 0;
   if (gt == 0) {
-    tops = buf.tops_in[b];
-    since = buf.since_in[b];
+    scal[1] = buf.tops_in[b];
+    scal[2] = buf.since_in[b];
+    scal[3] = -1;
+    scal[4] = P.energy_chunk;  // steps to the next energy row
+    scal[5] = 0;
+#pragma unroll
+    for (int k = 0; k < kCnt; ++k) esum[k] = 0;
   }
-  float bx = 0.f, by = 0.f, bz = 0.f;
-  if (in_rung) {
-    bx = beta[3 * r];
-    by = beta[3 * r + 1];
-    bz = beta[3 * r + 2];
-  }
-  const uint64_t* stab = tab + P.off_span;
-  const int32_t* span = meta + P.m_span;
-  const uint32_t* wide = P.m_wide >= 0 ? reinterpret_cast<const uint32_t*>(meta + P.m_wide)
-                                       : nullptr;
-  int chunk_left = P.energy_chunk, chunk = 0;  // steps to the next energy row
   group_sync(wpg, grp);
 
   for (int t = 0; t < P.window; ++t) {
     draw_extras(P, xlogu, gate, mlogu, dwords, gt, GT, t, b);
-    uint64_t* X = planes + (in_rung ? (size_t)slot[r] : 0) * cs;
-    uint64_t* Z = X + nw;
-    // 1) colored sweeps; use of color c in iteration it on rung r
+    uint32_t* W = planes + (in_rung ? (size_t)slot[r] : 0) * cs;
+    // 1) colored sweeps; use of color c in iteration it on rung r.  The
+    // qubit table's place is decided here, so each inlined sweep reads it
+    // through a pointer of one address space
     for (int it = 0; it < P.iters; ++it) {
       for (int c = 0; c < P.n_colors; ++c) {
-        const int c0 = meta[c];
-        sweep_color_wide<S, EQ>(P, X, Z, stab, span, wide, c0, in_rung ? meta[c + 1] - c0 : 0,
-                                l, L, (uint32_t)((it * P.n_colors + c) * Nc + r), t, b, bx, by,
-                                bz);
+        const int c0 = meta[c], n = in_rung ? meta[c + 1] - c0 : 0;
+        const uint32_t use = (uint32_t)((it * P.n_colors + c) * Nc + r);
+        if (P.tab_in_smem)
+          sweep_color_wide<EQ>(P, W, qtab_copy, c0, n, l, L, use, t, b, beta + 3 * r);
+        else
+          sweep_color_wide<EQ>(P, W, buf.qtab, c0, n, l, L, use, t, b, beta + 3 * r);
         __syncwarp();  // every flip of the color is in before the next reads
       }
     }
@@ -988,19 +1141,19 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     if (in_rung) {
       // 2) top-rung logical mix
       if (r == Nc - 1 && P.p_logical > 0.f)
-        top_mix_wide(P, X, Z, tab, meta, beta + 3 * r, gate, mlogu, dwords, l, L, mask);
+        top_mix_wide(P, W, tab, meta, beta + 3 * r, gate, mlogu, dwords, l, L, mask);
       // the rung's counts after the mix, over its lanes' words
       int n[kCnt];
 #pragma unroll
       for (int k = 0; k < kCnt; ++k) n[k] = 0;
-      for (int w = l; w < nw; w += L) {
-        const uint64_t x = X[w], z = Z[w];
+      for (int k = l; k < n16; k += L) {
+        const uint32_t u = W[k], x = u & 0x55555555u, z = (u >> 1) & 0x55555555u;
         if constexpr (EQ) {
-          n[0] += __popcll(x | z);
+          n[0] += __popc(x | z);
         } else {
-          n[0] += __popcll(x & ~z);
-          n[1] += __popcll(x & z);
-          n[2] += __popcll(~x & z);
+          n[0] += __popc(x & ~z);
+          n[1] += __popc(x & z);
+          n[2] += __popc(z & ~x);
         }
       }
 #pragma unroll
@@ -1010,24 +1163,30 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         for (int k = 0; k < kCnt; ++k) cnt[r * kCnt + k] = n[k];
     }
     group_sync(wpg, grp);
-    int burned = 0;
     if (gt == 0)
-      burned = exchange_step<EQ>(P, buf, beta, xlogu, slot, flag, cnt, swacc, t, b, tops, since,
-                                 bfirst, esum, chunk_left, chunk);
+      scal[0] = exchange_step<EQ>(P, buf, beta, xlogu, slot, flag, cnt, swacc, t, b, scal[1],
+                                  scal[2], scal[3], esum, scal[4], scal[5]);
     group_sync(wpg, grp);
-    // the bottom rung's class (thread 0) and, in trace mode, its chain
-    // hash, component c on lane c % L
+    // the bottom rung's class (counted on thread 0) and, in trace mode, its
+    // chain hash, over the bottom rung's lanes
     if (r == 0) {
-      const uint64_t* X0 = planes + (size_t)slot[0] * cs;
+      const uint32_t* W0 = planes + (size_t)slot[0] * cs;
       const size_t row = (size_t)t * P.B + b;
-      if (gt == 0 && (burned || P.traces)) {
-        const int cls = class_of_wide(X0, X0 + nw, P, tab, meta);
-        if (burned) ++eqc[cls];
-        if (P.traces) buf.eq_trace[row] = cls;
+      const bool now = scal[0] != 0;
+      if (now || P.traces) {
+        const int cls = class_of_wide(W0, P, tab, buf.meta, l, L, mask);
+        if (gt == 0) {
+          if (now) ++eqc[cls];
+          if (P.traces) buf.eq_trace[row] = cls;
+        }
       }
-      if (P.traces)
-        for (int c = l; c < kKeys; c += L)
-          buf.key_trace[row * kKeys + c] = chain_key_wide(X0, X0 + nw, nw, tab + P.off_key, c);
+      if (P.traces) {
+        int32_t key[kKeys];
+        chain_keys_wide(W0, nw, tab + P.off_key, l, L, mask, key);
+        if (l == 0)
+#pragma unroll
+          for (int c = 0; c < kKeys; ++c) buf.key_trace[row * kKeys + c] = key[c];
+      }
     }
     __syncwarp();  // the bottom rung is read before its next sweep
   }
@@ -1038,29 +1197,28 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     uint8_t* dst = buf.state_out + (size_t)b * Nc * nq;
     for (int i = gt; i < Nc * nq; i += GT) {
       const int rr = i / nq, q = i - rr * nq;
-      const uint64_t* pl = planes + (size_t)slot[rr] * cs;
-      const uint32_t x = (uint32_t)(pl[q >> 6] >> (q & 63)) & 1u;
-      const uint32_t z = (uint32_t)(pl[nw + (q >> 6)] >> (q & 63)) & 1u;
-      dst[i] = (uint8_t)(x ^ (z * 3u));
+      const uint32_t s = (planes[(size_t)slot[rr] * cs + (q >> 4)] >> ((q & 15) << 1)) & 3u;
+      dst[i] = (uint8_t)((s & 1u) ^ ((s >> 1) * 3u));
     }
   }
   for (int i = gt; i < Nc; i += GT) buf.flag_out[(size_t)b * Nc + i] = flag[i];
   for (int i = gt; i < K; i += GT) buf.eq_out[(size_t)b * K + i] = eqc[i];
   for (int i = gt; i < Nc - 1; i += GT) buf.swap_acc[(size_t)b * (Nc - 1) + i] = swacc[i];
   if (gt == 0) {
-    buf.tops_out[b] = tops;
-    buf.since_out[b] = since;
+    const int bfirst = scal[3];
+    buf.tops_out[b] = scal[1];
+    buf.since_out[b] = scal[2];
     buf.burn_any[b] = bfirst >= 0 ? 1 : 0;
     buf.burn_first[b] = bfirst > 0 ? bfirst : 0;
   }
 }
 
 // The kernel of ``F<NW, S, EQ>``: a register instantiation, or the large
-// variant for NW == kWide.
+// variant for NW == kWide (which reads no spanned words: S is 0 there).
 template <int NW, int S, bool EQ>
 inline void (*kernel_of())(const WindowParams, const WindowBuffers) {
   if constexpr (NW == kWide)
-    return ladder_window_kernel_wide<S, EQ>;
+    return ladder_window_kernel_wide<EQ>;
   else
     return ladder_window_kernel<NW, S, EQ>;
 }
@@ -1069,7 +1227,8 @@ template <int NW, int S, bool EQ>
 cudaError_t launch(const WindowParams& P, const WindowBuffers& buf, cudaStream_t stream) {
   const int threads = 32 * P.warps_per_group * P.groups_per_block;
   if (P.lanes < 1 || P.lanes > 32 || (1 << P.lane_shift) != P.lanes ||
-      P.Nc * P.lanes > 32 * P.warps_per_group || threads > kMaxThreads ||
+      P.Nc * P.lanes > 32 * P.warps_per_group ||
+      threads > (NW == kWide ? kWideMaxThreads : kMaxThreads) ||
       (P.warps_per_group > 1 && P.groups_per_block > kMaxBarriers))
     return cudaErrorInvalidValue;
   if (P.traces && (buf.eq_trace == nullptr || buf.key_trace == nullptr))
@@ -1083,7 +1242,7 @@ cudaError_t launch(const WindowParams& P, const WindowBuffers& buf, cudaStream_t
   }
   const int blocks = (P.B + P.groups_per_block - 1) / P.groups_per_block;
   if constexpr (NW == kWide)
-    ladder_window_kernel_wide<S, EQ><<<blocks, threads, smem, stream>>>(P, buf);
+    ladder_window_kernel_wide<EQ><<<blocks, threads, smem, stream>>>(P, buf);
   else
     ladder_window_kernel<NW, S, EQ><<<blocks, threads, smem, stream>>>(P, buf);
   return cudaGetLastError();
@@ -1118,17 +1277,14 @@ struct Resident {
 
 // Run ``F<NW, S, EQ>`` for the launch's words per plane, spanned words per
 // stabilizer (ops/ladder_window.py::KERNEL_SHAPES; in the large variant,
-// NW = kWide, 1, 2 or 4 spanned words at any word count up to kWideWords)
-// and sweep form, or return ``bad``.
+// NW = kWide and S = 0, any word count up to kWideWords, every stabilizer
+// of at most four qubits) and sweep form, or return ``bad``.
 template <template <int, int, bool> class F, class... A>
 int dispatch(const WindowParams& P, int bad, A... args) {
   const bool eq = P.equal_betas != 0;
   if (P.wide) {
     if (P.nw > kWideWords || (size_t)P.nw * 64 < (size_t)P.nq) return bad;
-    if (P.span == 1) return eq ? F<kWide, 1, true>::run(P, args...) : F<kWide, 1, false>::run(P, args...);
-    if (P.span == 2) return eq ? F<kWide, 2, true>::run(P, args...) : F<kWide, 2, false>::run(P, args...);
-    if (P.span == 4) return eq ? F<kWide, 4, true>::run(P, args...) : F<kWide, 4, false>::run(P, args...);
-    return bad;
+    return eq ? F<kWide, 0, true>::run(P, args...) : F<kWide, 0, false>::run(P, args...);
   }
 #define MQT_SHAPE(W, SP)                                            \
   if (P.nw == W && P.span == SP)                                   \

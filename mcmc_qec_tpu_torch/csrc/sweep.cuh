@@ -88,7 +88,7 @@ __device__ __forceinline__ float proposal_logr(const uint64_t (&X)[NW], const ui
   return logr_of<EQ>(d0, tx, tz, sp, bx, by, bz);
 }
 
-// proposal_logr on planes in shared memory (the kernels' large variants),
+// proposal_logr on planes in shared memory (the sweep kernel's large variant),
 // on the words ``wm`` the caller read from the stabilizer's entry.
 template <int S, bool EQ>
 __device__ __forceinline__ float proposal_logr_at(const uint64_t* X, const uint64_t* Z,

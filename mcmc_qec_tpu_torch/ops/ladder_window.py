@@ -12,10 +12,11 @@ window).  ``make_ladder_window`` returns a function with the exact
 The kernel has two forms, picked from shapes before any launch
 (``window_form``): the register form, each rung's planes in its lanes'
 registers (``KERNEL_SHAPES``, up to 16 words per plane), and the large
-variant, the planes in shared memory and the word count a run-time value,
-for every ladder the registers cannot hold (codes above 16 words per
-plane, up to WIDE_WORDS; groups too large for the register form's shared
-memory).  Both compute the same function.
+variant, the planes in shared memory at 2 bits a qubit and the word count
+a run-time value, for every ladder the registers cannot hold (codes above
+16 words per plane, up to WIDE_WORDS; groups too large for the register
+form's shared memory) and for the codes where it is the faster form
+(``WIDE_FROM_WORDS``).  Both compute the same function.
 
 Every branch of the TPU kernel is ported:
 
@@ -73,14 +74,16 @@ from .philox import MASK32, philox4x32
 # code's word count is rounded up to the next; the extra words stay zero).
 # 16 words (nq <= 1024) is the most, and the narrow spanned-word entry packs
 # a word index in 4 bits.  Above 16 words the tables hold the code's exact
-# word count and a wide entry, 8 bits a word index, which the large
-# variants of both kernels read (ops/sweep.py::MAX_WORDS)
+# word count and a wide entry, 8 bits a word index, which the sweep
+# kernel's large variant reads (ops/sweep.py::MAX_WORDS); the window
+# kernel's large variant reads ``qubit_table`` at any word count
 KERNEL_WORDS = (1, 2, 3, 4, 6, 8, 12, 16)
 # most words per plane an 8-bit word index of the wide entry names, and
-# so the most the kernels' large variants take (nq <= 16384)
+# so the most the kernels' large variants take (nq <= 16384; a qubit-table
+# entry's 14-bit qubit index reaches as far)
 WIDE_WORDS = 256
-# spanned-word entries per stabilizer the window kernel's large variant is
-# instantiated for (csrc/ladder_window.cu::dispatch)
+# spanned-word entries per stabilizer of the tables above 16 words per
+# plane (the window kernel's large variant reads the qubit table instead)
 WIDE_SPANS = (1, 2, 4)
 # (words per plane, spanned-word entries per stabilizer) both kernels are
 # instantiated for (csrc/ladder_window.cu::dispatch, csrc/sweep.cu::dispatch):
@@ -91,6 +94,15 @@ KERNEL_SHAPES = ((1, 1), (2, 2), (3, 2), (3, 4), (4, 2), (4, 4), (6, 2), (6, 4),
                  (8, 2), (8, 4), (12, 2), (12, 4), (16, 2), (16, 4))
 # threads per block of the window kernel (csrc/ladder_window.cu::kMaxThreads)
 MAX_THREADS = 512
+# threads per block of its large variant (kWideMaxThreads, its launch
+# bounds: at most 64 registers a thread) and the warps an SM holds of it
+WIDE_MAX_THREADS = 1024
+WIDE_WARPS_PER_SM = 32
+# codes of this many words per plane or more run the large variant wherever
+# it holds the ladder, though the register form does too (``window_form``)
+WIDE_FROM_WORDS = 12
+# bits of a qubit index in an entry of ``qubit_table``
+_QUBIT_BITS = 14
 # named barriers a block has for multi-warp groups (id 0 is __syncthreads)
 MAX_NAMED_BARRIERS = 15
 # dynamic shared memory one block may use on Hopper (227 KB)
@@ -502,7 +514,7 @@ class _Params(ctypes.Structure):
         "n_tab", "n_meta", "off_class", "off_key", "off_span",
         "m_draw", "m_lut", "m_b2e", "m_span", "m_blk", "m_bcol", "n_blk",
         "equal_betas", "top_exact", "even_odd", "traces", "tab_in_smem",
-        "smem", "wide", "m_wide",
+        "smem", "wide",
     )] + [(n, ctypes.c_float) for n in (
         "p_logical", "w0", "w1", "w2", "inv_chunk",
     )] + [(n, ctypes.c_uint32) for n in ("key0", "key1", "fixed_word")]
@@ -515,7 +527,7 @@ class _Buffers(ctypes.Structure):
         "state_in", "state_out", "flag_in", "flag_out", "tops_in", "tops_out",
         "eq_in", "eq_out", "since_in", "since_out", "energies", "burn_any",
         "burn_first", "swap_acc", "eq_trace", "key_trace", "betas", "tab",
-        "meta",
+        "meta", "qtab",
     )]
 
 
@@ -663,8 +675,36 @@ def kernel_tables(spec: CodeSpec):
                 m_blk=m_blk, m_bcol=m_bcol, n_blk=int(blk[-1]), m_b2e=m_b2e,
                 m_wide=m_wide,
                 n_colors=len(color_start) - 1, w_max=int(n_per_color.max()),
-                nw=nw)
+                nw=nw, n_stabs=len(spans))
     return tab_np, meta_np, offs
+
+
+@functools.lru_cache(maxsize=None)
+def qubit_table(spec: CodeSpec) -> np.ndarray:
+    """(n_stabs,) int64 (the bits of a uint64) entries of the window
+    kernel's large variant, one per stabilizer in ``kernel_tables``' color
+    order: qubit k (k < 4) of its support in bits 14k .. 14k + 13 and its op
+    there, x | z << 1 (X 1, Y 3, Z 2), in bits 56 + 2k and 57 + 2k; a
+    stabilizer of fewer qubits leaves op 0 (and qubit 0) in the rest.  The
+    kernel reads a proposal's qubits from its entry alone
+    (csrc/ladder_window.cu::entry_states).  A ``ValueError`` for a code of
+    more than 2**14 qubits or a stabilizer of more than four."""
+    if spec.nq > 1 << _QUBIT_BITS:
+        raise ValueError(f"nq={spec.nq}: a qubit-table entry names qubits "
+                         f"below {1 << _QUBIT_BITS}")
+    out = []
+    for sel, xop, zop in _color_tables(spec):
+        for row in sel:
+            qs = np.flatnonzero(row)
+            if len(qs) > 4:
+                raise ValueError(f"a stabilizer of {len(qs)} qubits: the "
+                                 f"qubit table holds at most four")
+            e = 0
+            for k, q in enumerate(qs):
+                op = int(xop[q] > 0) | (int(zop[q] > 0) << 1)
+                e |= (int(q) << (_QUBIT_BITS * k)) | (op << (56 + 2 * k))
+            out.append(e)
+    return np.asarray(out, np.uint64).view(np.int64)
 
 
 def has_kernel_shape(spec: CodeSpec) -> bool:
@@ -743,13 +783,17 @@ def group_bytes(offs, Nc: int, K: int, equal_betas: bool, iters: int,
 def wide_group_bytes(offs, Nc: int, K: int, equal_betas: bool, iters: int,
                      n_draws: int) -> int:
     """Shared memory of one syndrome's group in the large variant
-    (csrc/ladder_window.cu::Layout<EQ, true>): the planes of its Nc
-    chains, one slot each of 2 * nw + 1 words (X, Z and a padding word,
-    against bank conflicts between slots), and ``_group_scalars``; no
-    sweep draws (each lane draws its Philox blocks as it decides them),
-    rounded up to 8 bytes."""
-    n4 = _group_scalars(Nc, K, equal_betas, iters, n_draws)
-    return -(-(8 * Nc * (2 * offs["nw"] + 1) + 4 * n4) // 8) * 8
+    (csrc/ladder_window.cu::Layout<EQ, true>): its Nc chains, one slot
+    each of 4 * nw + 1 words of 32 bits (2 bits a qubit, and a padding word
+    against bank conflicts between slots), ``_group_scalars``, and the
+    step's burn flag with thread 0's exchange state (tops, since_burn,
+    burn_first, the energy row, its countdown and sums); no sweep draws
+    (each lane draws its Philox blocks as it decides them), rounded up to 8
+    bytes."""
+    n4 = (Nc * (4 * offs["nw"] + 1)
+          + _group_scalars(Nc, K, equal_betas, iters, n_draws)
+          + 6 + (1 if equal_betas else 3))
+    return -(-4 * n4 // 8) * 8
 
 
 def _block_bytes(offs, Nc: int, groups: int, group: int,
@@ -771,9 +815,12 @@ def smem_bytes(offs, Nc: int, K: int, groups: int, equal_betas: bool,
 def wide_smem_bytes(offs, Nc: int, K: int, groups: int, equal_betas: bool,
                     iters: int, n_draws: int, tab_in_smem: bool) -> int:
     """Dynamic shared memory of one block of ``groups`` groups in the
-    large variant."""
-    return _block_bytes(offs, Nc, groups, wide_group_bytes(
-        offs, Nc, K, equal_betas, iters, n_draws), tab_in_smem)
+    large variant: the qubit table (or none), the groups, the meta up to
+    the spanned-word entries (color starts, draw starts, op LUT) and the
+    betas."""
+    return (8 * offs["n_stabs"] * int(tab_in_smem)
+            + groups * wide_group_bytes(offs, Nc, K, equal_betas, iters, n_draws)
+            + 4 * offs["m_span"] + 4 * 3 * Nc)
 
 
 def lanes_per_rung(offs, Nc: int) -> int:
@@ -794,20 +841,21 @@ class BlockShape(NamedTuple):
 
 
 def _pack_groups(L: int, Nc: int, B: int, n_sm: int, smem,
-                 tab_in_smem: bool, what: str) -> BlockShape:
+                 tab_in_smem: bool, what: str,
+                 max_threads: int = MAX_THREADS) -> BlockShape:
     """The launch of one window at ``L`` lanes per rung: a syndrome's
     Nc * L threads padded to whole warps, and groups per block spread so
-    that the batch covers about every SM once, within the thread bound,
-    the named barriers of multi-warp groups and 227 KB of shared memory
-    (``smem(groups, tab_in_smem)``)."""
+    that the batch covers about every SM once, within the thread bound
+    ``max_threads``, the named barriers of multi-warp groups and 227 KB of
+    shared memory (``smem(groups, tab_in_smem)``)."""
     if L & (L - 1) or not 1 <= L <= 32:
         raise ValueError(f"lanes={L}: expected a power of two up to 32")
     wpg = -(-Nc * L // 32)
-    cap = MAX_THREADS // (32 * wpg)
+    cap = max_threads // (32 * wpg)
     if wpg > 1:
         cap = min(cap, MAX_NAMED_BARRIERS)
     if cap < 1:
-        raise ValueError(f"Nc={Nc} x lanes={L} exceeds {MAX_THREADS} threads")
+        raise ValueError(f"Nc={Nc} x lanes={L} exceeds {max_threads} threads")
     gpb = max(1, min(cap, -(-B // n_sm)))
     while gpb > 1 and smem(gpb, tab_in_smem) > SMEM_LIMIT:
         gpb -= 1
@@ -833,31 +881,49 @@ def block_shape(offs, Nc: int, K: int, B: int, n_sm: int, equal_betas: bool,
                         f"Nc={Nc}, {offs['nw']} words per plane")
 
 
-def wide_lanes(offs, Nc: int) -> int:
-    """Lanes per rung of the large variant: ``lanes_per_rung`` (8 for every
-    code above 16 words) where Nc of them fit a block's MAX_THREADS
-    threads, otherwise the most that fit (a power of two, at least 1 for
-    Nc <= MAX_THREADS)."""
-    fit = 1 << max(0, (MAX_THREADS // max(Nc, 1)).bit_length() - 1)
-    return min(lanes_per_rung(offs, Nc), fit)
+def wide_lanes(offs, Nc: int, per_sm: int) -> int:
+    """Lanes per rung of the large variant: the most, a power of two up to
+    32, that keep a syndrome within a block's WIDE_MAX_THREADS threads and
+    below twice the widest color's Philox blocks (one block a lane and
+    round), and, down to 8, ``per_sm`` syndromes on an SM within
+    WIDE_WARPS_PER_SM resident warps; at least 1.  One syndrome an SM takes
+    32 (toric d=25 at B=128: 25 warps); a batch of several an SM takes 8,
+    the rest waiting for a later wave: fewer lanes lengthen the loops a
+    rung runs over its words each step (toric d=25, B=1024, a W=60 window
+    in 38.2, 32.4 and 28.3 ms at 2, 4 and 8 lanes; chip_window_probe.py,
+    NVIDIA H100 80GB HBM3 at 700 W)."""
+    blocks = -(-offs["w_max"] // 4)
+    L = 32
+    while L > 1 and (Nc * L > WIDE_MAX_THREADS or L >= 2 * blocks
+                     or (L > 8 and per_sm * -(-Nc * L // 32) > WIDE_WARPS_PER_SM)):
+        L //= 2
+    return L
 
 
 def wide_block_shape(offs, Nc: int, K: int, B: int, n_sm: int,
                      equal_betas: bool, iters: int, n_draws: int
                      ) -> BlockShape:
     """The launch of one window in the large variant: ``wide_lanes`` lanes
-    per rung, packed by ``_pack_groups`` (rotated d=37 at 37 rungs: 8
-    lanes, ten warps and 14 KB a syndrome), the tables read from device
-    memory: a toric d=25 window is 10% faster so at B=128 and 5% at
-    B=1024 than with the tables in shared memory (on an H100,
-    chip_window_probe.py), and the shared memory is left to the groups."""
+    per rung, packed by ``_pack_groups`` within WIDE_MAX_THREADS threads,
+    the qubit table in shared memory where it fits beside the groups
+    (toric d=25: 10 KB), else read from device memory, as every other
+    table is."""
     smem = functools.partial(wide_smem_bytes, offs, Nc, K,
                              equal_betas=equal_betas, iters=iters,
                              n_draws=n_draws)
-    return _pack_groups(wide_lanes(offs, Nc), Nc, B, n_sm,
-                        lambda g, t: smem(g, tab_in_smem=t), False,
-                        f"Nc={Nc}, {offs['nw']} words per plane, large "
-                        f"variant")
+    # the syndromes an SM runs at once: the batch's share, as far as their
+    # groups fit its shared memory
+    group = smem(2, tab_in_smem=False) - smem(1, tab_in_smem=False)
+    fit = max(1, (SMEM_LIMIT - smem(0, tab_in_smem=False)) // group)
+    per_sm = min(-(-max(B, 1) // n_sm), fit)
+    shape = _pack_groups(wide_lanes(offs, Nc, per_sm), Nc, B, n_sm,
+                         lambda g, t: smem(g, tab_in_smem=t), False,
+                         f"Nc={Nc}, {offs['nw']} words per plane, large "
+                         f"variant", WIDE_MAX_THREADS)
+    with_tab = smem(shape.groups_per_block, tab_in_smem=True)
+    if with_tab <= SMEM_LIMIT:
+        return shape._replace(tab_in_smem=True, smem=with_tab)
+    return shape
 
 
 def window_form(spec: CodeSpec, Nc: int, equal_betas: bool,
@@ -866,38 +932,45 @@ def window_form(spec: CodeSpec, Nc: int, equal_betas: bool,
     ``spec``, decided from shapes alone, before any build or launch:
 
     - ``"registers"``: the code has a register instantiation
-      (``has_kernel_shape``), one syndrome's Nc x ``lanes_per_rung``
-      threads fit a block and one group fits 227 KB of shared memory with
-      the tables in device memory;
+      (``has_kernel_shape``) of fewer than WIDE_FROM_WORDS words per plane,
+      one syndrome's Nc x ``lanes_per_rung`` threads fit a block and one
+      group fits 227 KB of shared memory with the tables in device memory;
     - ``"large"`` failing that: the large variant, the planes in shared
-      memory, takes at most WIDE_WORDS words per plane, one group of Nc
-      rungs at ``wide_lanes`` (at least one lane a rung, so Nc <=
-      MAX_THREADS) and its group in 227 KB with the tables in device
-      memory;
+      memory, takes at most WIDE_WORDS words per plane, Nc <=
+      WIDE_MAX_THREADS rungs (at least one lane a rung) and one group in
+      227 KB with the tables in device memory;
     - None beyond both, where PTEQ runs the unfused window
       (decoders/pteq.py::_get_window_fn), as the JAX package does where
       its fused kernel does not fit (pteq.py:306-309).
 
-    Codes of 16 words or fewer keep the register form wherever it fits;
+    The two forms give equal outputs, so the rule moves only time.  It
+    rests on chip_window_probe.py's production windows (W=600, two sweeps
+    a step) in both forms on an NVIDIA H100 80GB HBM3 at 700 W, large
+    variant against register form: at 16 words 37.7 against 319.7 ms
+    (toric d=21, B=64) and 39.5 against 256.1 (rotated d=29, B=128); at 12
+    words 28.2 against 149.2 (toric d=17, B=64), 74.7 against 728.1
+    (toric d=19, B=512), 35.6 against 110.9 (rotated d=27, B=128) and
+    85.7 against 444.8 (xzzx d=25, B=512, general betas).  Below 12 words
+    the forms split: the large variant is faster at toric d=15 and d=13
+    (46.6 against 178.7 and 40.9 against 92.4 at B=512), slower at xzzx
+    d=13 (24.3 against 20.9, B=512) and toric d=5 (21.8 against 7.7,
+    B=2048), the production and study shapes the register form was
+    designed for; ``WIDE_FROM_WORDS`` is where to move that line.
     ``block_shape`` and ``wide_block_shape`` find a launch at every batch
     of the form it names."""
     K, nd = spec.n_classes, len(spec.logical_draws)
     if has_kernel_shape(spec):
         offs = kernel_tables(spec)[2]
         threads = 32 * -(-Nc * lanes_per_rung(offs, Nc) // 32)
-        if threads <= MAX_THREADS and smem_bytes(
+        if offs["nw"] < WIDE_FROM_WORDS and threads <= MAX_THREADS and smem_bytes(
                 offs, Nc, K, 1, equal_betas, iters, nd,
                 tab_in_smem=False) <= SMEM_LIMIT:
             return "registers"
-    if -(-spec.nq // 64) > WIDE_WORDS or not 1 <= Nc <= MAX_THREADS:
-        return None
-    offs = kernel_tables(spec)[2]
-    if offs["span"] not in WIDE_SPANS:
-        return None
-    if wide_smem_bytes(offs, Nc, K, 1, equal_betas, iters, nd,
-                       tab_in_smem=False) > SMEM_LIMIT:
-        return None
-    return "large"
+    large = (-(-spec.nq // 64) <= WIDE_WORDS and 1 <= Nc <= WIDE_MAX_THREADS
+             and wide_smem_bytes(kernel_tables(spec)[2], Nc, K, 1,
+                                 equal_betas, iters, nd,
+                                 tab_in_smem=False) <= SMEM_LIMIT)
+    return "large" if large else None
 
 
 def window_kernel_fits(spec: CodeSpec, Nc: int, equal_betas: bool,
@@ -915,9 +988,10 @@ def window_limit(spec: CodeSpec, Nc: int) -> str:
     return (f"no form of the window kernel holds Nc={Nc} rungs of nq="
             f"{spec.nq} ({-(-spec.nq // 64)} words per plane): the large "
             f"variant takes at most {WIDE_WORDS} words per plane (nq <= "
-            f"{64 * WIDE_WORDS}), {MAX_THREADS} rungs and one syndrome's "
-            f"planes, 8 * Nc * (2 * words + 1) bytes, within {SMEM_LIMIT} B "
-            f"of shared memory; the plain version on the CPU takes any size")
+            f"{64 * WIDE_WORDS}), {WIDE_MAX_THREADS} rungs and one "
+            f"syndrome's planes, 4 * Nc * (4 * words + 1) bytes, within "
+            f"{SMEM_LIMIT} B of shared memory; the plain version on the CPU "
+            f"takes any size")
 
 
 @functools.lru_cache(maxsize=None)
@@ -962,6 +1036,7 @@ def _layout_fields(spec: CodeSpec, B: int, Nc: int, iters: int,
     shape = plan(offs, Nc, K, B, _sm_count(device), equal_betas, iters,
                  n_draws)
     base = offs["off_draw"]  # the window kernel's table starts there
+    wide = form == "large"
     return shape, dict(
         B=B, Nc=Nc, nq=spec.nq, nw=offs["nw"], K=K, n_bits=spec.n_class_bits,
         n_colors=offs["n_colors"], n_draws=n_draws, iters=iters,
@@ -969,14 +1044,14 @@ def _layout_fields(spec: CodeSpec, B: int, Nc: int, iters: int,
         lane_shift=shape.lanes.bit_length() - 1,
         warps_per_group=shape.warps_per_group,
         groups_per_block=shape.groups_per_block,
-        n_tab=window_table_words(offs), n_meta=offs["n_meta"],
+        n_tab=offs["n_stabs"] if wide else window_table_words(offs),
+        n_meta=offs["m_span"] if wide else offs["n_meta"],
         off_class=offs["off_class"] - base, off_key=offs["off_key"] - base,
         off_span=offs["off_span"] - base, m_draw=offs["m_draw"],
         m_lut=offs["m_lut"], m_b2e=offs["m_b2e"], m_span=offs["m_span"],
         m_blk=offs["m_blk"], m_bcol=offs["m_bcol"], n_blk=offs["n_blk"],
         equal_betas=int(equal_betas), tab_in_smem=int(shape.tab_in_smem),
-        smem=shape.smem, wide=int(form == "large"),
-        m_wide=-1 if offs["m_wide"] is None else offs["m_wide"],
+        smem=shape.smem, wide=int(wide),
     )
 
 
@@ -1045,6 +1120,12 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
     if B == 0:
         return out
     shape, layout = _layout_fields(spec, B, Nc, iters, equal_betas, device)
+    qtab = None  # only the large variant reads the qubit table
+    if layout["wide"]:
+        if (device, "qubits") not in device_tables:
+            device_tables[device, "qubits"] = torch.as_tensor(
+                qubit_table(spec), device=device)
+        qtab = device_tables[device, "qubits"]
     P = _Params(
         **layout, window=window, tops_burn=tops_burn,
         energy_chunk=energy_chunk, fixed=int(fixed is not None),
@@ -1058,7 +1139,7 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
     bufs = _Buffers(*(t.data_ptr() if t is not None else None for t in (
         state, out[0], flag, out[1], tops0, out[2], eq_count, out[3],
         since_burn, out[4], out[5], out[6], out[7], out[8], *traces, betas_d,
-        tab, meta,
+        tab, meta, qtab,
     )))
     entry = _kernel_entry()
     with torch.cuda.device(device):

@@ -4,26 +4,30 @@ kernels: the bound ``chip_smoke.py`` prints beside each kernel's time.
 Counterpart of ``mcmc_qec_tpu/utils/roofline.py``, which counts the TPU
 sweep kernel's matrix-unit FLOPs.  The port's kernels do no matrix
 products, so this module counts what bounds them on the card instead: the
-bytes a launch must move, its 64-bit popcounts, its Philox blocks and its
-other 32-bit multiplies.  The counts are read from the kernels' own tables
-(``ops/ladder_window.py::kernel_tables``, the wide spanned-word entries of
-codes above 16 words per plane included), so a bound counts the work the
-kernel does at every code size.  ``bound_ms`` turns them into milliseconds
+bytes a launch must move, its 32-bit popcounts, its Philox blocks and its
+other 32-bit multiplies.  The counts are read from the code and the
+kernels' own tables (``ops/ladder_window.py::kernel_tables``), so a bound
+counts the work of every code size.  ``bound_ms`` turns them into milliseconds
 at the rates below and the SM count and clock of the card, which the
 caller reads from the card.
 
 Rates: the H100 SXM's HBM3 rate (NVIDIA's data sheet); per-SM issue rates
 per clock for compute capability 9.0 (CUDA C++ Programming Guide,
 throughput of native arithmetic instructions): population count 16, 32-bit
-integer multiply 64.  A 64-bit popcount is two 32-bit POPC instructions in
-the SASS, and Philox4x32-10 is 10 rounds of two mul.hi and two mul.lo (40
-IMAD) per block of four draws.  The precise logf of a proposal that may be
-rejected depends on the data and is not counted, so the bound is a lower
-bound.  Both kernels' proposals popcount only the words the stabilizer's
-support spans, two with equal betas and four with general betas
-(``popc_per_sweep``); the recording sampler adds three per word of the
-plane and step for the counts and two multiplies per qubit and step for
-the hash (``sampler_work``).
+integer multiply 64.  Philox4x32-10 is 10 rounds of two mul.hi and two
+mul.lo (40 IMAD) per block of four draws.  The precise logf of a proposal
+that may be rejected depends on the data and is not counted, so the bound
+is a lower bound.  A proposal's change of energy needs only its
+stabilizer's own qubits, two bits each: the fewest 32-bit popcounts that
+give it are two with equal betas (the errors on the support before and
+after) and four with general betas (the overlaps of the op's X and Z parts
+with the state, and the Y count before and after), on one 32-bit word for
+a support of up to 16 qubits (``popc_per_sweep``).  Both forms of both
+kernels are held to that count, whatever they issue: the register forms
+popcount 64-bit words of the planes, two POPC each.  The recording
+sampler adds three 64-bit popcounts per word of the plane and step for
+the counts and two multiplies per qubit and step for the hash
+(``sampler_work``).
 """
 
 from __future__ import annotations
@@ -40,15 +44,15 @@ POPC_PER_64BIT = 2
 IMAD_PER_PHILOX = 40
 
 
-def bound_ms(n_bytes: float, popc64: float, philox_blocks: float,
+def bound_ms(n_bytes: float, popc: float, philox_blocks: float,
              imad: float = 0.0, *, n_sm: int, clock_hz: float
              ) -> Tuple[float, str]:
     """(least ms, "bytes" or "operations") for work that moves ``n_bytes``
-    and issues ``popc64`` 64-bit popcounts, ``philox_blocks`` Philox blocks
+    and issues ``popc`` 32-bit popcounts, ``philox_blocks`` Philox blocks
     and ``imad`` other 32-bit multiplies, on a card of ``n_sm`` SMs at
     ``clock_hz``."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = max(popc64 * POPC_PER_64BIT / (POPC_PER_CLK_SM * n_sm * clock_hz),
+    t_ops = max(popc / (POPC_PER_CLK_SM * n_sm * clock_hz),
                 (philox_blocks * IMAD_PER_PHILOX + imad)
                 / (IMAD_PER_CLK_SM * n_sm * clock_hz))
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -71,23 +75,25 @@ def spanned_word_count(spec: CodeSpec) -> int:
 
 
 def popc_per_sweep(spec: CodeSpec, equal_betas: bool) -> int:
-    """64-bit popcounts the kernels' sweep of one chain needs: per
-    stabilizer and word its support spans, two with equal betas (the error
-    count on the support before and after) and four with general betas
-    (the overlaps of the op's X and Z parts with the planes, and the Y
-    count before and after)."""
-    return (2 if equal_betas else 4) * spanned_word_count(spec)
+    """The fewest 32-bit popcounts a sweep of one chain needs: per
+    stabilizer, two with equal betas (the error count on its support before
+    and after) and four with general betas (the overlaps of the op's X and
+    Z parts with the state, and the Y count before and after), each on the
+    32-bit words that hold its support's qubits at two bits a qubit."""
+    words = -(-2 * (spec.stab_ops != 0).sum(axis=1) // 32)
+    return (2 if equal_betas else 4) * int(words.sum())
 
 
 def sampler_work(spec: CodeSpec, R: int, steps: int, iters: int,
                  equal_betas: bool) -> Tuple[int, int, int]:
-    """(64-bit popcounts, Philox blocks, other 32-bit multiplies) of the
+    """(32-bit popcounts, Philox blocks, other 32-bit multiplies) of the
     recording sampler over ``R`` chains and ``steps`` steps of ``iters``
-    sweeps: the sweeps' popcounts and blocks, three popcounts per word of
-    the plane and step for the counts, two multiplies per qubit and step
-    for the hash."""
+    sweeps: the sweeps' popcounts and blocks, three 64-bit popcounts per
+    word of the plane and step for the counts, two multiplies per qubit and
+    step for the hash."""
     nw = kernel_words(spec.nq)
-    popc = R * steps * (iters * popc_per_sweep(spec, equal_betas) + 3 * nw)
+    popc = R * steps * (iters * popc_per_sweep(spec, equal_betas)
+                        + 3 * POPC_PER_64BIT * nw)
     blocks = R * steps * iters * philox_blocks_per_sweep(spec)
     return popc, blocks, R * steps * 2 * spec.nq
 

@@ -4,9 +4,12 @@
     (the ``MQT_SHAPE`` lines of ``csrc/ladder_window.cu`` and
     ``csrc/sweep.cu``), and every code up to 16 words per plane has one.
 (b) ``window_form`` says exactly where ``block_shape`` finds a launch of
-    the window kernel's register form and, where it does not,
-    ``wide_block_shape`` one of its large variant; ``window_kernel_fits``
-    is True exactly where either does.
+    the window kernel's register form below WIDE_FROM_WORDS words per
+    plane and, where it does not or from WIDE_FROM_WORDS on,
+    ``wide_block_shape`` one of its large variant (the register form
+    keeping the ladders from WIDE_FROM_WORDS on that only the registers
+    hold);
+    ``window_kernel_fits`` is True exactly where either does.
 (c) PTEQ at rotated d=15 and toric d=21 and PTEQ_alpha at xzzx d=15 decode
     under the default ``engine="auto"`` in the port and in the JAX package
     on the same syndromes: same shapes, valid distributions, and at p=0.02
@@ -14,7 +17,7 @@
 (d) ``_get_window_fn`` picks the unfused sweep window exactly where the
     predicate says no form of the window kernel holds the ladder (the JAX
     package's fallback), keyed as the JAX cache is, and says so in
-    ``PTEQResult.window``; a ladder beyond both forms (513 rungs, more
+    ``PTEQResult.window``; a ladder beyond both forms (1025 rungs, more
     than a block has threads) falls back on its own; a window whose kernel
     fails to build or launch raises and does not fall back, in either
     form.
@@ -120,16 +123,24 @@ def test_predicate_is_where_block_shape_finds_a_launch(family, d):
                 assert lw.window_kernel_fits(spec, Nc, eq, iters) == (form is not None)
                 registers = lw.has_kernel_shape(spec) and launches(
                     lw.block_shape, Nc, eq, iters)
-                assert (form == "registers") == registers, (Nc, eq, iters)
-                if not registers:
-                    assert (form == "large") == launches(
-                        lw.wide_block_shape, Nc, eq, iters), (Nc, eq, iters)
-    # the largest ladders the register form holds, and the large variant's
-    assert lw.window_form(get_spec("toric", 21), 21, True, 2) == "registers"
-    assert lw.window_form(get_spec("xzzx", 29), 29, False, 2) == "registers"
+                large = launches(lw.wide_block_shape, Nc, eq, iters)
+                if registers and offs["nw"] < lw.WIDE_FROM_WORDS:
+                    want = "registers"
+                else:
+                    want = "large" if large else None
+                assert form == want, (Nc, eq, iters)
+                # from 12 words on, the large variant holds every ladder the
+                # register form holds, so no code falls back to registers
+                assert large or not registers or offs["nw"] < lw.WIDE_FROM_WORDS
+    # the register form below 12 words, the large variant from 12 words on
+    assert lw.window_form(get_spec("toric", 15), 15, True, 2) == "registers"
+    assert lw.window_form(get_spec("toric", 19), 19, True, 2) == "large"
+    assert lw.window_form(get_spec("toric", 21), 21, True, 2) == "large"
+    assert lw.window_form(get_spec("xzzx", 29), 29, False, 2) == "large"
     assert lw.window_form(get_spec("xzzx", 31), 31, False, 2) == "large"
     assert lw.window_form(get_spec("toric", 23), 4, True, 2) == "large"
-    assert not lw.window_kernel_fits(get_spec("toric", 5), 513, True, 2)
+    assert not lw.window_kernel_fits(get_spec("toric", 5),
+                                     lw.WIDE_MAX_THREADS + 1, True, 2)
 
 
 def _states(spec, B, seed, p=0.02):
@@ -201,11 +212,11 @@ def test_fallback_follows_the_predicate(monkeypatch):
 
 
 def test_a_code_the_kernel_cannot_hold_falls_back():
-    """Toric d=3 at 513 rungs and two sweeps a step: more rungs than a
-    block has threads, so neither form of the window kernel holds the
-    ladder and PTEQ runs the unfused sweep window."""
+    """Toric d=3 at 1025 rungs and two sweeps a step: more rungs than a
+    block of the large variant has threads, so neither form of the window
+    kernel holds the ladder and PTEQ runs the unfused sweep window."""
     spec = get_spec("toric", 3)
-    Nc = lw.MAX_THREADS + 1
+    Nc = lw.WIDE_MAX_THREADS + 1
     assert not lw.window_kernel_fits(spec, Nc, True, 2)
     s = _states(spec, 2, seed=9, p=0.1)
     cfg = PTEQConfig(Nc=Nc, max_steps=24, window=12, iters=2, energy_chunk=12,
@@ -216,7 +227,8 @@ def test_a_code_the_kernel_cannot_hold_falls_back():
     np.testing.assert_array_equal(res.distribution.argmax(1), np_eq_class(spec, s))
 
 
-@pytest.mark.parametrize("family,d", [("rotated", 15), ("toric", 23)])
+@pytest.mark.parametrize("family,d", [("rotated", 15), ("toric", 21),
+                                      ("toric", 23)])
 @pytest.mark.parametrize("error", [
     "nvcc failed (build)",
     "ladder_window kernel launch failed: cudaError 209",
@@ -224,7 +236,8 @@ def test_a_code_the_kernel_cannot_hold_falls_back():
 def test_a_failing_kernel_raises_and_does_not_fall_back(monkeypatch, error,
                                                         family, d):
     """Where the predicate says a form of the kernel holds the window (the
-    register form at rotated d=15, the large variant at toric d=23), a
+    register form at rotated d=15, the large variant at toric d=21 and
+    d=23), a
     failure to build or launch it reaches the caller: no ``try`` turns it
     into the unfused window."""
     def failing(*args, **kwargs):
@@ -259,8 +272,8 @@ class WindowLibrary:
 def test_the_card_path_refuses_codes_above_1024_qubits(monkeypatch):
     """The window kernel's CUDA branch takes toric d=23 (17 words per
     plane) in its large variant: its checks pass and it launches with the
-    wide entries' offset, the code's word count and the plan's shared
-    memory.  It refuses, before any work and naming the limit, only a
+    code's word count, its qubit table's entries, the meta before the
+    spanned-word entries and the plan's shared memory.  It refuses, before any work and naming the limit, only a
     ladder no form holds: a code past 256 words per plane (planar d=91,
     nq=16562) or more rungs than a block has threads.  The plain version
     runs both windows."""
@@ -287,14 +300,18 @@ def test_the_card_path_refuses_codes_above_1024_qubits(monkeypatch):
     assert lw.ladder_window_counts.launches == 1
     P, = fake.params
     offs = lw.kernel_tables(spec)[2]
-    assert (P["wide"], P["nw"], P["span"], P["m_wide"]) == (1, 17, 4, offs["m_wide"])
+    assert (P["wide"], P["nw"], P["n_tab"], P["n_meta"]) == (
+        1, 17, spec.n_stabs, offs["m_span"])
     shape = lw.wide_block_shape(offs, Nc, spec.n_classes, B, 132, True, 1,
                                 len(spec.logical_draws))
     assert (P["lanes"], P["smem"]) == (shape.lanes, shape.smem)
     assert out[0].shape == (B, Nc, spec.nq)
     _, meta = tables[torch.device("cpu")]
     assert len(meta) == offs["n_meta"] > offs["m_wide"]
-    for big, n in ((get_spec("planar", 91), 3), (get_spec("toric", 5), 513)):
+    # the qubit table is built for the large variant, which alone reads it
+    assert len(tables[torch.device("cpu"), "qubits"]) == spec.n_stabs
+    for big, n in ((get_spec("planar", 91), 3),
+                   (get_spec("toric", 5), lw.WIDE_MAX_THREADS + 1)):
         state = torch.zeros((1, n, big.nq), dtype=torch.uint8)
         with pytest.raises(ValueError, match=f"nq={big.nq}.*nq <= 16384"):
             lw._launch(big, state, *[None] * 7, device_tables={}, **kw)

@@ -1,8 +1,9 @@
 """The card's bound as a module of the port (mcmc_qec_tpu_torch/utils/
 roofline.py, counterpart of mcmc_qec_tpu/utils/roofline.py): its work
 counts at toric d=5 against counts by hand, its arithmetic against the
-rates, and the large variant's counts read from the wide spanned-word
-table equal to the words the spec's supports span."""
+rates, the wide spanned-word table's count equal to the words the spec's
+supports span, and the popcounts at two or four a stabilizer wherever
+its support spans more than one word."""
 
 import pytest
 
@@ -18,20 +19,22 @@ def test_counts_at_toric_d5_by_hand():
     assert sorted(int((c < spec.n_stabs).sum()) for c in spec.color_stabs) == [
         2, 6, 6, 8, 9, 9, 10]
     assert roofline.spanned_word_count(spec) == 50
+    # two 32-bit popcounts a stabilizer with equal betas, four with general
     assert roofline.popc_per_sweep(spec, True) == 100
     assert roofline.popc_per_sweep(spec, False) == 200
     assert roofline.philox_blocks_per_sweep(spec) == 16
     # 1000 chains, 7 steps of 2 sweeps: per chain and step 2 * 100 sweep
-    # popcounts and 3 for the counts, 2 * 16 blocks, 2 * 50 multiplies
+    # popcounts and 3 64-bit (6 32-bit) for the counts, 2 * 16 blocks,
+    # 2 * 50 multiplies
     assert roofline.sampler_work(spec, 1000, 7, 2, True) == (
-        1000 * 7 * 203, 1000 * 7 * 32, 1000 * 7 * 100)
+        1000 * 7 * 206, 1000 * 7 * 32, 1000 * 7 * 100)
 
 
 def test_bound_ms_is_the_larger_of_bytes_and_operations():
     n_sm, clock = 132, 1.98e9
     ms, by = roofline.bound_ms(3.35e9, 0, 0, n_sm=n_sm, clock_hz=clock)
     assert by == "bytes" and ms == pytest.approx(1.0)
-    popc = 16 * n_sm * clock / 2  # one second of popcounts
+    popc = 16 * n_sm * clock  # one second of popcounts
     ms, by = roofline.bound_ms(1.0, popc, 0, n_sm=n_sm, clock_hz=clock)
     assert by == "operations" and ms == pytest.approx(1e3)
     blocks = 64 * n_sm * clock / 40  # one second of Philox blocks
@@ -52,8 +55,10 @@ def test_large_variant_counts_the_words_the_supports_span(family, d):
                                                     spec.stab_ops[s]) if o})
                 for s in range(spec.n_stabs))
     assert roofline.spanned_word_count(spec) == words > spec.n_stabs
-    assert roofline.popc_per_sweep(spec, False) == 4 * words
+    # the popcounts count a stabilizer's qubits, not the words it spans
+    assert roofline.popc_per_sweep(spec, False) == 4 * spec.n_stabs
     sizes = [int((c < spec.n_stabs).sum()) for c in spec.color_stabs]
     assert roofline.philox_blocks_per_sweep(spec) == sum(-(-n // 4) for n in sizes)
     nw = -(-spec.nq // 64)
-    assert roofline.sampler_work(spec, 1, 1, 1, True)[0] == 2 * words + 3 * nw
+    assert roofline.sampler_work(spec, 1, 1, 1, True)[0] == (
+        2 * spec.n_stabs + 6 * nw)

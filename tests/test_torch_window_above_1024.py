@@ -4,21 +4,30 @@ can reach of it.
 
 (a) The plain window equals ``make_pallas_ladder_window(...,
     interpret=True)`` in zeros mode, all nine outputs bit for bit, at
-    toric d=23 and rotated d=33 (17 and 18 words per plane).
-(b) A numpy emulation of the large variant on u64 planes, read through the
-    kernel's tables only, equals the plain window on the same Philox (or
+    toric d=21, toric d=23 and rotated d=33 (16, 17 and 18 words per
+    plane).
+(b) The large variant's qubit table names each stabilizer's qubits and
+    ops as the dense masks do, and refuses codes past 2**14 qubits.  A
+    numpy emulation of the large variant on its slots (2 bits a qubit,
+    16 qubits a 32-bit word), read through the kernel's tables and its
+    qubit table only, equals the plain window on the same Philox (or
     fixed) draws: the rung's lanes take whole Philox blocks of a color and
-    run in step, each accepted flip XORed into the planes at once; the
-    exchange swaps slot indices and the state is written back through
-    them; the class, hash and counts are read off the slots.  At toric and
-    planar d=23, xzzx d=31 (16 words: the narrow entry) and xzzx d=33, in
-    both betas forms, trace mode, even_odd and a fixed draw word.
-(c) ``window_form`` at Nc = d and two sweeps a step: the register form up
-    to toric d=21, the large variant for every code the JAX package fuses
-    on the TPU and the port ran unfused before (toric d=23/25, planar
-    d=23-27, rotated and XZZX d=31-37), in both betas forms; where it names
-    a form, that form's block shape fits 227 KB and 512 threads at every
-    batch.
+    run in step, each first loading its next block's states, then deciding
+    its block's four stabilizers on packed 8-bit states, then XORing the
+    accepted ops in; the exchange swaps slot indices and the state is
+    written back through them; the class, hash and counts are read off the
+    slots.  At toric d=21 and rotated d=29 (16 words), toric and planar
+    d=23, xzzx d=31 and d=33, at 1 to 32 lanes a rung, in both betas
+    forms, trace mode, even_odd and a fixed draw word.
+(c) ``window_form`` at Nc = d and two sweeps a step: the large variant for
+    every code the JAX package fuses on the TPU and the port ran unfused
+    before (toric d=23/25, planar d=23-27, rotated and XZZX d=31-37) and
+    for the 12- and 16-word codes, where it is the faster form (toric
+    d=17-21, planar d=17-22, rotated and XZZX d=23-29), in both betas
+    forms; the register form below 12 words; where it names a form, that
+    form's block shape fits 227 KB and its thread bound at every batch,
+    and the large variant's keeps an SM's syndromes within its resident
+    warps.
 (d) The slice as a whole: PTEQ at toric d=23 runs the fused window on the
     CPU (the plain version, one call a window) and calls the true class on
     every row at p=0.02, as the JAX package's PTEQ does on the same
@@ -53,6 +62,13 @@ OUT_NAMES = ("state", "flag", "tops0", "eq_count", "since_burn", "energies",
 # and before the large variant the port ran them unfused
 TABLE = ([("toric", d) for d in (23, 25)] + [("planar", d) for d in (23, 25, 27)]
          + [(f, d) for f in ("rotated", "xzzx") for d in (31, 33, 35, 37)])
+# the large variant's ladders at Nc = d: the table's codes and the 12- and
+# 16-word codes, whose ladders the register form holds too
+# (``window_form`` picks the faster form)
+WIDE_FORM = TABLE + [("toric", 17), ("toric", 19), ("toric", 21),
+                     ("planar", 17), ("planar", 20), ("planar", 22),
+                     ("rotated", 23), ("rotated", 29), ("xzzx", 27),
+                     ("xzzx", 29)]
 
 
 @pytest.fixture(autouse=True)
@@ -84,7 +100,8 @@ def _ladder_inputs(spec, B, Nc, seed):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("family,d", [("toric", 23), ("rotated", 33)])
+@pytest.mark.parametrize("family,d", [("toric", 21), ("toric", 23),
+                                      ("rotated", 33)])
 def test_plain_window_equals_pallas_interpret_above_1024_qubits(family, d):
     jspec = jax_get_spec(family, d)
     spec = spec_from_jax(jspec)
@@ -115,6 +132,41 @@ def test_plain_window_equals_pallas_interpret_above_1024_qubits(family, d):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("family,d", [("toric", 5), ("planar", 4), ("rotated", 7),
+                                      ("xzzx", 9), ("toric", 23)])
+def test_qubit_table_holds_each_stabilizers_qubits_and_ops(family, d):
+    """Entry s of ``qubit_table`` names stabilizer s's qubits (in
+    ``kernel_tables``' color order) with its op on each, as the dense
+    support and op masks do, and op 0 (qubit 0) past them."""
+    spec = get_spec(family, d)
+    tab, _, offs = lw.kernel_tables(spec)
+    dense = tab[: offs["off_draw"]].view(np.uint64).reshape(spec.n_stabs, 3, -1)
+    qt = lw.qubit_table(spec).view(np.uint64)
+    assert qt.shape == (spec.n_stabs,)
+    for s in range(spec.n_stabs):
+        e = int(qt[s])
+        support, xs, zs = (
+            set(np.flatnonzero(np.unpackbits(dense[s, k].view(np.uint8),
+                                             bitorder="little")).tolist())
+            for k in range(3))
+        ops = {}
+        for k in range(4):
+            q, op = (e >> (14 * k)) & 0x3FFF, (e >> (56 + 2 * k)) & 3
+            if op:
+                ops[q] = op
+            else:
+                assert q == 0
+        assert set(ops) == support
+        assert {q for q, o in ops.items() if o & 1} == xs
+        assert {q for q, o in ops.items() if o & 2} == zs
+
+
+def test_qubit_table_refuses_what_an_entry_cannot_name():
+    """Past 2**14 qubits (planar d=91) no entry names a qubit."""
+    with pytest.raises(ValueError, match="below 16384"):
+        lw.qubit_table(get_spec("planar", 91))
+
+
 def _popc(a):
     return np.bitwise_count(a).astype(np.int64)
 
@@ -135,25 +187,66 @@ def _uniform(words):
             + torch.tensor(1e-12)).numpy()
 
 
+def _spread16(x):
+    """Bit i of each 16-bit value to bit 2i (csrc/ladder_window.cu::spread16)."""
+    x = x & np.uint64(0xFFFF)
+    for sh, m in ((8, 0x00FF00FF), (4, 0x0F0F0F0F), (2, 0x33333333),
+                  (1, 0x55555555)):
+        x = (x | (x << np.uint64(sh))) & np.uint64(m)
+    return x
+
+
+def _compact16(x):
+    """Bit 2i to bit i (csrc/ladder_window.cu::compact16)."""
+    x = x & np.uint64(0x55555555)
+    for sh, m in ((1, 0x33333333), (2, 0x0F0F0F0F), (4, 0x00FF00FF),
+                  (8, 0xFFFF)):
+        x = (x | (x >> np.uint64(sh))) & np.uint64(m)
+    return x
+
+
+def _plane_words(W):
+    """(..., 4 nw) slot words of 16 qubits, 2 bits each -> the (..., nw) X
+    and Z plane words (plane_words)."""
+    W = W.reshape(W.shape[:-1] + (-1, 4))
+    x = np.zeros(W.shape[:-1], np.uint64)
+    z = np.zeros_like(x)
+    for h in range(4):
+        x |= _compact16(W[..., h]) << np.uint64(16 * h)
+        z |= _compact16(W[..., h] >> np.uint64(1)) << np.uint64(16 * h)
+    return x, z
+
+
+def _slot_words(x, z):
+    """(..., nw) X and Z plane words -> (..., 4 nw) slot words
+    (xor_plane_words on a zero slot)."""
+    W = np.stack([_spread16(x >> np.uint64(16 * h))
+                  | (_spread16(z >> np.uint64(16 * h)) << np.uint64(1))
+                  for h in range(4)], -1)
+    return W.reshape(x.shape[:-1] + (-1,))
+
+
 def _emulate_large(spec, inputs, seed, betas, weights, *, W, iters, p_logical,
                    tops_burn, C, top_exact, equal_betas, exchange, traces,
                    rng, lanes):
-    """One window of the large variant, read through ``kernel_tables`` and
-    the window's draws only."""
+    """One window of the large variant, read through ``kernel_tables``,
+    ``qubit_table`` and the window's draws only, on its slots of 32-bit
+    words, 2 bits a qubit.  A color's rung lanes run in step: lane l takes
+    the blocks l, l + L, ...; in each round every lane first loads the
+    states of its next block, then decides its current block's four
+    stabilizers on the states it loaded (the packed 8-bit states, the
+    entry's ops and a few popcounts), then XORs the accepted ops in."""
     state, flag, tops0, eq_count, since = (np.array(a) for a in inputs)
     B, Nc, nq = state.shape
     tab, meta, offs = lw.kernel_tables(spec)
     wt = tab[offs["off_draw"]:].view(np.uint64)  # the window kernel's table
-    nw, S, n_colors, n_s = offs["nw"], offs["span"], offs["n_colors"], spec.n_stabs
+    nw, n_colors = offs["nw"], offs["n_colors"]
     base = offs["off_draw"]
-    heads = meta[offs["m_span"]: offs["m_span"] + n_s].astype(np.int64)
-    if offs["m_wide"] is None:  # up to 16 words: the narrow entry's indices
-        words = (heads[:, None] >> (12 + 4 * np.arange(S))) & 15
-    else:
-        wides = meta[offs["m_wide"]:].view(np.uint32).astype(np.int64)
-        words = (wides[:, None] >> (8 * np.arange(S))) & 255
-    ent = wt[offs["off_span"] - base:].reshape(n_s, S, 3)
-    cx, cz = (heads >> 4) & 15, (heads >> 8) & 15
+    qt = lw.qubit_table(spec).view(np.uint64)
+    k4 = np.arange(4, dtype=np.uint64)
+    Q = (qt[:, None] >> (np.uint64(14) * k4)) & np.uint64(0x3FFF)  # (n_s, 4)
+    O = (qt[:, None] >> (np.uint64(56) + np.uint64(2) * k4)) & np.uint64(3)
+    ops8 = qt >> np.uint64(56)
     starts = meta[: n_colors + 1]
     G, n_blk, n_xblk = lw._rng_layout(spec, Nc, iters)
     fixed = lw._fixed_word(rng)
@@ -161,9 +254,10 @@ def _emulate_large(spec, inputs, seed, betas, weights, *, W, iters, p_logical,
     b3 = np.asarray(betas, np.float32).reshape(Nc, 3)
     w3 = np.asarray(weights, np.float32)
     K, n_draws = spec.n_classes, len(spec.logical_draws)
+    u64 = np.uint64
 
     X, Z = _unpack(spec, state.reshape(B * Nc, nq))
-    X, Z = X.reshape(B, Nc, nw), Z.reshape(B, Nc, nw)  # by slot
+    S = _slot_words(X, Z).reshape(B, Nc, 4 * nw)  # by slot
     slot = np.tile(np.arange(Nc), (B, 1))
     bi = np.arange(B)[:, None]
     fl, tops, eqc, sb = flag.copy(), tops0.astype(np.int64), eq_count.copy(), since.copy()
@@ -173,12 +267,14 @@ def _emulate_large(spec, inputs, seed, betas, weights, *, W, iters, p_logical,
     energies = np.zeros((W // C, B), np.float32)
     eq_tr = np.zeros((W, B), np.int32)
     key_tr = np.zeros((W, B, lw.N_KEY), np.int32)
+    ev, od = u64(0x55), u64(0xAA)
 
-    def counts(x, z):
-        if equal_betas:
-            return _popc(x | z).sum(-1)[..., None]
-        return np.stack([_popc(x & ~z).sum(-1), _popc(x & z).sum(-1),
-                         _popc(~x & z).sum(-1)], -1)
+    def gather(s):
+        """(B, Nc, m) packed states of stabilizers ``s`` on every rung."""
+        q = Q[s]  # (m, 4)
+        v = S[bi[:, :, None, None], slot[:, :, None, None], q >> u64(4)]
+        v = (v >> (u64(2) * (q & u64(15)))) & u64(3)
+        return (v << (u64(2) * k4)).sum(-1, dtype=np.uint64)
 
     def mix_masks(d, it):
         """(B, nw) X and Z words of round ``it``'s gated logical masks."""
@@ -193,8 +289,8 @@ def _emulate_large(spec, inputs, seed, betas, weights, *, W, iters, p_logical,
                 pos = (d[:, col] >> 8) % npos
                 on = meta[offs["m_lut"] + (i * 4 + opb) * 2 + k] != 0
                 at = ((p0 + pos) * 4 + 2 * k)[:, None] * nw + np.arange(nw)
-                mx ^= np.where(on[:, None], wt[at], np.uint64(0))
-                mz ^= np.where(on[:, None], wt[at + nw], np.uint64(0))
+                mx ^= np.where(on[:, None], wt[at], u64(0))
+                mz ^= np.where(on[:, None], wt[at + nw], u64(0))
         return mx, mz
 
     for t in range(W):
@@ -202,44 +298,50 @@ def _emulate_large(spec, inputs, seed, betas, weights, *, W, iters, p_logical,
                                    "cpu"))[0]  # (B, G, 4 n_blk)
         extra = lw._draw_words(k0, k1, t, t + 1, B, G, 4, n_xblk, fixed,
                                "cpu")[0]  # (B, 4, 4 n_xblk)
-        # 1) sweeps: per color the rung's lanes in step, lane l on blocks
-        # l, l + L, ..., element e of its k-th block in round 4k + e; every
-        # decision reads the planes as the earlier rounds left them
+        # 1) sweeps
         for it in range(iters):
             for c in range(n_colors):
                 c0, n = int(starts[c]), int(starts[c + 1] - starts[c])
                 nb = -(-n // 4)
                 use = (it * n_colors + c) * Nc + np.arange(Nc)
-                for rnd in range(4 * -(-nb // lanes)):
-                    g = np.arange(lanes) + lanes * (rnd // 4)
-                    j = 4 * g + rnd % 4
-                    j = j[(g < nb) & (j < n)]
-                    if not len(j):
-                        continue
-                    s = c0 + j
-                    Wd = words[s]  # (m, S)
-                    idx = (bi[:, :, None, None], slot[:, :, None, None], Wd)
-                    x, z = X[idx], Z[idx]  # (B, Nc, m, S)
-                    su, xm, zm = ent[s, :, 0], ent[s, :, 1], ent[s, :, 2]
-                    if equal_betas:
-                        d0 = (_popc(((x ^ xm) | (z ^ zm)) & su)
-                              - _popc((x | z) & su)).sum(-1)
-                        logr = -(b3[:, 0, None] * d0.astype(np.float32))
-                    else:
-                        tx, tz = _popc(x & xm).sum(-1), _popc(z & zm).sum(-1)
-                        d0 = (_popc((x ^ xm) & (z ^ zm) & su)
-                              - _popc(x & z & su)).sum(-1)
-                        d1 = ((cx[s] - 2 * tx) - d0).astype(np.float32)
-                        d3 = ((cz[s] - 2 * tz) - d0).astype(np.float32)
-                        logr = -((b3[:, 0, None] * d1 + b3[:, 1, None]
-                                  * d0.astype(np.float32)) + b3[:, 2, None] * d3)
-                    u = lu[:, use][:, :, j]  # (B, Nc, m)
-                    acc = (logr >= 0) | (u < logr)
-                    keep = np.where(acc[..., None], ~np.uint64(0), np.uint64(0))
-                    full = tuple(np.broadcast_to(a, x.shape) for a in idx)
-                    np.bitwise_xor.at(X, full, xm & keep)
-                    np.bitwise_xor.at(Z, full, zm & keep)
-        # 2) the top rung's logical mix, on its slot
+
+                def block(rnd):
+                    """The stabilizers (color-local) of round ``rnd``'s
+                    blocks over the lanes, and their states now."""
+                    g = np.arange(lanes) + lanes * rnd
+                    j = (4 * g[:, None] + np.arange(4)).reshape(-1)
+                    j = j[(np.repeat(g, 4) < nb) & (j < n)]
+                    return j, gather(c0 + j)
+
+                cur = block(0)
+                for rnd in range(-(-nb // lanes)):
+                    nxt = block(rnd + 1)  # the next loads before this apply
+                    j, s = cur
+                    if len(j):
+                        o = ops8[c0 + j]
+                        ns = s ^ o
+                        if equal_betas:
+                            d0 = (_popc((ns | (ns >> u64(1))) & ev)
+                                  - _popc((s | (s >> u64(1))) & ev))
+                            logr = -(b3[:, 0, None] * d0.astype(np.float32))
+                        else:
+                            tx, tz = _popc(s & o & ev), _popc(s & o & od)
+                            d0 = (_popc(ns & (ns >> u64(1)) & ev)
+                                  - _popc(s & (s >> u64(1)) & ev))
+                            d1 = ((_popc(o & ev) - 2 * tx) - d0).astype(np.float32)
+                            d3 = ((_popc(o & od) - 2 * tz) - d0).astype(np.float32)
+                            logr = -((b3[:, 0, None] * d1 + b3[:, 1, None]
+                                      * d0.astype(np.float32)) + b3[:, 2, None] * d3)
+                        u = lu[:, use][:, :, j]  # (B, Nc, m)
+                        acc = (logr >= 0) | (u < logr)
+                        for k in range(4):
+                            q, ok = Q[c0 + j, k], O[c0 + j, k]
+                            val = np.where(acc, ok << (u64(2) * (q & u64(15))), u64(0))
+                            idx = (bi[:, :, None], slot[:, :, None], (q >> u64(4))[None, None])
+                            full = tuple(np.broadcast_to(a, val.shape) for a in idx)
+                            np.bitwise_xor.at(S, full, val)
+                    cur = nxt
+        # 2) the top rung's logical mix, on its slot, word by word
         top = slot[:, -1]
         if p_logical > 0:
             gate = _uniform(extra[:, 0])
@@ -251,7 +353,7 @@ def _emulate_large(spec, inputs, seed, betas, weights, *, W, iters, p_logical,
                 if top_exact:
                     acc = gated
                 else:
-                    x, z = X[np.arange(B), top], Z[np.arange(B), top]
+                    x, z = _plane_words(S[np.arange(B), top])
                     nx, nz = x ^ mx, z ^ mz
                     dn = [(_popc(a).sum(-1) - _popc(o).sum(-1)).astype(np.float32)
                           for a, o in ((nx & ~nz, x & ~z), (nx & nz, x & z),
@@ -259,10 +361,16 @@ def _emulate_large(spec, inputs, seed, betas, weights, *, W, iters, p_logical,
                     bt = b3[-1]
                     logr = -((bt[0] * dn[0] + bt[1] * dn[1]) + bt[2] * dn[2])
                     acc = gated & ((logr >= 0) | (mlogu[:, it] < logr))
-                X[np.arange(B), top] ^= np.where(acc[:, None], mx, np.uint64(0))
-                Z[np.arange(B), top] ^= np.where(acc[:, None], mz, np.uint64(0))
+                keep = np.where(acc[:, None], ~u64(0), u64(0))
+                S[np.arange(B), top] ^= _slot_words(mx & keep, mz & keep)
         # 3) exchange on the slots; 4) flags; 5) the bottom rung's readout
-        cnt = counts(X[bi, slot], Z[bi, slot])  # (B, Nc, 1 or 3)
+        v = S[bi, slot]  # (B, Nc, 4 nw)
+        xs, zs = v & u64(0x55555555), (v >> u64(1)) & u64(0x55555555)
+        if equal_betas:
+            cnt = _popc(xs | zs).sum(-1)[..., None]
+        else:
+            cnt = np.stack([_popc(xs & ~zs).sum(-1), _popc(xs & zs).sum(-1),
+                            _popc(zs & ~xs).sum(-1)], -1)
         xlogu = _log_u(extra[:, 2])
         if exchange == "even_odd":
             order = list(range(0, Nc - 1, 2)) + list(range(1, Nc - 1, 2))
@@ -296,12 +404,13 @@ def _emulate_large(spec, inputs, seed, betas, weights, *, W, iters, p_logical,
                 e = ((w3[0] * f[:, 0] + w3[1] * f[:, 1]) + w3[2] * f[:, 2]) * _f32(1.0 / C)
             energies[t // C] = e
             esum[:] = 0
-        x0, z0 = X[np.arange(B), slot[:, 0]], Z[np.arange(B), slot[:, 0]]
+        x0, z0 = _plane_words(S[np.arange(B), slot[:, 0]])
         bits = np.zeros(B, np.int64)
         for f in range(spec.n_class_bits):
             a = wt[offs["off_class"] - base + f * 2 * nw + np.arange(2 * nw)]
-            par = _popc(a[:nw] & x0).sum(-1) + _popc(a[nw:] & z0).sum(-1)
-            bits |= (par & 1) << f
+            par = np.bitwise_xor.reduce(
+                (_popc(a[:nw] & x0) + _popc(a[nw:] & z0)) & 1, axis=-1)
+            bits |= par << f
         cls = meta[offs["m_b2e"] + bits]
         eqc[np.arange(B)[burned], cls[burned]] += 1
         eq_tr[t] = cls
@@ -309,12 +418,12 @@ def _emulate_large(spec, inputs, seed, betas, weights, *, W, iters, p_logical,
             key = np.zeros(B, np.int64)
             for k in range(6):
                 m = wt[offs["off_key"] - base + (c * 6 + k) * nw + np.arange(nw)]
-                key += (_popc(x0 & ~z0 & m).sum(-1) + 2 * _popc(x0 & z0 & m).sum(-1)
-                        + 3 * _popc(~x0 & z0 & m).sum(-1)) << k
+                key += ((_popc(x0 & ~z0 & m) + 2 * _popc(x0 & z0 & m)
+                         + 3 * _popc(~x0 & z0 & m)) << k).sum(-1)
             key_tr[t, :, c] = key
     # the state written back through the slots
-    out_state = _pack(spec, X[bi, slot].reshape(B * Nc, nw),
-                      Z[bi, slot].reshape(B * Nc, nw)).reshape(B, Nc, nq)
+    x, z = _plane_words(S[bi, slot].reshape(B * Nc, 4 * nw))
+    out_state = _pack(spec, x, z).reshape(B, Nc, nq)
     out = [out_state, fl, tops.astype(np.int32), eqc, sb, energies, bfirst >= 0,
            np.maximum(bfirst, 0).astype(np.int32), swaps]
     return out + ([eq_tr, key_tr] if traces else [])
@@ -330,6 +439,11 @@ EMULATED = [
     ("xzzx", 31, 3, 4, "biased-mh", "sequential", False, 0x9E3779B9),
     ("xzzx", 33, 4, 8, "biased-exact", "sequential", True, "philox"),
     ("xzzx", 33, 4, 32, "equal", "even_odd", False, "philox"),
+    ("xzzx", 33, 3, 16, "biased-mh", "sequential", True, 0x9E3779B9),
+    ("toric", 21, 4, 32, "equal", "sequential", True, "philox"),
+    ("toric", 21, 3, 16, "biased-mh", "even_odd", False, "philox"),
+    ("rotated", 29, 4, 16, "biased-exact", "sequential", True, "philox"),
+    ("rotated", 29, 3, 32, "equal", "even_odd", False, 0x9E3779B9),
 ]
 
 
@@ -371,7 +485,8 @@ def test_emulated_large_variant_equals_the_plain_window(family, d, Nc, lanes,
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("family,d", TABLE, ids=[f"{f}-{d}" for f, d in TABLE])
+@pytest.mark.parametrize("family,d", WIDE_FORM,
+                         ids=[f"{f}-{d}" for f, d in WIDE_FORM])
 def test_the_large_variant_holds_every_code_the_jax_package_fuses(family, d):
     spec = get_spec(family, d)
     offs = lw.kernel_tables(spec)[2]
@@ -381,28 +496,39 @@ def test_the_large_variant_holds_every_code_the_jax_package_fuses(family, d):
         assert lw.window_kernel_fits(spec, d, eq, 2)
         for B in (1, 16, 64, 263, 4096):
             shape = lw.wide_block_shape(offs, d, K, B, 132, eq, 2, nd)
-            assert shape.lanes == 8 and d * shape.lanes <= shape.threads
-            assert shape.threads <= lw.MAX_THREADS
-            assert shape.smem == lw.wide_smem_bytes(offs, d, K,
-                                                    shape.groups_per_block, eq,
-                                                    2, nd, shape.tab_in_smem)
+            L, wpg, gpb = (shape.lanes, shape.warps_per_group,
+                           shape.groups_per_block)
+            assert 1 <= L <= 32 and L & (L - 1) == 0
+            assert wpg == -(-d * L // 32)
+            assert shape.threads == 32 * wpg * gpb <= lw.WIDE_MAX_THREADS
+            if wpg > 1:
+                assert gpb <= lw.MAX_NAMED_BARRIERS
+            # an SM's syndromes within its resident warps (or one lane a
+            # rung), and one syndrome an SM at the most lanes that fit
+            assert L == 1 or gpb * wpg <= lw.WIDE_WARPS_PER_SM
+            if B <= 132:
+                assert L == (32 if 32 * d <= lw.WIDE_MAX_THREADS else 16)
+            assert shape.smem == lw.wide_smem_bytes(offs, d, K, gpb, eq, 2,
+                                                    nd, shape.tab_in_smem)
             assert shape.smem <= lw.SMEM_LIMIT
-    # the register form keeps every ladder it held
-    assert lw.window_form(get_spec("toric", 21), 21, True, 2) == "registers"
-    assert lw.window_form(get_spec("xzzx", 29), 29, False, 2) == "registers"
+    # below 12 words the register form keeps its ladders
+    assert lw.window_form(get_spec("toric", 15), 15, True, 2) == "registers"
+    assert lw.window_form(get_spec("xzzx", 21), 21, False, 2) == "registers"
 
 
 @pytest.mark.parametrize("family,d,Nc,want", [
     ("toric", 5, 5, "registers"),
-    ("xzzx", 31, 31, "large"),      # 16 words: the group too large for registers
-    ("xzzx", 31, 5, "registers"),
+    ("toric", 15, 15, "registers"),  # 8 words
+    ("toric", 19, 19, "large"),     # 12 words: the faster form
+    ("xzzx", 31, 31, "large"),      # 16 words, a group too large for registers
+    ("xzzx", 31, 5, "large"),       # 16 words: the faster form
     ("toric", 5, 128, "registers"),  # 128 rungs x 4 lanes: 512 threads
     ("toric", 5, 129, "large"),     # past them: fewer lanes a rung
-    ("toric", 5, 512, "large"),     # one lane a rung
-    ("toric", 5, 513, None),        # more rungs than a block has threads
+    ("toric", 5, 1024, "large"),    # one lane a rung
+    ("toric", 5, 1025, None),       # more rungs than a block has threads
     ("toric", 45, 45, "large"),     # 64 words
-    ("toric", 45, 182, "large"),    # 182 slots of 129 words in 227 KB
-    ("toric", 45, 184, None),       # 184 do not fit
+    ("toric", 45, 217, "large"),    # 217 slots of 257 32-bit words in 227 KB
+    ("toric", 45, 220, None),       # 220 do not fit
     ("planar", 91, 3, None),        # 259 words: no entry names a word
 ])
 def test_window_form_at_the_limits(family, d, Nc, want):
@@ -414,7 +540,7 @@ def test_window_form_at_the_limits(family, d, Nc, want):
         offs = lw.kernel_tables(spec)[2]
         shape = lw.wide_block_shape(offs, Nc, spec.n_classes, 512, 132, True,
                                     2, len(spec.logical_draws))
-        assert Nc * shape.lanes <= shape.threads <= lw.MAX_THREADS
+        assert Nc * shape.lanes <= shape.threads <= lw.WIDE_MAX_THREADS
         assert shape.smem <= lw.SMEM_LIMIT
 
 
