@@ -93,14 +93,19 @@ kernel against its plain PyTorch version on the card:
   ``studies.golden_ceiling``) through their ``run`` on 256 toric d=5
   syndromes drawn on the card (not the DRL failure set): PTEQ (K2), STDC
   (K1) and the ceiling with its MWPM row.
-- Codes above 1024 qubits, K1's large variant (planes in shared memory):
-  kernel vs plain version at toric d=23, 33 and 45 and rotated d=33 (17 to
-  64 words per plane) at every lane count, sweeps and recording sampler,
-  equal, general and per-chain betas; its registers and spills, and 10
-  sweeps at toric d=45 against the bound; STDC at toric d=25 and rotated
-  d=45 (recovery bar), PTEQ at toric d=23 on the unfused window
-  (``engine="sweep"``) and PTDC at toric d=23 through K1 only, one launch
-  a ladder step, each with one launch timed against the plain version.
+- Codes above 1024 qubits, K1's large variant (2 bits a qubit in shared
+  memory, a proposal one qubit-table entry, the recording kept up to date
+  flip by flip, up to 1024 threads a block in whole waves): kernel vs
+  plain version at toric d=23, 33 and 45 and rotated d=33 (17 to 64 words
+  per plane) at every lane count, and at toric d=23 with a ragged last
+  block at the plan's thread count, sweeps and recording sampler, equal,
+  general and per-chain betas; its registers (0 B spilled, or the phase
+  fails), and 10 sweeps at toric d=45 against the bound; STDC at toric
+  d=25 and rotated d=45 (recovery bar), PTEQ at toric d=23 on the unfused
+  window (``engine="sweep"``) and PTDC at toric d=23 through K1 only, one
+  launch a ladder step, each with one launch timed against the plain
+  version and its launch (lanes, threads, chains and warps an SM, waves)
+  and its seconds and launches beside the parent's.
 - The window kernel above 16 words, K2's large variant (planes in shared
   memory): kernel vs plain version at toric d=23 and d=25, planar d=27,
   rotated d=33, xzzx d=31 (16 words at 31 rungs) and d=37, every branch,
@@ -393,13 +398,15 @@ LARGE_MIN_RECOVERED = 0.99
 LARGE_TIMED_W = 60
 # codes above 1024 qubits (phase 27), the sweep kernel's large variant
 # (csrc/sweep.cu::sweep_kernel_wide): (a) parity at 17, 18, 35 and 64 words
-# per plane (family, d, chains: ragged warps at every lane count); (b) one
-# launch of each timed against its bound and the plain version; (c)
-# decodes through the entry points.  STDC runs 4 droplets x 450 steps
-# (recovery printed: too few samples for these sizes) and then
-# WIDE_STDC_BUDGET, which carries the bar
+# per plane (family, d, chains: ragged warps at every lane count; toric
+# d=23 at 5,000 chains: 132 blocks of 38 chains at the plan's 16 lanes and
+# 19 warps, the last block holding 22); (b) one launch of each timed
+# against its bound and the plain version; (c) decodes through the entry
+# points.  STDC runs 4 droplets x 450 steps (recovery printed: too few
+# samples for these sizes) and then WIDE_STDC_BUDGET, which carries the
+# bar
 WIDE_PARITY = [("toric", 23, 37), ("rotated", 33, 40), ("toric", 33, 33),
-               ("toric", 45, 35)]
+               ("toric", 45, 35), ("toric", 23, 5000)]
 WIDE_TIMED = dict(family="toric", d=45, R=16384, n_sweeps=10)
 WIDE_STDC = [dict(family="toric", d=25, p=0.05, p_sampling=0.15, B=256),
              dict(family="rotated", d=45, p=0.05, p_sampling=0.15, B=128)]
@@ -408,6 +415,11 @@ WIDE_STDC_BUDGET = dict(droplets=10, steps=1500)
 WIDE_MIN_RECOVERED = 0.98
 WIDE_PTEQ = dict(family="toric", d=23, p=0.05, B=16, max_steps=1200)
 WIDE_PTDC = dict(family="toric", d=23, p=0.05, B=16, droplets=1, steps=23 * 20)
+# phase 27 (c)'s decodes on the sweep kernel's large variant before its
+# redesign (commit e85e7d7's chip_smoke.py on an NVIDIA H100 80GB HBM3 at
+# 700.00 W; PERF.md): seconds, K1 launches
+WIDE_PARENT = {"STDC toric d=25": (2.03, 4), "STDC rotated d=45": (0.35, 1),
+               "PTEQ toric d=23": (6.62, 1200), "PTDC toric d=23": (0.07, 20)}
 # the window kernel above 16 words and for ladders too large for its
 # registers (phase 28), K2's large variant
 # (csrc/ladder_window.cu::ladder_window_kernel_wide): (a) parity against
@@ -1086,21 +1098,25 @@ def phase_counting_quality(pteq_distr) -> None:
     check(not fails, "; ".join(fails))
 
 
-def sampler_launch_line(spec, R, equal_betas) -> str:
-    """The sweep kernel's launch at this shape: lanes per chain, chains per
-    warp and block, and the warps one SM holds (launched, and the occupancy
-    calculator's limit)."""
-    plan, resident = sw.launch_plan(spec, R, True, equal_betas)
+def k1_launch_line(spec, R, record, equal_betas) -> str:
+    """K1's launch at R chains: lanes per chain, chains per warp and block,
+    threads, blocks and waves, chains and warps one SM holds (launched, and
+    the occupancy calculator's limit), tables and multipliers in shared or
+    device memory."""
+    plan, resident = sw.launch_plan(spec, R, record, equal_betas)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = -(-R // plan.chains_per_block)
-    wpb = sw.SWEEP_THREADS // 32
+    wpb = plan.threads // 32
     held = min(resident, -(-blocks // n_sm))
+    waves = blocks / (n_sm * max(resident, 1))
     return (f"L={plan.lanes} lanes per chain, {plan.chains_per_warp} chains per "
-            f"warp, {plan.chains_per_block} per block of {sw.SWEEP_THREADS} "
-            f"threads, {blocks} blocks, {held * wpb} warps per SM resident (up "
-            f"to {resident * wpb} by occupancy), tables in "
-            f"{'shared' if plan.tab_in_smem else 'device'} memory, {plan.smem} B "
-            f"shared memory per block")
+            f"warp, {plan.chains_per_block} per block of {plan.threads} "
+            f"threads, {blocks} blocks ({waves:.2f} waves), "
+            f"{held * plan.chains_per_block} chains and {held * wpb} warps per "
+            f"SM resident (up to {resident * wpb} by occupancy), tables in "
+            f"{'shared' if plan.tab_in_smem else 'device'} memory, multipliers "
+            f"in {'shared' if plan.mults_in_smem else 'device'} memory, "
+            f"{plan.smem} B shared memory per block")
 
 
 def sampler_bound(spec, R, steps, iters, equal_betas, n_bytes):
@@ -1176,7 +1192,7 @@ def phase_sweep_timing():
           f"{plain_ms:.1f} ms ({plain_ms / ms:.1f}x); states, keys and counts "
           f"equal to both; bound {bound:.4f} ms ({bound_by}; the stream's "
           f"{_nbytes(*kern[1:]) / 1e6:.1f} MB alone {stream_ms:.4f} ms); "
-          f"launch: {sampler_launch_line(spec, R, True)}", flush=True)
+          f"launch: {k1_launch_line(spec, R, True, True)}", flush=True)
     res["sampler"] = dict(ms=ms, plain_ms=plain_ms, loop_ms=loop_ms, err=err,
                           bound_ms=bound, bound_by=bound_by)
     return res
@@ -1655,7 +1671,7 @@ def phase_stream_main_path():
           f"({R} chains x {W} steps): kernel {win['ms']:.3f} ms, plain sampler "
           f"{win['plain_ms']:.1f} ms, states, keys and counts equal, bound "
           f"{win['bound_ms']:.4f} ms ({win['bound_by']}); launch: "
-          f"{sampler_launch_line(spec, R, True)}", flush=True)
+          f"{k1_launch_line(spec, R, True, True)}", flush=True)
     win["launches"] = launches
     return win
 
@@ -1867,7 +1883,7 @@ def phase_pt_main_path():
           f"chain): kernel {launch['ms']:.4f} ms, plain sampler "
           f"{launch['plain_ms']:.1f} ms, states, keys and counts equal, bound "
           f"{launch['bound_ms']:.4f} ms ({launch['bound_by']}); launch: "
-          f"{sampler_launch_line(spec, R, False)}", flush=True)
+          f"{k1_launch_line(spec, R, True, False)}", flush=True)
     launch["launches"] = out["PTDC"]["launches"]
     launch["ptdc_syn_s"] = out["PTDC"]["syn_s"]
     return launch
@@ -2603,13 +2619,13 @@ def _k2_name(spec, equal_betas):
 
 def _k1_name(spec, equal_betas, record):
     """K1's instantiation for ``spec``: ``<words, spanned words, EQ, REC>``
-    of the register kernel, or the large variant's ``wide<spanned words,
-    EQ, REC>`` with the code's word count."""
+    of the register kernel, or the large variant's ``wide<EQ, REC>`` with
+    the code's word count."""
     offs = kernel_tables(spec)[2]
     flags = (f"{'true' if equal_betas else 'false'}, "
              f"{'true' if record else 'false'}>")
     if lw.is_wide(spec):
-        return f"wide<{offs['span']}, {flags} at {offs['nw']} words"
+        return f"wide<{flags} at {offs['nw']} words"
     return f"<{offs['nw']}, {offs['span']}, {flags}"
 
 
@@ -3009,7 +3025,7 @@ def phase_large_codes():
         f"{name} {k1} launch(es), K2 {k2}, plain 0; recovered {rec:.4f} (bar "
         f"{LARGE_MIN_RECOVERED}); the sampler at {R} chains x {steps} steps: "
         f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
-        f"({bound_by}); launch {sampler_launch_line(spec, R, True)}")
+        f"({bound_by}); launch {k1_launch_line(spec, R, True, True)}")
     entries.append(dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
                         bound_by=bound_by, name="sweep_sampler_rotated_d19",
                         instantiation=name, launches=k1, source="sweep.cu"))
@@ -3065,18 +3081,22 @@ def phase_large_codes():
 
 class _lanes_per_chain:
     """Run K1 at ``L`` lanes per chain (at least the plan's fewest): the
-    plan's choice from the batch is replaced while the block runs (parity
-    at every lane count only)."""
+    plan's choice is replaced while the block runs, in the register form
+    and in the large variant (whose warps a block follow from L as the
+    plan takes them: parity at every lane count only)."""
 
     def __init__(self, L):
         self.L = L
 
     def __enter__(self):
-        self.saved = sw.lanes_per_chain
+        self.saved = sw.lanes_per_chain, sw.wide_block
+        wide = sw.wide_block
         sw.lanes_per_chain = lambda offs, B, n_sm: self.L
+        sw.wide_block = lambda spec, record, B, n_sm: wide(spec, record, B, n_sm,
+                                                          lanes=self.L)
 
     def __exit__(self, *exc):
-        sw.lanes_per_chain = self.saved
+        sw.lanes_per_chain, sw.wide_block = self.saved
 
 
 def compare_wide(family, d, B, seed):
@@ -3166,12 +3186,14 @@ def _wide_sweep_launch(spec, R, n_sweeps, betas, equal_betas, seed, reps):
 def phase_codes_above_1024(built):
     """Codes above 1024 qubits on the card (WIDE_* above), through the sweep
     kernel's large variant: (a) parity at 17 to 64 words at every lane
-    count; (b) its registers and spills from the build, one sweep launch at
-    toric d=45 against its bound; (c) STDC at toric d=25 and rotated d=45,
-    PTEQ at toric d=23 on the unfused window (``engine="sweep"``) and PTDC
-    at toric d=23, only K1 launching, each with its launch timed against
-    the bound and the plain version.  Returns the kernels line's entries
-    and the unfused PTEQ decode's seconds."""
+    count, and a ragged last block at the plan's thread count; (b) its
+    registers and spills from the build (a spill fails the phase), one
+    sweep launch at toric d=45 against its bound; (c) STDC at toric d=25
+    and rotated d=45, PTEQ at toric d=23 on the unfused window
+    (``engine="sweep"``) and PTDC at toric d=23, only K1 launching, each
+    with its launch timed against the bound and the plain version and its
+    seconds and launches beside the parent's (WIDE_PARENT).  Returns the
+    kernels line's entries and the unfused PTEQ decode's seconds."""
     cases, worst, parts = 0, 0.0, []
     for i, (family, d, B) in enumerate(WIDE_PARITY):
         n, lanes, err = compare_wide(family, d, B, seed=900 + i)
@@ -3185,21 +3207,27 @@ def phase_codes_above_1024(built):
           f"err {worst}", flush=True)
 
     regs = [ln for ln in ptxas_summary(built["sweep"].log) if "wide" in ln]
+    check(not built["sweep"].seconds
+          or (regs and all(ln.endswith(" 0 bytes spilled") for ln in regs)),
+          f"K1's large variant spills, or its build printed no summary: {regs}")
+
+    def regs_of(name):
+        """The ptxas line of ``_k1_name``'s large-variant instantiation."""
+        kernel = "sweep_kernel_" + name.split(" at ")[0] + ":"
+        return next((ln.split(": ", 1)[1] for ln in regs if ln.startswith(kernel)),
+                    "registers not printed (reused build)")
     m = WIDE_TIMED
     spec = get_spec(m["family"], m["d"])
     b = torch.full((3,), 0.9, device="cuda")
     t = _wide_sweep_launch(spec, m["R"], m["n_sweeps"], b, True, 910, 5)
-    plan, resident = sw.launch_plan(spec, m["R"], False, True)
     print(f"phase 27 (b) large variant build: {' | '.join(regs) or 'reused build'}; "
           f"{m['n_sweeps']} sweeps of {m['R']} chains at {m['family']} d={m['d']} "
           f"({_k1_name(spec, True, False)}): kernel {t['ms']:.3f} ms, plain "
           f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
-          f"({t['bound_by']}; {roofline.spanned_word_count(spec)} spanned words, "
-          f"{popc_per_sweep(spec, True)} popcounts a sweep), "
-          f"{t['bound_ms'] / t['ms']:.1%} of the bound; launch L="
-          f"{plan.lanes}, {plan.chains_per_warp} chains per warp, {resident} "
-          f"blocks per SM, {plan.smem} B shared memory, multipliers in "
-          f"{'shared' if plan.mults_in_smem else 'device'} memory", flush=True)
+          f"({t['bound_by']}; {popc_per_sweep(spec, True)} popcounts a sweep), "
+          f"{t['bound_ms'] / t['ms']:.1%} of the bound; "
+          f"{regs_of(_k1_name(spec, True, False))}; launch "
+          f"{k1_launch_line(spec, m['R'], False, True)}", flush=True)
 
     lines, fails, entries = [], [], []
 
@@ -3242,7 +3270,11 @@ def phase_codes_above_1024(built):
             f"{name} {k1} launch(es), K2 0, plain 0; one sampler launch at {R} "
             f"chains x {steps} steps: kernel {t['ms']:.3f} ms, plain "
             f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}); launch {sampler_launch_line(spec, R, True)}")
+            f"({t['bound_by']}); {regs_of(name)}; launch "
+            f"{k1_launch_line(spec, R, True, True)}")
+        parent = WIDE_PARENT[tag]
+        lines[-1] += (f"; decode {dt:.2f} s and {k1} K1 launch(es) against the "
+                      f"parent's {parent[0]} s and {parent[1]}")
         entries.append(dict(t, name=f"sweep_sampler_wide_{m['family']}_d{m['d']}",
                             instantiation=name, launches=k1, source="sweep.cu"))
 
@@ -3273,7 +3305,9 @@ def phase_codes_above_1024(built):
         f"{ladder_steps} ladder steps, K2 {k2}, plain 0; converged "
         f"{res.converged.mean():.4f}; one ladder step's sweeps at {Rc} chains: "
         f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.1f} ms, bound "
-        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}); {regs_of(name)}; launch "
+        f"{k1_launch_line(spec, Rc, False, False)}; decode against the "
+        f"parent's {WIDE_PARENT[tag][0]} s and {WIDE_PARENT[tag][1]} launches")
     entries.append(dict(t, name="sweep_per_chain_wide_toric_d23",
                         instantiation=name, launches=k1, source="sweep.cu"))
 
@@ -3300,7 +3334,10 @@ def phase_codes_above_1024(built):
         f"{ladder_steps} ladder steps, K2 {k2}, plain 0; recovered "
         f"{float(np.mean(distr.argmax(-1) == truth)):.4f}; one ladder-step "
         f"launch at {R} chains: kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+        f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+        f"{regs_of(name)}; launch {k1_launch_line(spec, R, True, False)}; "
+        f"decode against the "
+        f"parent's {WIDE_PARENT[tag][0]} s and {WIDE_PARENT[tag][1]} launches")
     entries.append(dict(t, name="sweep_ladder_step_wide_toric_d23",
                         instantiation=name, launches=k1, source="sweep.cu"))
     print("phase 27 (c) codes above 1024 qubits through the entry points: "

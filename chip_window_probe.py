@@ -14,7 +14,7 @@ change parent`` compares two commits on one card.  Per root it prints:
   libraries (``cuobjdump -sass``; ``ATOMS.CAST.SPIN.64`` is a
   compare-and-swap loop, ``ATOMS.XOR`` and ``ATOMS.OR`` single
   instructions), and the registers and spilled bytes of each instantiation
-  of K2's large variant (ptxas);
+  of both kernels' large variants (ptxas);
 - K2's register form: one production window (W=600, iters=2, C=12, zero
   top rung) at the smoke check's shapes: toric d=5 B=2048, toric d=13
   B=512, xzzx d=13 B=512 (general betas) and toric d=21 B=64;
@@ -38,8 +38,18 @@ change parent`` compares two commits on one card.  Per root it prints:
   SHA-256 of every array of the result, so two roots' lines show equal
   results;
 - K1: the 450-step sampler over 65,536 toric d=5 chains, and its large
-  variant: 10 sweeps of 16,384 toric d=45 chains and the samplers at
-  toric d=25 (40,960 chains x 40 steps) and rotated d=45 (5,120 x 150).
+  variant: 10 sweeps of 16,384 toric d=45 chains, the samplers at toric
+  d=25 (40,960 chains x 40 steps, at one and two sweeps a step, and at 1,
+  2, 4 and 8 lanes a chain; and its 40 sweeps without the recording) and
+  rotated d=45 (5,120 x 150), the PTDC
+  ladder step at toric d=23 (5,888 chains, a row of betas each) and the
+  unfused PTEQ ladder step's sweeps there (368 chains), each with its
+  launch (lanes, threads, blocks, and the blocks an SM holds by the
+  occupancy calculator);
+- decodes through K1's large variant with a SHA-256 of the result: STDC
+  at toric d=25 B=256 and rotated d=45 B=128 (10 droplets x 1500 steps)
+  and PTDC at toric d=23 B=16 (the smoke check's phase 27 (c) inputs),
+  with their seconds and K1 launches.
 
 Each time is CUDA events around 2-5 launches after a warm-up, in ms.
 Needs a CUDA device; imports no jax.
@@ -53,6 +63,7 @@ import hashlib
 import re
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -70,6 +81,26 @@ def _time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def ptxas_lines(log: str):
+    """'kernel<a, ...>: N registers, S bytes spilled' per instantiation, from
+    nvcc's -Xptxas -v output."""
+    out, name, spill = [], None, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '_ZN3mqt\d+(\w+?)I((?:L[ib]\d+E)+)E", ln)
+        if m:
+            args = [("true" if v == "1" else "false") if k == "b" else v
+                    for k, v in re.findall(r"L([ib])(\d+)E", m[2])]
+            name = f"{m[1]}<{', '.join(args)}>"
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m[1]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m[1]} registers, {spill} bytes spilled")
+            name = None
+    return out
 
 
 def one(root: str) -> int:
@@ -126,6 +157,9 @@ def one(root: str) -> int:
             wide.append(f"wide<{name}>: {m[1]} registers, {spill} bytes spilled")
             name = None
     print(f"{tag} K2 large variant, ptxas: {' | '.join(wide) or 'none'}",
+          flush=True)
+    k1_wide = [ln for ln in ptxas_lines(built["sweep"].log) if "_wide<" in ln]
+    print(f"{tag} K1 large variant, ptxas: {' | '.join(k1_wide) or 'none'}",
           flush=True)
 
     @contextlib.contextmanager
@@ -280,29 +314,121 @@ def one(root: str) -> int:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         return sample_depolarizing(gen, spec, 0.3, (R,), device="cuda")
 
-    def sampler(family, d, R, steps):
+    def launch(spec, R, record, equal_betas):
+        """The launch at R chains: lanes, threads, blocks, blocks an SM."""
+        plan, n = sw.launch_plan(spec, R, record, equal_betas)
+        threads = getattr(plan, "threads", 256)
+        return (f"L={plan.lanes}, {threads} threads and "
+                f"{plan.chains_per_block} chains a block, "
+                f"{-(-R // plan.chains_per_block)} blocks, {n} block(s) an SM "
+                f"by occupancy")
+
+    def sampler(family, d, R, steps, iters=1):
         spec = get_spec(family, d)
         st = states(spec, R, 44)
         seeds = torch.randint(0, 2**31 - 1, (steps,),
                               generator=torch.Generator().manual_seed(44))
         b = torch.full((3,), 1.7, device="cuda")
-        fn = sw.make_recording_sweep(spec, steps, 1, equal_betas=True)
-        return _time_ms(lambda: fn(st, seeds, b), 3)
+        fn = sw.make_recording_sweep(spec, steps, iters, equal_betas=True)
+        return _time_ms(lambda: fn(st, seeds, b), 3), launch(spec, R, True, True)
 
-    spec = get_spec("toric", 45)
-    st = states(spec, 16384, 910)
-    sweeps = sw.make_sweep(spec, 10, True)
-    b = torch.full((3,), 0.9, device="cuda")
-    for what, ms in (
-            ("K1 sampler, toric d=5, 65,536 chains x 450 steps",
+    def per_chain(d, R, record, reps):
+        """The PT ladder step's launch at toric d: a row of betas a chain,
+        general betas; one recorded step of one sweep (PTDC) or two sweeps
+        (the unfused PTEQ window)."""
+        spec = get_spec("toric", d)
+        st = states(spec, R, 7)
+        b = torch.rand((R, 3), generator=torch.Generator(device="cuda").manual_seed(3),
+                       device="cuda") * 2 + 0.2
+        if record:
+            fn = sw.make_recording_sweep(spec, 1, 1, equal_betas=False)
+            seeds = torch.tensor([12345], dtype=torch.int64)
+            run = lambda: fn(st, seeds, b)  # noqa: E731
+        else:
+            fn = sw.make_sweep(spec, 2, False)
+            run = lambda: fn(st, 12345, b)  # noqa: E731
+        return _time_ms(run, reps), launch(spec, R, record, False)
+
+    def sweeps(d, R, n, seed, beta, reps):
+        """``make_sweep``: n sweeps of R toric d chains, equal betas."""
+        spec = get_spec("toric", d)
+        st = states(spec, R, seed)
+        fn = sw.make_sweep(spec, n, True)
+        b = torch.full((3,), beta, device="cuda")
+        return (_time_ms(lambda: fn(st, seed, b), reps),
+                launch(spec, R, False, True))
+
+    rows = [("K1 sampler, toric d=5, 65,536 chains x 450 steps",
              sampler("toric", 5, 65536, 450)),
             ("K1 large variant, 10 sweeps of 16,384 toric d=45 chains",
-             _time_ms(lambda: sweeps(st, 910, b), 5)),
+             sweeps(45, 16384, 10, 910, 0.9, 5)),
             ("K1 large variant, sampler toric d=25, 40,960 chains x 40 steps",
              sampler("toric", 25, 40960, 40)),
+            ("K1 large variant, 40 sweeps of 40,960 toric d=25 chains, no "
+             "recording", sweeps(25, 40960, 40, 44, 1.7, 3)),
+            ("K1 large variant, sampler toric d=25, 40,960 chains x 40 steps "
+             "of 2 sweeps", sampler("toric", 25, 40960, 40, iters=2)),
             ("K1 large variant, sampler rotated d=45, 5,120 chains x 150 steps",
-             sampler("rotated", 45, 5120, 150))):
-        print(f"{tag} {what}: {ms:.4f} ms", flush=True)
+             sampler("rotated", 45, 5120, 150)),
+            ("K1 large variant, PTDC ladder step toric d=23, 5,888 chains",
+             per_chain(23, 5888, True, 20)),
+            ("K1 large variant, unfused PTEQ ladder sweeps toric d=23, 368 chains",
+             per_chain(23, 368, False, 20))]
+    for what, (ms, line) in rows:
+        print(f"{tag} {what}: {ms:.4f} ms; {line}", flush=True)
+
+    # lanes a chain at toric d=25 (the plan's choice replaced)
+    for L in (1, 2, 4, 8):
+        saved = sw.lanes_per_chain, getattr(sw, "wide_block", None)
+        sw.lanes_per_chain = lambda offs, B, n_sm: L
+        if saved[1] is not None:
+            sw.wide_block = (lambda spec, record, B, n_sm:
+                             saved[1](spec, record, B, n_sm, lanes=L))
+        try:
+            ms, line = sampler("toric", 25, 40960, 40)
+        finally:
+            sw.lanes_per_chain, wb = saved
+            if wb is not None:
+                sw.wide_block = wb
+        print(f"{tag} K1 large variant, sampler toric d=25, 40,960 chains x 40 "
+              f"steps at {L} lane(s) a chain: {ms:.4f} ms; {line}", flush=True)
+
+    # decodes through K1's large variant, as phase 27 (c) runs them
+    from mcmc_qec_tpu_torch.decoders import PTDC, STDC
+    from mcmc_qec_tpu_torch.models import np_eq_class
+
+    def decode(fn):
+        sw.sweep_counts.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        arr = np.asarray(out.cpu() if isinstance(out, torch.Tensor) else out)
+        return dt, sw.sweep_counts.launches, arr
+
+    for i, (family, d, B) in enumerate((("toric", 25, 256), ("rotated", 45, 128))):
+        spec = get_spec(family, d)
+        gen = torch.Generator(device="cuda").manual_seed(2050 + i)
+        st = sample_depolarizing(gen, spec, 0.05, (B,))
+        truth = np_eq_class(spec, st.cpu().numpy())
+        STDC(spec, st, 0.05, 0.15, engine="auto", device="cuda", droplets=1,
+             steps=30)  # warm-up: the tables and the class seeds' first call
+        dt, k1, distr = decode(lambda: STDC(spec, st, 0.05, 0.15, engine="auto",
+                                            device="cuda", droplets=10,
+                                            steps=1500))
+        print(f"{tag} STDC {family} d={d} B={B} 10 x 1500: {dt:.2f} s, {k1} K1 "
+              f"launches, recovered {np.mean(distr.argmax(-1) == truth):.4f}, "
+              f"result sha256 {hashlib.sha256(distr.tobytes()).hexdigest()[:16]}",
+              flush=True)
+    spec = get_spec("toric", 23)
+    gen = torch.Generator(device="cuda").manual_seed(2080)
+    st = sample_depolarizing(gen, spec, 0.05, (16,))
+    PTDC(spec, st, 0.05, droplets=1, steps=23 * 2, device="cuda")  # warm-up
+    dt, k1, distr = decode(lambda: PTDC(spec, st, 0.05, droplets=1, steps=23 * 20,
+                                        device="cuda"))
+    print(f"{tag} PTDC toric d=23 B=16: {dt:.2f} s, {k1} K1 launches, result "
+          f"sha256 {hashlib.sha256(distr.tobytes()).hexdigest()[:16]}", flush=True)
     return 0
 
 

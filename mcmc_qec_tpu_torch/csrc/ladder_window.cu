@@ -790,80 +790,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) ladder_window_kernel(const Win
 // The large variant: planes in shared memory, 2 bits a qubit
 // ---------------------------------------------------------------------------
 
-// Qubit k (0-3) of a qubit-table entry and the 2-bit ops of all four
-// (ops/ladder_window.py::qubit_table): qubit k in bits 14k..14k+13, its op
-// (x | z << 1, 0 for no qubit) in bits 56 + 2k and 57 + 2k.
-__device__ __forceinline__ int entry_qubit(uint64_t e, int k) {
-  return (int)((e >> (14 * k)) & 0x3FFFu);
-}
-
-__device__ __forceinline__ uint32_t entry_ops(uint64_t e) { return (uint32_t)(e >> 56); }
-
-// The 2-bit states (x | z << 1) of an entry's four qubits in a slot ``W``
-// (qubit q in bits 2 (q % 16) and 2 (q % 16) + 1 of word q / 16), packed as
-// the ops are: one 32-bit load a qubit, none of them waiting on another.
-// A missing qubit reads qubit 0; its op is 0, so it changes no count.
-__device__ __forceinline__ uint32_t entry_states(const uint32_t* W, uint64_t e) {
-  uint32_t s = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int q = entry_qubit(e, k);
-    s |= ((W[q >> 4] >> ((q & 15) << 1)) & 3u) << (2 * k);
-  }
-  return s;
-}
-
-// logr of flipping a stabilizer whose qubits are in states ``s`` under ops
-// ``o`` (both packed 2 bits a qubit): the integers of sweep.cuh::add_word
-// and logr_of, counted on the stabilizer's qubits instead of its spanned
-// words.  Equal betas: dN = (qubits in error after) - (before).  General
-// betas: tx, tz the overlaps of x and z with the op's X and Z parts, dN_y
-// the Y count's change, cx, cz the op's X and Z qubits; the same
-// expression, rounded alike.
-template <bool EQ>
-__device__ __forceinline__ float entry_logr(uint32_t s, uint32_t o, float bx, float by,
-                                            float bz) {
-  const uint32_t ns = s ^ o;
-  if constexpr (EQ) {
-    const int d0 = __popc((ns | (ns >> 1)) & 0x55u) - __popc((s | (s >> 1)) & 0x55u);
-    return -(bx * (float)d0);
-  } else {
-    const int tx = __popc(s & o & 0x55u), tz = __popc(s & o & 0xAAu);
-    const int d0 = __popc(ns & (ns >> 1) & 0x55u) - __popc(s & (s >> 1) & 0x55u);
-    const int d1 = (__popc(o & 0x55u) - 2 * tx) - d0, d3 = (__popc(o & 0xAAu) - 2 * tz) - d0;
-    return -__fadd_rn(__fadd_rn(__fmul_rn(bx, (float)d1), __fmul_rn(by, (float)d0)),
-                      __fmul_rn(bz, (float)d3));
-  }
-}
-
-// XOR an accepted entry's ops into the slot: one 32-bit shared atomic a
-// qubit (ATOMS.XOR; lanes of a rung may flip other bits of the word).
-__device__ __forceinline__ void entry_flip(uint32_t* W, uint64_t e) {
-  const uint32_t o = entry_ops(e);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint32_t ok = (o >> (2 * k)) & 3u;
-    if (ok) {
-      const int q = entry_qubit(e, k);
-      atomicXor(W + (q >> 4), ok << ((q & 15) << 1));
-    }
-  }
-}
-
-// The states and ops of Philox block g of a color (stabilizers c0 + 4g ..
-// c0 + 4g + 3; past the color's n an empty entry), stabilizer e's 8 bits at
-// bits 8e of each: two registers a block, so a lane holds the next block's
-// beside the current one within 64 registers.
-__device__ __forceinline__ void load_block(const uint32_t* W, const uint64_t* qtab, int c0, int n,
-                                           int g, uint32_t& st, uint32_t& ops) {
-  st = ops = 0;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const uint64_t ent = 4 * g + e < n ? qtab[c0 + 4 * g + e] : 0ull;
-    st |= entry_states(W, ent) << (8 * e);
-    ops |= entry_ops(ent) << (8 * e);
-  }
-}
+// The per-qubit helpers (entry_*, load_block, block_accepts, spread16,
+// compact16) are in sweep.cuh, shared with the sweep kernel's large variant.
 
 // One color on a rung whose chain sits in slot ``W``: lane l takes the
 // color's Philox blocks g = l, l + L, ... whole, at the counter the register
@@ -890,15 +818,8 @@ __device__ __forceinline__ void sweep_color_wide(const WindowParams& P, uint32_t
     uint32_t st_n, ops_n;
     load_block(W, qtab, c0, g + L < nb ? n : 0, g + L, st_n, ops_n);
     const uint4 v = draw_block(P, (uint32_t)g, use, (uint32_t)t, (uint32_t)b);
-    const float bx = br[0], by = EQ ? 0.f : br[1], bz = EQ ? 0.f : br[2];
-    unsigned acc = 0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float logr =
-          entry_logr<EQ>((st >> (8 * e)) & 255u, (ops >> (8 * e)) & 255u, bx, by, bz);
-      // every uniform is < 1, so log u < 0 and logr >= 0 accepts
-      if (logr >= 0.f || log_uniform(word_of(v, e)) < logr) acc |= 1u << e;
-    }
+    const unsigned acc = block_accepts<EQ>(st, ops, v, br[0], EQ ? 0.f : br[1],
+                                           EQ ? 0.f : br[2]);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       if (((acc >> e) & 1u) && ((ops >> (8 * e)) & 255u)) entry_flip(W, qtab[c0 + 4 * g + e]);
@@ -911,23 +832,6 @@ __device__ __forceinline__ void sweep_color_wide(const WindowParams& P, uint32_t
 __device__ __forceinline__ int rung_sum(int v, unsigned mask, int L) {
   for (int k = 1; k < L; k <<= 1) v += __shfl_xor_sync(mask, v, k);
   return v;
-}
-
-// Bit i of x to bit 2i, and back.
-__device__ __forceinline__ uint32_t spread16(uint32_t x) {
-  x &= 0xFFFFu;
-  x = (x | (x << 8)) & 0x00FF00FFu;
-  x = (x | (x << 4)) & 0x0F0F0F0Fu;
-  x = (x | (x << 2)) & 0x33333333u;
-  return (x | (x << 1)) & 0x55555555u;
-}
-
-__device__ __forceinline__ uint32_t compact16(uint32_t x) {
-  x &= 0x55555555u;
-  x = (x | (x >> 1)) & 0x33333333u;
-  x = (x | (x >> 2)) & 0x0F0F0F0Fu;
-  x = (x | (x >> 4)) & 0x00FF00FFu;
-  return (x | (x >> 8)) & 0xFFFFu;
 }
 
 // The X and Z plane words w (qubits 64w .. 64w + 63) of a slot.

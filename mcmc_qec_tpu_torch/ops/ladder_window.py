@@ -74,9 +74,9 @@ from .philox import MASK32, philox4x32
 # code's word count is rounded up to the next; the extra words stay zero).
 # 16 words (nq <= 1024) is the most, and the narrow spanned-word entry packs
 # a word index in 4 bits.  Above 16 words the tables hold the code's exact
-# word count and a wide entry, 8 bits a word index, which the sweep
-# kernel's large variant reads (ops/sweep.py::MAX_WORDS); the window
-# kernel's large variant reads ``qubit_table`` at any word count
+# word count and a wide entry, 8 bits a word index, which no kernel reads
+# (the count of spanned words, utils/roofline.py, does); both kernels'
+# large variants read ``qubit_table`` at any word count
 KERNEL_WORDS = (1, 2, 3, 4, 6, 8, 12, 16)
 # most words per plane an 8-bit word index of the wide entry names, and
 # so the most the kernels' large variants take (nq <= 16384; a qubit-table
@@ -567,9 +567,9 @@ def _pack_span(words, cx: int, cz: int, nw: int) -> Tuple[int, int]:
     plane (bits 4-7) and in the Z plane (bits 8-11) and, up to 16 words
     per plane, the word indices, 4 bits each from bit 12 (0 there above
     16 words); both kernels' register instantiations read it.  The wide
-    entry holds the word indices, 8 bits each, for the sweep kernel's large
-    variant (above 16 words), which reads bits 0-11 of the narrow entry
-    beside it."""
+    entry holds the word indices, 8 bits each, above 16 words (the count
+    of spanned words, utils/roofline.py, reads it; the kernels' large
+    variants read ``qubit_table``)."""
     if max(words, default=0) >= WIDE_WORDS:
         raise ValueError(f"word index {max(words)}: the wide entry holds "
                          f"indices below {WIDE_WORDS}")

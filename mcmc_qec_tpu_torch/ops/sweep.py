@@ -36,12 +36,13 @@ PT ladder's sweep, where each chain runs at its rung's temperature
 Code sizes: up to 16 words per bit plane (nq <= 1024) a register
 instantiation ``sweep_kernel<words, spanned words, equal betas,
 recording>`` holds a chain's planes in registers; above it the large
-variant ``sweep_kernel_wide<spanned words, equal betas, recording>`` takes
-the word count at run time and holds the planes in shared memory, up to
-MAX_WORDS words (nq <= 16384; the wide spanned-word entry names a word in
-8 bits).  ``sweep_kernel_fits`` says from shapes alone whether the card
-takes a code; above the limit the CUDA branches raise a ``ValueError``
-before any work.  The plain versions take any size.
+variant ``sweep_kernel_wide<equal betas, recording>`` takes the word count
+at run time and holds each chain in shared memory at 2 bits a qubit, up to
+MAX_WORDS words (nq <= 16384; a qubit-table entry names a qubit in 14
+bits), with its own launch (``wide_block``).  ``sweep_kernel_fits`` says
+from shapes alone whether the card takes a code; above the limit the CUDA
+branches raise a ``ValueError`` before any work.  The plain versions take
+any size.
 
 Randomness: the uniform of stabilizer ``j`` of color ``c`` in sweep ``t``
 for chain ``b`` is ``u = (w >> 8) * 2**-24 + 1e-12`` (the compiled TPU
@@ -70,6 +71,8 @@ from ..models.base import CodeSpec
 from .dense_sweep import _color_tables
 from .ladder_window import (
     SMEM_LIMIT,
+    WIDE_MAX_THREADS,
+    WIDE_WARPS_PER_SM,
     WIDE_WORDS,
     KernelCounter,
     _DRAW_BUDGET,
@@ -82,6 +85,7 @@ from .ladder_window import (
     kernel_tables,
     kernel_words,
     lanes_per_rung,
+    qubit_table,
     spanned_words,
 )
 from .pauli import count_errors_xyz, make_hash_mults, pack_key
@@ -92,15 +96,17 @@ from .philox import MASK32
 # KERNEL_WORDS[-1] (nq > 1024: toric and planar d >= 23, rotated and XZZX
 # d >= 33); a code's count is ``kernel_words(nq)``
 MAX_WORDS = WIDE_WORDS
-# threads per block of the kernel (csrc/sweep.cu::kSweepThreads)
+# threads per block of a register instantiation (csrc/sweep.cu::
+# kSweepThreads); the large variant's blocks take up to WIDE_MAX_THREADS
+# (kWideThreads, ``wide_block``)
 SWEEP_THREADS = 256
 # recording steps a warp stages per chain before it stores them: 16 steps
 # are 256 contiguous bytes of keys and 192 of counts per chain (whole
 # 32-byte sectors of the stream, 28 bytes per chain and step: 826 MB at
 # 65,536 chains x 450 steps)
 TILE_STEPS = 16
-# blocks one SM must still hold beside tables in shared memory, else the
-# kernel reads its tables from device memory
+# blocks one SM must still hold beside tables in shared memory, else a
+# register instantiation reads its tables from device memory
 MIN_BLOCKS_PER_SM = 4
 # warps per SM a batch must still give before the plan halves the lanes per
 # chain (``lanes_per_chain``)
@@ -214,10 +220,11 @@ def sample_reference(spec: CodeSpec, states: torch.Tensor, seeds, betas,
 
 
 def lanes_per_chain(offs, B: int, n_sm: int) -> int:
-    """Lanes that split a chain's proposals: at most the window kernel's
-    rule (about one lane per Philox block, four stabilizers, of the widest
-    color, a power of two up to 8: toric d=5 4, toric d >= 7 8), halved
-    while the batch still gives every one of the ``n_sm`` SMs
+    """Lanes that split a chain's proposals in a register instantiation
+    (the large variant's come from ``wide_block``): at most the window
+    kernel's rule (about one lane per Philox block, four stabilizers, of
+    the widest color, a power of two up to 8: toric d=5 4, toric d >= 7 8),
+    halved while the batch still gives every one of the ``n_sm`` SMs
     MIN_WARPS_PER_SM warps.  Fewer lanes issue fewer instructions (no idle
     lanes in the small colors, no butterflies); more lanes put more warps
     on a card that a small batch leaves idle."""
@@ -231,6 +238,7 @@ class SweepPlan(NamedTuple):
     lanes: int  # lanes per chain
     chains_per_warp: int
     chains_per_block: int
+    threads: int  # threads per block
     tile_steps: int  # recording steps staged per store
     region_bytes: int  # shared memory of one warp (its rows, or its tiles)
     tab_in_smem: bool  # tables in shared memory (else device memory)
@@ -246,52 +254,60 @@ def tile_bytes(tile_steps: int, wide: bool = False) -> int:
 
 
 def plane_words(spec: CodeSpec) -> int:
-    """64-bit words of one chain's planes in the large variant's shared
-    memory: X then Z, padded by one word so that the chains of a warp start
-    in different banks."""
-    return 2 * kernel_words(spec.nq) + 1
+    """32-bit words of one chain's slot in the large variant's shared
+    memory: 2 bits a qubit, 16 qubits a word (4 words per 64-bit plane word
+    of X and Z), padded by one word so that the chains of a warp start in
+    different banks."""
+    return 4 * kernel_words(spec.nq) + 1
 
 
 def sweep_smem_bytes(spec: CodeSpec, region_bytes: int, tab_in_smem: bool,
-                     mults_in_smem: bool = True) -> int:
-    """Dynamic shared memory of one block (csrc/sweep.cu::SweepLayout): the
-    spanned-word table if it sits there, the hash multipliers if they do,
-    the color starts and spanned-word entries (narrow, and wide in the
-    large variant), then each warp's region, 16-byte aligned."""
+                     mults_in_smem: bool = True,
+                     warps: int = SWEEP_THREADS // 32) -> int:
+    """Dynamic shared memory of one block of ``warps`` warps
+    (csrc/sweep.cu::SweepLayout): the table if it sits there (the
+    spanned-word table, or the large variant's qubit table, 8 bytes a
+    stabilizer), the hash multipliers if they do, the color starts and a
+    register instantiation's spanned-word entries, then each warp's
+    region, 16-byte aligned."""
     n_colors = len(spec.color_stabs)
-    n_ent = 2 if is_wide(spec) else 1
-    tab = 8 * spec.n_stabs * 3 * spanned_words(spec) if tab_in_smem else 0
+    wide = is_wide(spec)
+    tab = (8 * spec.n_stabs * (1 if wide else 3 * spanned_words(spec))
+           if tab_in_smem else 0)
     head = (tab + 8 * spec.nq * int(mults_in_smem)
-            + 4 * (n_colors + 1 + n_ent * spec.n_stabs))
-    return -(-head // 16) * 16 + region_bytes * (SWEEP_THREADS // 32)
+            + 4 * (n_colors + 1 + (0 if wide else spec.n_stabs)))
+    return -(-head // 16) * 16 + region_bytes * warps
 
 
-def _block_bytes(spec: CodeSpec, record: bool, lanes: int):
+def _block_bytes(spec: CodeSpec, record: bool, lanes: int,
+                 warps: int | None = None):
     """(bytes of one warp's region, tables in shared memory, multipliers in
     shared memory, dynamic shared memory of one block) at ``lanes`` lanes
-    per chain (``sweep_plan``).  A register instantiation's region holds
+    per chain and ``warps`` warps a block (``sweep_plan``; by default a
+    register instantiation's SWEEP_THREADS // 32, the large variant's
+    smallest block of one warp).  A register instantiation's region holds
     the warp's rows of u8 state or its tiles, and the multipliers always
-    sit in shared memory; the large variant's holds its chains' planes and
-    tiles, and its multipliers go to shared memory when the block still
-    fits with them."""
+    sit in shared memory; the tables go there when MIN_BLOCKS_PER_SM blocks
+    still fit an SM beside them.  The large variant's region holds its
+    chains' slots and tiles; the qubit table goes to shared memory when the
+    block still fits with it, then, while recording, the multipliers."""
     cpw = 32 // lanes
-    wide = is_wide(spec)
-    if wide:
-        region = cpw * 8 * plane_words(spec) + record * cpw * tile_bytes(
+    if is_wide(spec):
+        warps = 1 if warps is None else warps
+        region = cpw * 4 * plane_words(spec) + record * cpw * tile_bytes(
             TILE_STEPS, True)
-    else:
-        region = cpw * spec.nq
-        if record:
-            region = max(region, cpw * tile_bytes(TILE_STEPS))
+        region = -(-region // 16) * 16
+        smem = functools.partial(sweep_smem_bytes, spec, region, warps=warps)
+        in_smem = smem(True, False) <= SMEM_LIMIT
+        mults = record and smem(in_smem, True) <= SMEM_LIMIT
+        return region, in_smem, mults, smem(in_smem, mults)
+    region = cpw * spec.nq
+    if record:
+        region = max(region, cpw * tile_bytes(TILE_STEPS))
     region = -(-region // 16) * 16
     smem = functools.partial(sweep_smem_bytes, spec, region)
-    # the tables first (beside the multipliers the large variant reads only
-    # while recording), then the large variant's multipliers where they fit
-    mults = record or not wide
-    in_smem = MIN_BLOCKS_PER_SM * smem(True, mults) <= SMEM_LIMIT
-    if wide:
-        mults = record and smem(in_smem, True) <= SMEM_LIMIT
-    return region, in_smem, mults, smem(in_smem, mults)
+    in_smem = MIN_BLOCKS_PER_SM * smem(True) <= SMEM_LIMIT
+    return region, in_smem, True, smem(in_smem)
 
 
 def _instantiated(spec: CodeSpec) -> bool:
@@ -330,40 +346,83 @@ def _require_kernel(spec: CodeSpec, record: bool) -> None:
 
 @functools.lru_cache(maxsize=None)
 def least_lanes(spec: CodeSpec, record: bool) -> int:
-    """Fewest lanes per chain whose block fits 227 KB of shared memory: 1
-    up to 841 qubits (rotated and XZZX d=29); toric and planar d=21 (882
-    qubits) and rotated and XZZX d=31 (961) take 2, as a warp's 32 rows of
-    u8 state would not fit at 1.  The large variant takes 1 at toric d=23
-    and rotated d=33, 2 at toric d=45 (32 chains' planes of 1 KB would not
-    fit at 1) and 16 near its limit (toric d=89).  32 where no lane count
-    fits (``sweep_kernel_fits`` is False)."""
+    """Fewest lanes per chain whose smallest block fits 227 KB of shared
+    memory: 1 up to 841 qubits (rotated and XZZX d=29); toric and planar
+    d=21 (882 qubits) and rotated and XZZX d=31 (961) take 2, as a warp's
+    32 rows of u8 state would not fit at 1.  The large variant's smallest
+    block is one warp, whose 32 chains fit at 1 lane each up to its limit
+    (toric d=89: 32 slots of 3,972 bytes).  32 where no lane count fits
+    (``sweep_kernel_fits`` is False)."""
     L = 1
     while L < 32 and _block_bytes(spec, record, L)[-1] > SMEM_LIMIT:
         L *= 2
     return L
 
 
-def sweep_plan(spec: CodeSpec, record: bool, lanes: int) -> SweepPlan:
+def wide_block(spec: CodeSpec, record: bool, B: int, n_sm: int,
+               lanes: int | None = None) -> Tuple[int, int]:
+    """(lanes per chain, warps per block) of the large variant for ``B``
+    chains on ``n_sm`` SMs, from shared memory rather than from the batch
+    alone.  A chain's bytes (its slot and its share of the staged tiles)
+    fix how many chains one block of up to 227 KB holds; the batch is
+    spread over the SMs in whole waves of one block an SM (toric d=25 at
+    40,960 chains: 128 blocks of 320 chains in one wave, not 160 blocks of
+    256 in 1.2 waves).  Lanes per chain are then the most, a power of two from
+    ``least_lanes`` up to 32 and below twice the widest color's Philox
+    blocks, that keep the block within WIDE_WARPS_PER_SM warps (toric d=25
+    at 40,960 chains: 2 lanes, 20 warps; toric d=45 at 16,384: 8 lanes, 32
+    warps); ``lanes`` given fixes them instead.  The warps are what the
+    block's chains take at those lanes, at most WIDE_MAX_THREADS // 32."""
+    least = least_lanes(spec, record)
+    chain = 4 * plane_words(spec) + record * tile_bytes(TILE_STEPS, True)
+    cap = (SMEM_LIMIT - sweep_smem_bytes(spec, 0, False, False, 0)) // chain
+    need = -(-max(B, 1) // n_sm)  # chains an SM runs in one wave
+    chains = -(-need // -(-need // cap))  # a block's share of whole waves
+    if lanes is None:
+        blocks = -(-stab_width(spec) // 4)
+        lanes = 32
+        while lanes > least and (lanes >= 2 * blocks or -(-chains * lanes // 32)
+                                 > WIDE_WARPS_PER_SM):
+            lanes //= 2
+    warps = max(1, min(WIDE_MAX_THREADS // 32, -(-chains * lanes // 32)))
+    while warps > 1 and _block_bytes(spec, record, lanes, warps)[-1] > SMEM_LIMIT:
+        warps -= 1
+    return lanes, warps
+
+
+def sweep_plan(spec: CodeSpec, record: bool, lanes: int,
+               warps: int | None = None) -> SweepPlan:
     """The launch of the sweep kernel for ``spec`` at ``lanes`` lanes per
-    chain (``lanes_per_chain``, at least ``least_lanes``): 32 / L chains per
-    warp, SWEEP_THREADS threads per block.  In a register instantiation a
-    warp's shared memory holds its rows of u8 state (at the start and the
-    end) and, while recording, its chains' tiles of TILE_STEPS steps; in
-    the large variant it holds its chains' planes and tiles.  The tables go
-    to shared memory when MIN_BLOCKS_PER_SM blocks still fit on an SM
-    beside them (toric d <= 13), else the kernel reads them from device
-    memory."""
+    chain (at least ``least_lanes``) and ``warps`` warps a block: 32 / L
+    chains per warp.  A register instantiation takes SWEEP_THREADS threads
+    a block (``lanes_per_chain``); its warp's shared memory holds its rows
+    of u8 state (at the start and the end) and, while recording, its
+    chains' tiles of TILE_STEPS steps, and its tables go to shared memory
+    when MIN_BLOCKS_PER_SM blocks still fit on an SM beside them (toric d
+    <= 13), else the kernel reads them from device memory.  The large
+    variant takes 1 to WIDE_MAX_THREADS // 32 warps (``wide_block``; one
+    by default); its warp's shared memory holds its chains' slots and
+    tiles, and the qubit table and then the multipliers go to shared
+    memory where the block leaves room for them."""
     L = lanes
     if L & (L - 1) or not 1 <= L <= 32:
         raise ValueError(f"lanes={L}: expected a power of two up to 32")
     if not _instantiated(spec):
         raise _refusal(spec)
-    region, in_smem, mults, smem = _block_bytes(spec, record, L)
+    wide = is_wide(spec)
+    if warps is None:
+        warps = 1 if wide else SWEEP_THREADS // 32
+    most = WIDE_MAX_THREADS // 32 if wide else SWEEP_THREADS // 32
+    if not (1 <= warps <= most and (wide or warps == most)):
+        form = "large variant takes 1 to" if wide else "register form takes"
+        raise ValueError(f"warps={warps}: the {form} {most} warps a block")
+    region, in_smem, mults, smem = _block_bytes(spec, record, L, warps)
     if smem > SMEM_LIMIT:
         raise ValueError(f"a block of the sweep kernel needs {smem} B of shared "
-                         f"memory ({spec.nq} qubits, {L} lanes per chain)")
-    return SweepPlan(L, 32 // L, SWEEP_THREADS // L, TILE_STEPS, region,
-                     in_smem, smem, mults)
+                         f"memory ({spec.nq} qubits, {L} lanes per chain, "
+                         f"{warps} warps)")
+    return SweepPlan(L, 32 // L, 32 * warps // L, 32 * warps, TILE_STEPS,
+                     region, in_smem, smem, mults)
 
 
 class _Params(ctypes.Structure):
@@ -374,7 +433,7 @@ class _Params(ctypes.Structure):
         "equal_betas", "record", "lanes", "chains_per_block", "tile_steps",
         "region_bytes", "tab_in_smem", "smem",
     )] + [(n, ctypes.c_uint32) for n in ("key0", "key1")] + [
-        (n, ctypes.c_int32) for n in ("beta_stride", "mults_in_smem")]
+        (n, ctypes.c_int32) for n in ("beta_stride", "mults_in_smem", "threads")]
 
 
 class _Buffers(ctypes.Structure):
@@ -382,7 +441,7 @@ class _Buffers(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "state_in", "state_out", "betas", "tab", "meta", "mults", "seeds",
-        "keys", "counts",
+        "keys", "counts", "qtab",
     )]
 
 
@@ -401,17 +460,18 @@ def _library():
 
 
 @functools.lru_cache(maxsize=None)
-def _static_fields(spec: CodeSpec, record: bool, lanes: int):
-    """(SweepPlan, the ``_Params`` fields fixed by the code, the mode and
-    the lanes), worked out once for each."""
+def _static_fields(spec: CodeSpec, record: bool, lanes: int, warps: int):
+    """(SweepPlan, the ``_Params`` fields fixed by the code, the mode, the
+    lanes and the warps), worked out once for each."""
     offs = kernel_tables(spec)[2]
-    plan = sweep_plan(spec, record, lanes)
+    plan = sweep_plan(spec, record, lanes, warps)
     return plan, dict(
         nq=spec.nq, nw=offs["nw"], span=offs["span"], n_colors=offs["n_colors"],
         n_stabs=spec.n_stabs, record=int(record), lanes=plan.lanes,
         chains_per_block=plan.chains_per_block, tile_steps=plan.tile_steps,
         region_bytes=plan.region_bytes, tab_in_smem=int(plan.tab_in_smem),
         smem=plan.smem, mults_in_smem=int(plan.mults_in_smem),
+        threads=plan.threads,
     )
 
 
@@ -419,11 +479,17 @@ def _plan_params(spec: CodeSpec, B: int, steps: int, iters: int,
                  equal_betas: bool, record: bool, n_sm: int, seed: int = 0,
                  per_chain: bool = False):
     """(SweepPlan, ``_Params``) of a launch on a card with ``n_sm`` SMs;
-    ``per_chain`` betas are a (B, 3) row per chain."""
+    ``per_chain`` betas are a (B, 3) row per chain.  A register
+    instantiation takes ``lanes_per_chain`` (at least ``least_lanes``) and
+    SWEEP_THREADS threads, the large variant ``wide_block``."""
     _require_kernel(spec, record)
-    lanes = max(lanes_per_chain(kernel_tables(spec)[2], B, n_sm),
-                least_lanes(spec, record))
-    plan, fields = _static_fields(spec, record, lanes)
+    if is_wide(spec):
+        lanes, warps = wide_block(spec, record, B, n_sm)
+    else:
+        lanes = max(lanes_per_chain(kernel_tables(spec)[2], B, n_sm),
+                    least_lanes(spec, record))
+        warps = SWEEP_THREADS // 32
+    plan, fields = _static_fields(spec, record, lanes, warps)
     return plan, _Params(B=B, steps=steps, iters=iters,
                          equal_betas=int(equal_betas), key0=int(seed) & MASK32,
                          key1=(int(seed) >> 32) & MASK32,
@@ -446,18 +512,18 @@ def launch_plan(spec: CodeSpec, B: int, record: bool, equal_betas: bool,
 
 @functools.lru_cache(maxsize=None)
 def _host_tables(spec: CodeSpec):
-    """(spanned-word table (n_stabs * span * 3,) int64, meta: color starts
-    then the narrow spanned-word entries and, in the large variant, the
-    wide ones (int32), hash multipliers (nq, 2) int32 bit patterns) the
-    kernel reads."""
+    """(spanned-word table (n_stabs * span * 3,) int64 or None, meta (int32),
+    hash multipliers (nq, 2) int32 bit patterns, qubit table (n_stabs,)
+    int64 or None) the kernel reads: a register instantiation the
+    spanned-word table and a meta of color starts and narrow spanned-word
+    entries; the large variant the qubit table and the color starts."""
     tab, meta, offs = kernel_tables(spec)
     n_c, m = offs["n_colors"], offs["m_span"]
-    parts = [meta[: n_c + 1], meta[m: m + spec.n_stabs]]
-    if offs["m_wide"] is not None:
-        parts.append(meta[offs["m_wide"]: offs["m_wide"] + spec.n_stabs])
-    meta_k = np.concatenate(parts)
     mults = np.ascontiguousarray(make_hash_mults(spec).T).view(np.int32)
-    return tab[offs["off_span"]:], meta_k, mults
+    if is_wide(spec):
+        return None, meta[: n_c + 1], mults, qubit_table(spec)
+    meta_k = np.concatenate([meta[: n_c + 1], meta[m: m + spec.n_stabs]])
+    return tab[offs["off_span"]:], meta_k, mults, None
 
 
 def _launch(spec: CodeSpec, states: torch.Tensor, betas, *, steps: int,
@@ -479,10 +545,11 @@ def _launch(spec: CodeSpec, states: torch.Tensor, betas, *, steps: int,
     per_chain = betas_d.dim() == 2
     _check(betas_d, "betas", (B, 3) if per_chain else (3,), torch.float32,
            device)
-    if device not in device_tables:
+    if device not in device_tables:  # uploaded once a device
         device_tables[device] = tuple(
-            torch.as_tensor(a, device=device) for a in _host_tables(spec))
-    tab, meta, mults = device_tables[device]
+            None if a is None else torch.as_tensor(a, device=device)
+            for a in _host_tables(spec))
+    tab, meta, mults, qtab = device_tables[device]
     out = torch.empty_like(states)
     keys = counts = seeds_d = None
     if record:
@@ -496,7 +563,8 @@ def _launch(spec: CodeSpec, states: torch.Tensor, betas, *, steps: int,
     plan, P = _plan_params(spec, B, steps, iters, equal_betas, record,
                            _sm_count(device), seed, per_chain)
     bufs = _Buffers(*(t.data_ptr() if t is not None else None for t in (
-        states, out, betas_d, tab, meta, mults, seeds_d, keys, counts)))
+        states, out, betas_d, tab, meta, mults, seeds_d, keys, counts,
+        qtab)))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _library().mqt_sweep(ctypes.byref(P), ctypes.byref(bufs), stream)

@@ -25,9 +25,13 @@ with the state, and the Y count before and after), on one 32-bit word for
 a support of up to 16 qubits (``popc_per_sweep``).  Both forms of both
 kernels are held to that count, whatever they issue: the register forms
 popcount 64-bit words of the planes, two POPC each.  The recording
-sampler adds three 64-bit popcounts per word of the plane and step for
-the counts and two multiplies per qubit and step for the hash
-(``sampler_work``).
+sampler's keys and counts can be kept up to date flip by flip (pack_key
+is a wraparound sum and the counts are integers, as K1's large variant
+keeps them), so the fewest the function needs is one pass over the
+qubits a launch: three 64-bit popcounts per word of the plane for the
+counts and two multiplies per qubit for the hash, per chain.  The
+updates per accepted flip depend on the data and, like the logf, are not
+counted; both forms of K1 are held to that count (``sampler_work``).
 """
 
 from __future__ import annotations
@@ -88,14 +92,15 @@ def sampler_work(spec: CodeSpec, R: int, steps: int, iters: int,
                  equal_betas: bool) -> Tuple[int, int, int]:
     """(32-bit popcounts, Philox blocks, other 32-bit multiplies) of the
     recording sampler over ``R`` chains and ``steps`` steps of ``iters``
-    sweeps: the sweeps' popcounts and blocks, three 64-bit popcounts per
-    word of the plane and step for the counts, two multiplies per qubit and
-    step for the hash."""
+    sweeps: the sweeps' popcounts and blocks, and once per chain and
+    launch three 64-bit popcounts per word of the plane for the counts and
+    two multiplies per qubit for the hash (the records after that follow
+    the accepted flips, which are not counted)."""
     nw = kernel_words(spec.nq)
-    popc = R * steps * (iters * popc_per_sweep(spec, equal_betas)
-                        + 3 * POPC_PER_64BIT * nw)
+    popc = R * (steps * iters * popc_per_sweep(spec, equal_betas)
+                + 3 * POPC_PER_64BIT * nw)
     blocks = R * steps * iters * philox_blocks_per_sweep(spec)
-    return popc, blocks, R * steps * 2 * spec.nq
+    return popc, blocks, R * 2 * spec.nq
 
 
 def sampler_bound(spec: CodeSpec, R: int, steps: int, iters: int,

@@ -6,14 +6,16 @@ through what the CPU can reach of it.
     ``_pack_span``/``unpack_span``) round-trip and list exactly the words
     each stabilizer's support spans, computed from the spec, at toric
     d=23, 33 and 45, planar d=23, rotated and XZZX d=33 and 63.
-(b) A numpy emulation of the large variant on u64 planes, through the
-    packed tables only (unpack by 32-qubit ballots, each color decided on
-    the planes before it, then the accepted ops XORed in, pack), equals
-    ``sweep_reference`` bit for bit on the same Philox draws
-    (``_draw_words``) at toric d=23 and rotated d=33, equal and general
-    betas, a shared row and a row per chain; its recording step (three
-    unpacked counts, the hash over the lanes' shares) equals
-    ``count_errors_xyz`` and ``pack_key``.
+(b) A numpy emulation of the large variant, lane by lane, through the
+    qubit table only (unpack by 32-qubit ballots into slots of 2 bits a
+    qubit; per color each lane's Philox blocks, the next block's states
+    loaded before the current block is decided, then its accepted flips
+    applied; the recording kept up to date flip by flip in the lanes'
+    shares; pack), equals ``sweep_reference`` and ``sample_reference`` bit
+    for bit on the same Philox draws (``_draw_words``) at 1, 2, 8 and 32
+    lanes: toric d=23 and rotated d=33, equal and general betas, a shared
+    row and a row per chain; toric d=45 with counts past 1023; a step that
+    accepts no flip; and zero betas, where every proposal accepts.
 (c) ``sweep_reference`` with injected uniforms equals
     ``make_pallas_sweep(..., interpret=True)`` bit for bit at toric d=23
     and rotated d=33 in both branches, and the port's ``make_dense_sweep``
@@ -26,8 +28,10 @@ through what the CPU can reach of it.
     syndrome.
 (e) ``sweep_kernel_fits`` is exactly where ``sweep_plan`` finds a launch,
     for every family up to the limit (256 words per plane) and past it;
-    above it ``_launch`` raises before any work, and a failing build or
-    launch raises without running the plain version.
+    the large variant's launch (``wide_block``) stays within 1024 threads
+    and 227 KB a block and spreads the batch over the SMs in whole waves;
+    above the limit ``_launch`` raises before any work, and a failing build
+    or launch raises without running the plain version.
 """
 
 import contextlib
@@ -144,9 +148,43 @@ def _popc(a):
     return np.bitwise_count(a).astype(np.int64)
 
 
+def _spread16(x):
+    """csrc/sweep.cuh::spread16: bit i of the low 16 bits to bit 2i."""
+    x = x.astype(np.uint32) & np.uint32(0xFFFF)
+    for sh, m in ((8, 0x00FF00FF), (4, 0x0F0F0F0F), (2, 0x33333333), (1, 0x55555555)):
+        x = (x | (x << np.uint32(sh))) & np.uint32(m)
+    return x
+
+
+def _unpack_slots(spec, states):
+    """The kernel's unpack into slots of 2 bits a qubit: per 32-qubit chunk
+    k, the ballots of the X and Z bits spread into slot words 2k and 2k +
+    1 (16 qubits each; 4 nw words a chain)."""
+    nw = lw.kernel_words(spec.nq)
+    v = np.zeros((states.shape[0], 64 * nw), np.uint32)
+    v[:, : spec.nq] = states & 3
+    shifts = np.arange(32, dtype=np.uint32)
+    xb, zb = ((bit.reshape(len(v), 2 * nw, 32) << shifts).sum(-1, dtype=np.uint32)
+              for bit in ((v ^ (v >> 1)) & 1, (v >> 1) & 1))
+    W = np.zeros((len(v), 4 * nw), np.uint32)
+    for h in range(2):
+        W[:, h::2] = _spread16(xb >> np.uint32(16 * h)) | (
+            _spread16(zb >> np.uint32(16 * h)) << np.uint32(1))
+    return W
+
+
+def _pack_slots(spec, W):
+    """The kernel's pack: qubit q's 2 bits s = x | z << 1 give x ^ 3z."""
+    q = np.arange(spec.nq)
+    s = (W[:, q >> 4] >> (2 * (q & 15)).astype(np.uint32)) & np.uint32(3)
+    return ((s & 1) ^ ((s >> 1) * 3)).astype(np.uint8)
+
+
 def _unpack(spec, states):
-    """The kernel's unpack: per 32-qubit chunk k, the ballots of the X and Z
-    bits are the 32-bit halves 2w, 2w + 1 of plane word w."""
+    """Bit planes of u64 words: per 32-qubit chunk k, the ballots of the X
+    and Z bits are the 32-bit halves 2w, 2w + 1 of plane word w (the
+    window kernel's model, tests/test_torch_window_above_1024.py, reads its
+    slots from them)."""
     nw = lw.kernel_words(spec.nq)
     v = np.zeros((states.shape[0], 64 * nw), np.uint32)
     v[:, : spec.nq] = states
@@ -166,57 +204,183 @@ def _pack(spec, X, Z):
     return (x ^ (np.uint64(3) * z)).astype(np.uint8)
 
 
-def _emulate_wide(spec, states, seed, betas, n_sweeps, equal_betas):
-    """``n_sweeps`` sweeps of the large variant on u64 planes, read through
-    the kernel's tables only: per color, every stabilizer decided on the
-    planes before the color, with proposal_logr's f32 arithmetic, then the
-    accepted ops XORed in (the atomicXor of the kernel)."""
-    tab, meta, offs = lw.kernel_tables(spec)
-    n, S, n_colors = spec.n_stabs, offs["span"], offs["n_colors"]
-    ent = tab[offs["off_span"]:].view(np.uint64).reshape(n, S, 3)
-    heads = meta[offs["m_span"]: offs["m_span"] + n].astype(np.int64)
-    wides = meta[offs["m_wide"]:].view(np.uint32).astype(np.int64)
-    words = (wides[:, None] >> (8 * np.arange(S))) & 255  # (n, S)
-    cx, cz = (heads >> 4) & 15, (heads >> 8) & 15
-    starts = meta[: n_colors + 1]
-    B = len(states)
-    b = np.asarray(betas, np.float32).reshape(-1, 3)
-    bx, by, bz = (b[:, i:i + 1] for i in range(3))  # (1 or B, 1) columns
+def _pauli(s):
+    """csrc/sweep.cu::pauli_of: the Pauli values of packed 2-bit states."""
+    return s ^ ((s >> np.uint32(1)) & np.uint32(0x55555555))
+
+
+def _xyz_packed(s):
+    """csrc/sweep.cu::xyz_packed: X-only, Y and Z-only 2-bit fields of s,
+    21 bits apart in a u64."""
+    x, z = s & 0x55555555, (s >> 1) & 0x55555555
+    return (_popc(x & ~z) | (_popc(x & z) << 21) | (_popc(z & ~x) << 42)).astype(np.uint64)
+
+
+def _entry_logr(s, o, bx, by, bz, equal_betas):
+    """csrc/sweep.cuh::entry_logr on (B,) states of one entry's qubits
+    (packed 2 bits a qubit) under its ops, in f32 as the kernel rounds."""
+    ns = s ^ o
+    if equal_betas:
+        d0 = _popc((ns | (ns >> 1)) & 0x55) - _popc((s | (s >> 1)) & 0x55)
+        return -(bx * d0.astype(np.float32))
+    tx, tz = _popc(s & o & 0x55), _popc(s & o & 0xAA)
+    d0 = _popc(ns & (ns >> 1) & 0x55) - _popc(s & (s >> 1) & 0x55)
+    d1 = ((_popc(np.uint32(o) & 0x55) - 2 * tx) - d0).astype(np.float32)
+    d3 = ((_popc(np.uint32(o) & 0xAA) - 2 * tz) - d0).astype(np.float32)
+    return -((bx * d1 + by * d0.astype(np.float32)) + bz * d3)
+
+
+class _Emulated:
+    """csrc/sweep.cu::sweep_kernel_wide in numpy, lane by lane, through the
+    qubit table and the color starts only: chains in 2-bit slots; per
+    color, lane l takes Philox blocks g = l, l + L, ...; per block it loads
+    the next block's states (load_block) before it decides the current
+    one's four stabilizers on the states it loaded (entry_logr against the
+    draws' log-uniforms), then flips the accepted ones and, recording,
+    adds m_q * (v_new - v_old) and the count changes to its share.  A
+    step's record is the wraparound sum of the chain's L shares."""
+
+    def __init__(self, spec, states, betas, equal_betas, lanes):
+        self.spec, self.eq, self.L = spec, equal_betas, lanes
+        self.qt = lw.qubit_table(spec).view(np.uint64)
+        tab, meta, offs = lw.kernel_tables(spec)
+        self.starts = [int(v) for v in meta[: offs["n_colors"] + 1]]
+        self.W = _unpack_slots(spec, states)
+        B = len(states)
+        b = np.asarray(betas, np.float32).reshape(-1, 3)
+        self.bx, self.by, self.bz = (b[:, i] for i in range(3))  # (1 or B,)
+        self.m = make_hash_mults(spec)
+        # the unpack's sums are the share of each chain's lane 0
+        v = states.astype(np.uint32) & 3
+        self.h = np.zeros((lanes, 2, B), np.uint32)
+        self.h[0] = (v[None] * self.m[:, None, :]).sum(-1, dtype=np.uint32)
+        self.cnt = np.zeros((lanes, B), np.uint64)
+        self.cnt[0] = (((v == 1).sum(1) | ((v == 2).sum(1) << 21)
+                        | ((v == 3).sum(1) << 42))).astype(np.uint64)
+        self.flips = 0  # accepted proposals that flip qubits, in all chains
+
+    def _load_block(self, c0, n, g):
+        st = np.zeros(len(self.W), np.uint32)
+        ops = 0
+        for e in range(4):
+            if 4 * g + e >= n:
+                continue  # an empty entry: no ops
+            ent = int(self.qt[c0 + 4 * g + e])
+            for k in range(4):
+                q = (ent >> (14 * k)) & 0x3FFF
+                s = (self.W[:, q >> 4] >> np.uint32(2 * (q & 15))) & np.uint32(3)
+                st |= s << np.uint32(2 * k + 8 * e)
+            ops |= (ent >> 56) << (8 * e)
+        return st, ops
+
+    def sweep(self, lu, t):
+        """Sweep ``t`` on the log-uniforms ``lu`` (B, n_colors, 4 * blocks)."""
+        rows = np.arange(len(self.W))
+        for c in range(len(self.starts) - 1):
+            c0, n = self.starts[c], self.starts[c + 1] - self.starts[c]
+            nb = -(-n // 4)
+            for l in range(self.L):
+                if l >= nb:
+                    continue
+                st, ops = self._load_block(c0, n, l)
+                for g in range(l, nb, self.L):
+                    st_n, ops_n = self._load_block(c0, n if g + self.L < nb else 0, g + self.L)
+                    flipped = np.zeros(len(rows), np.uint32)
+                    for e in range(4):
+                        o = (ops >> (8 * e)) & 255
+                        s = (st >> np.uint32(8 * e)) & np.uint32(255)
+                        with np.errstate(invalid="ignore"):  # inf * 0: NaN rejects
+                            logr = _entry_logr(s, np.uint32(o), self.bx, self.by,
+                                               self.bz, self.eq)
+                        assert logr.dtype == np.float32
+                        acc = (logr >= 0) | (lu[:, c, 4 * g + e] < logr)
+                        if not o or not acc.any():
+                            continue
+                        self.flips += int(acc.sum())
+                        ent = int(self.qt[c0 + 4 * g + e])
+                        v0, v1 = _pauli(s), _pauli(s ^ np.uint32(o))
+                        for k in range(4):  # a missing qubit: op 0 on qubit 0
+                            ok = (o >> (2 * k)) & 3
+                            q = (ent >> (14 * k)) & 0x3FFF
+                            bit = np.where(acc, np.uint32(ok << (2 * (q & 15))), np.uint32(0))
+                            self.W[:, q >> 4] ^= bit
+                            dv = ((v1 >> np.uint32(2 * k)) & np.uint32(3)) - (
+                                (v0 >> np.uint32(2 * k)) & np.uint32(3))
+                            self.h[l] += self.m[:, q, None] * np.where(acc, dv, np.uint32(0))
+                        flipped |= np.where(acc, np.uint32(o << (8 * e)), np.uint32(0))
+                    self.cnt[l] += _xyz_packed(st ^ flipped) - _xyz_packed(st)
+                    st, ops = st_n, ops_n
+
+    def record(self):
+        """(keys (B, 2), counts (B, 3)): the sums of the lanes' shares."""
+        h = self.h.sum(0, dtype=np.uint32)
+        cnt = self.cnt.sum(0, dtype=np.uint64)
+        counts = np.stack([(cnt >> np.uint64(21 * i)) & np.uint64((1 << 21) - 1)
+                           for i in range(3)], 1)
+        return h.T.astype(np.int64), counts.astype(np.int64)
+
+
+def _log_uniforms(spec, seed, n_sweeps, B):
+    """The draws' logarithms as the plain version forms them (torch.log):
+    (n_sweeps, B, n_colors, 4 * blocks)."""
+    n_colors = len(spec.color_stabs)
     n_blocks = -(-sw.stab_width(spec) // 4)
     bits = lw._draw_words(seed & MASK32, (seed >> 32) & MASK32, 0, n_sweeps, B,
                           0, n_colors, n_blocks, None, "cpu") >> 8
-    # the uniforms' logarithms as the plain version forms them (torch.log)
-    lu = torch.log(bits.to(torch.float32) * torch.tensor(2.0 ** -24)
-                   + torch.tensor(1e-12)).numpy()
-    X, Z = _unpack(spec, states)
-    rows = np.arange(B)[:, None, None]
+    return torch.log(bits.to(torch.float32) * torch.tensor(2.0 ** -24)
+                     + torch.tensor(1e-12)).numpy()
+
+
+def _emulate_wide(spec, states, seed, betas, n_sweeps, equal_betas, lanes=1):
+    """``n_sweeps`` sweeps of the large variant (``_Emulated``) under one
+    seed; returns the emulation after them."""
+    em = _Emulated(spec, states, betas, equal_betas, lanes)
+    lu = _log_uniforms(spec, seed, n_sweeps, len(states))
     for t in range(n_sweeps):
-        for c in range(n_colors):
-            c0, c1 = int(starts[c]), int(starts[c + 1])
-            W = words[c0:c1]  # (m, S)
-            su, xm, zm = (ent[c0:c1, :, i] for i in range(3))
-            x, z = X[:, W], Z[:, W]  # (B, m, S)
-            if equal_betas:
-                d0 = (_popc(((x ^ xm) | (z ^ zm)) & su) - _popc((x | z) & su)).sum(-1)
-                logr = -(bx * d0.astype(np.float32))
-            else:
-                tx, tz = _popc(x & xm).sum(-1), _popc(z & zm).sum(-1)
-                d0 = (_popc((x ^ xm) & (z ^ zm) & su) - _popc(x & z & su)).sum(-1)
-                d1 = ((cx[c0:c1] - 2 * tx) - d0).astype(np.float32)
-                d3 = ((cz[c0:c1] - 2 * tz) - d0).astype(np.float32)
-                logr = -((bx * d1 + by * d0.astype(np.float32)) + bz * d3)
-            assert logr.dtype == np.float32
-            acc = (logr >= 0) | (lu[t, :, c, : c1 - c0] < logr)  # (B, m)
-            keep = np.where(acc[..., None], np.uint64(0xFFFFFFFFFFFFFFFF), np.uint64(0))
-            idx = (np.broadcast_to(rows, x.shape), np.broadcast_to(W, x.shape))
-            np.bitwise_xor.at(X, idx, xm & keep)
-            np.bitwise_xor.at(Z, idx, zm & keep)
-    return X, Z
+        em.sweep(lu[t], t)
+    return em
 
 
+def _emulate_sampler(spec, states, seeds, betas, iters, equal_betas, lanes):
+    """The large variant's recording launch: per seed ``iters`` sweeps, then
+    the record.  Returns (emulation, keys (B, steps, 2), counts (B, steps,
+    3), accepted flips per step)."""
+    em = _Emulated(spec, states, betas, equal_betas, lanes)
+    keys, counts, flips = [], [], []
+    for seed in seeds:
+        before = em.flips
+        lu = _log_uniforms(spec, int(seed), iters, len(states))
+        for t in range(iters):
+            em.sweep(lu[t], t)
+        k, c = em.record()
+        keys.append(k)
+        counts.append(c)
+        flips.append(em.flips - before)
+    return em, np.stack(keys, 1), np.stack(counts, 1), flips
+
+
+def test_unpack_pack_round_trip_through_the_slots():
+    spec = get_spec("toric", 23)
+    states = _states(spec, 5, seed=2, p=0.7)
+    W = _unpack_slots(spec, states)
+    assert W.shape == (5, 4 * 17)
+    q = np.arange(spec.nq)
+    direct = (((states ^ (states >> 1)) & 1) | (states & 2)).astype(np.uint32)
+    np.testing.assert_array_equal((W[:, q >> 4] >> (2 * (q & 15)).astype(np.uint32)) & 3,
+                                  direct)
+    assert not W[:, -(-spec.nq // 16):].any()  # nothing past nq
+    np.testing.assert_array_equal(_pack_slots(spec, W), states)
+    # slot word j spreads the 16 X and Z bits of bit-plane chunk j
+    X, Z = _unpack(spec, states)
+    np.testing.assert_array_equal(_pack(spec, X, Z), states)
+    x16, z16 = (np.ascontiguousarray(P).view(np.uint16).astype(np.uint32) for P in (X, Z))
+    np.testing.assert_array_equal(W, _spread16(x16) | (_spread16(z16) << np.uint32(1)))
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 8, 32])
 @pytest.mark.parametrize("betas", ["equal", "general", "per-chain"])
 @pytest.mark.parametrize("family,d", EMULATED, ids=[f"{f}-{d}" for f, d in EMULATED])
-def test_emulated_large_variant_equals_the_plain_sweep(family, d, betas):
+def test_emulated_large_variant_equals_the_plain_sweep(family, d, betas, lanes):
     spec = get_spec(family, d)
     B, n_sweeps, seed = 6, 2, (5 << 32) | 0x1234567
     states = _states(spec, B, seed=d, p=0.2)
@@ -225,42 +389,69 @@ def test_emulated_large_variant_equals_the_plain_sweep(family, d, betas):
            else betas_xyz(0.05, 0.02, 0.1).astype(np.float32))
     if betas == "per-chain":
         row = np.random.RandomState(d).uniform(0.2, 3.0, (B, 3)).astype(np.float32)
-    X, Z = _emulate_wide(spec, states, seed, row, n_sweeps, eq)
+    em = _emulate_wide(spec, states, seed, row, n_sweeps, eq, lanes)
     ours = sw.sweep_reference(spec, torch.as_tensor(states), seed,
                               torch.as_tensor(row), n_sweeps, eq).numpy()
-    np.testing.assert_array_equal(_pack(spec, X, Z), ours)
+    np.testing.assert_array_equal(_pack_slots(spec, em.W), ours)
     assert not np.array_equal(ours, states), "the chains never moved"
     assert (np_syndrome(spec, ours) == np_syndrome(spec, states)).all()
 
 
-@pytest.mark.parametrize("lanes", [1, 2, 8])
+def _compare_sampler(spec, states, seeds, row, iters, eq, lanes):
+    em, keys, counts, flips = _emulate_sampler(spec, states, seeds, row, iters,
+                                               eq, lanes)
+    out, k, c = sw.sample_reference(spec, torch.as_tensor(states),
+                                    torch.as_tensor(seeds), torch.as_tensor(row),
+                                    iters, eq)
+    np.testing.assert_array_equal(_pack_slots(spec, em.W), out.numpy())
+    np.testing.assert_array_equal(keys, k.numpy())
+    np.testing.assert_array_equal(counts, c.numpy())
+    return counts, flips
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 8, 32])
 def test_emulated_recording_step_equals_pack_key_and_counts(lanes):
-    """csrc/sweep.cu::record_step_wide: lane l popcounts the words w = l,
-    l + L, ... into three 32-bit counts and hashes the qubits 64w + k with k
-    = l, l + L, ... in wraparound u32; the add butterfly sums the lanes."""
+    """csrc/sweep.cu::sweep_kernel_wide's recording: the unpack's hashes and
+    counts, kept up to date flip by flip in the lanes' shares (wraparound
+    u32 hashes, counts 21 bits apart in a u64), summed at each step, equal
+    ``pack_key`` and ``count_errors_xyz`` after every step of
+    ``sample_reference``, including counts past the register form's 10-bit
+    fields."""
     spec = get_spec("toric", 45)
-    states = _states(spec, 4, seed=3, p=0.9)
+    states = _states(spec, 3, seed=3, p=0.9)
     states[0] = 3 * spec.valid_mask  # every qubit Z: a count of 4050
-    X, Z = _unpack(spec, states)
-    nw, nq, L = X.shape[1], spec.nq, lanes
-    m = make_hash_mults(spec)
-    h, cnt = np.zeros((2, 4), np.uint32), np.zeros((3, 4), np.int64)
-    for lane in range(L):
-        for w in range(lane, nw, L):
-            x, z = X[:, w], Z[:, w]
-            cnt += [_popc(x & ~z), _popc(x & z), _popc(~x & z)]
-        for w in range(nw):
-            k = np.arange(lane, min(64, nq - 64 * w), L)
-            a, z = X[:, w] ^ Z[:, w], Z[:, w]
-            v = (((a[:, None] >> k.astype(np.uint64)) & np.uint64(1))
-                 + np.uint64(2) * ((z[:, None] >> k.astype(np.uint64)) & np.uint64(1)))
-            for i in range(2):
-                h[i] += (m[i, 64 * w + k] * v.astype(np.uint32)).sum(-1, dtype=np.uint32)
-    t = torch.as_tensor(states)
-    np.testing.assert_array_equal(cnt.T, count_errors_xyz(t).numpy())
-    np.testing.assert_array_equal(h.T.astype(np.int64), pack_key(spec, t, m).numpy())
-    assert cnt[2, 0] == nq > 1023  # past the register path's 10-bit fields
-    np.testing.assert_array_equal(_pack(spec, X, Z), states)
+    seeds = np.asarray([(7 << 32) | 5, 2**31 - 1], np.int64)
+    row = np.asarray([2.0, 2.0, 0.0], np.float32)  # Z errors cost nothing
+    counts, flips = _compare_sampler(spec, states, seeds, row, 1, False, lanes)
+    assert (counts[0, :, 2] > 1023).all()
+    assert min(flips) > 0
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_emulated_recording_keeps_a_step_without_flips(lanes):
+    """At infinite equal betas only flips that lower the error count accept
+    (no change gives NaN, which rejects): the chains settle, and a step
+    that accepts nothing records the key and counts of the step before."""
+    spec = get_spec("toric", 23)
+    states = _states(spec, 4, seed=8, p=0.3)
+    seeds = np.arange(100, 106, dtype=np.int64)
+    row = np.full(3, np.inf, np.float32)
+    counts, flips = _compare_sampler(spec, states, seeds, row, 1, True, lanes)
+    assert flips[0] > 0 and 0 in flips
+    s = flips.index(0)
+    assert s > 0 and (counts[:, s] == counts[:, s - 1]).all()
+
+
+@pytest.mark.parametrize("lanes", [2, 32])
+def test_emulated_recording_at_zero_betas_accepts_every_proposal(lanes):
+    """At zero betas logr is 0 for every proposal, which accepts: every
+    stabilizer flips in every sweep, and the records still follow."""
+    spec = get_spec("rotated", 33)
+    states = _states(spec, 3, seed=9, p=0.2)
+    seeds = np.asarray([3, 4], np.int64)
+    row = np.zeros(3, np.float32)
+    _, flips = _compare_sampler(spec, states, seeds, row, 2, False, lanes)
+    assert flips == [2 * 3 * spec.n_stabs] * 2
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +575,66 @@ def test_predicate_is_where_sweep_plan_finds_a_launch(family):
             if fits:  # every lane count from the fewest up
                 least = sw.least_lanes(spec, record)
                 assert launches == [L for L in (1, 2, 4, 8, 16, 32) if L >= least]
+
+
+BATCHES = (1, 37, 5888, 16384, 40960)
+N_SM = 132  # an H100 SXM's SMs
+
+
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("family", sorted(LARGEST))
+def test_large_variant_plan_fills_the_card_in_whole_waves(family, record):
+    """``wide_block`` and ``sweep_plan`` at the largest code of each family
+    and at toric d=25 and d=45: at most 1024 threads and 227 KB a block, at
+    least ``least_lanes``, every chain in a block, and the batch over the
+    SMs in as few whole waves as shared memory allows (a wave: one block
+    an SM, as many chains as a block's shared memory holds)."""
+    for spec in (get_spec(family, LARGEST[family]), get_spec("toric", 25),
+                 get_spec("toric", 45)):
+        least = sw.least_lanes(spec, record)
+        chain = 4 * sw.plane_words(spec) + record * sw.tile_bytes(sw.TILE_STEPS, True)
+        cap = (lw.SMEM_LIMIT - sw.sweep_smem_bytes(spec, 0, False, False, 0)) // chain
+        for B in BATCHES:
+            L, warps = sw.wide_block(spec, record, B, N_SM)
+            plan = sw.sweep_plan(spec, record, L, warps)
+            assert plan.lanes == L
+            assert plan.threads == 32 * warps <= lw.WIDE_MAX_THREADS
+            assert warps <= lw.WIDE_WARPS_PER_SM
+            assert plan.smem <= lw.SMEM_LIMIT and L >= least
+            blocks = -(-B // plan.chains_per_block)
+            assert blocks * plan.chains_per_block >= B
+            waves = -(-(-(-B // N_SM)) // cap)
+            assert blocks <= N_SM * waves, (spec.nq, B, blocks, waves)
+            if L < 32:  # twice the lanes would pass 32 warps a block
+                assert -(-plan.chains_per_block * 2 * L // 32) > lw.WIDE_WARPS_PER_SM or (
+                    2 * L >= 2 * -(-sw.stab_width(spec) // 4))
+        for L in (1, 2, 4, 8, 16, 32):  # lanes given: a launch at every count
+            if L >= least:
+                plan = sw.sweep_plan(spec, record, *sw.wide_block(
+                    spec, record, 40960, N_SM, lanes=L))
+                assert plan.lanes == L and plan.smem <= lw.SMEM_LIMIT
+
+
+def test_large_variant_plans_at_the_measured_shapes():
+    """The launches PERF.md times: one wave of 128 blocks each."""
+    want = {("toric", 25, 40960, True): (2, 20, True, True),
+            ("rotated", 45, 5120, True): (16, 20, True, True),
+            ("toric", 45, 16384, False): (8, 32, True, False),
+            ("toric", 23, 5888, True): (16, 23, True, True)}
+    for (family, d, B, record), (L, warps, tab, mults) in want.items():
+        spec = get_spec(family, d)
+        plan, P = sw._plan_params(spec, B, 40, 1, True, record, N_SM)
+        assert (plan.lanes, plan.threads // 32) == (L, warps)
+        assert (plan.tab_in_smem, plan.mults_in_smem) == (tab, mults)
+        assert -(-B // plan.chains_per_block) == 128
+        assert (P.threads, P.chains_per_block) == (plan.threads, plan.chains_per_block)
+    # a register instantiation keeps its 256 threads
+    plan, P = sw._plan_params(get_spec("toric", 5), 65536, 2, 1, True, True, N_SM)
+    assert plan.threads == P.threads == sw.SWEEP_THREADS
+    with pytest.raises(ValueError, match="warps=2"):
+        sw.sweep_plan(get_spec("toric", 5), True, 1, 2)
+    with pytest.raises(ValueError, match="warps=33"):
+        sw.sweep_plan(get_spec("toric", 25), True, 1, 33)
 
 
 def _no_library():

@@ -327,8 +327,9 @@ def test_the_card_path_refuses_codes_above_1024_qubits(monkeypatch):
 def test_the_sweep_kernel_takes_codes_above_1024_qubits(monkeypatch, record):
     """Toric d=23 (17 words per plane): the sweep kernel's CUDA branch
     passes its checks and launches the large variant (the word count and
-    its 4 spanned words a stabilizer in the params, the wide entries in
-    the meta it is handed), where the window kernel refuses."""
+    its 4 spanned words a stabilizer in the params, the qubit table and a
+    meta of color starts in the buffers it is handed, its own thread count
+    from ``wide_block``), where the window kernel refuses."""
     import mcmc_qec_tpu_torch.ops.sweep as sw
 
     spec = get_spec("toric", 23)
@@ -344,10 +345,14 @@ def test_the_sweep_kernel_takes_codes_above_1024_qubits(monkeypatch, record):
     assert sw.sweep_counts.launches == 1
     P, = fake.params
     assert (P["nw"], P["span"], P["nq"], P["record"]) == (17, 4, 1058, int(record))
-    plan = sw.sweep_plan(spec, record, P["lanes"])
+    assert (P["lanes"], P["threads"] // 32) == sw.wide_block(spec, record, 5, 132)
+    plan = sw.sweep_plan(spec, record, P["lanes"], P["threads"] // 32)
     assert P["smem"] == plan.smem <= lw.SMEM_LIMIT
-    assert P["region_bytes"] >= plan.chains_per_warp * 8 * (2 * 17 + 1)
-    _, meta, _ = tables[states.device]
-    assert len(meta) == len(spec.color_stabs) + 1 + 2 * spec.n_stabs
+    assert P["threads"] == plan.threads <= lw.WIDE_MAX_THREADS
+    # a chain's slot: 2 bits a qubit, 4 * 17 + 1 words of 32 bits
+    assert P["region_bytes"] >= plan.chains_per_warp * 4 * (4 * 17 + 1)
+    tab, meta, _, qtab = tables[states.device]
+    assert tab is None and len(meta) == len(spec.color_stabs) + 1
+    np.testing.assert_array_equal(qtab.numpy(), lw.qubit_table(spec))
     if record:
         assert [t.shape for t in out[1:]] == [(5, 3, 2), (5, 3, 3)]

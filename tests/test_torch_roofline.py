@@ -2,8 +2,9 @@
 roofline.py, counterpart of mcmc_qec_tpu/utils/roofline.py): its work
 counts at toric d=5 against counts by hand, its arithmetic against the
 rates, the wide spanned-word table's count equal to the words the spec's
-supports span, and the popcounts at two or four a stabilizer wherever
-its support spans more than one word."""
+supports span, the popcounts at two or four a stabilizer wherever its
+support spans more than one word, and the recording sampler's pass over
+the qubits counted once a launch."""
 
 import pytest
 
@@ -24,10 +25,11 @@ def test_counts_at_toric_d5_by_hand():
     assert roofline.popc_per_sweep(spec, False) == 200
     assert roofline.philox_blocks_per_sweep(spec) == 16
     # 1000 chains, 7 steps of 2 sweeps: per chain and step 2 * 100 sweep
-    # popcounts and 3 64-bit (6 32-bit) for the counts, 2 * 16 blocks,
-    # 2 * 50 multiplies
+    # popcounts and 2 * 16 blocks; once per chain 3 64-bit (6 32-bit)
+    # popcounts for the counts and 2 * 50 multiplies for the hash (the
+    # records after that follow the accepted flips)
     assert roofline.sampler_work(spec, 1000, 7, 2, True) == (
-        1000 * 7 * 206, 1000 * 7 * 32, 1000 * 7 * 100)
+        1000 * (7 * 200 + 6), 1000 * 7 * 32, 1000 * 100)
 
 
 def test_bound_ms_is_the_larger_of_bytes_and_operations():
@@ -62,3 +64,7 @@ def test_large_variant_counts_the_words_the_supports_span(family, d):
     nw = -(-spec.nq // 64)
     assert roofline.sampler_work(spec, 1, 1, 1, True)[0] == (
         2 * spec.n_stabs + 6 * nw)
+    # the pass over the qubits is once a launch, not once a step
+    assert roofline.sampler_work(spec, 1, 10, 1, True)[0] == (
+        10 * 2 * spec.n_stabs + 6 * nw)
+    assert roofline.sampler_work(spec, 3, 10, 1, True)[2] == 3 * 2 * spec.nq
