@@ -229,7 +229,7 @@ from mcmc_qec_tpu_torch.pipeline import (
     sample_errors,
 )
 from mcmc_qec_tpu_torch.pipeline.generate import error_generator
-from mcmc_qec_tpu_torch.utils import CheckpointManager, StageTimer
+from mcmc_qec_tpu_torch.utils import CheckpointManager, profiling
 import mcmc_qec_tpu_torch.utils.roofline as roofline
 from mcmc_qec_tpu_torch.utils.roofline import (
     HBM_BYTES_PER_S,
@@ -1985,12 +1985,6 @@ def phase_exact_slice_d3():
     check(not fails, "; ".join(fails))
 
 
-def _gen_module():
-    """pipeline/generate.py (the package's ``generate`` attribute is the
-    function of that name)."""
-    return sys.modules["mcmc_qec_tpu_torch.pipeline.generate"]
-
-
 def _cli_subprocess(*args):
     """``python -m mcmc_qec_tpu_torch <args>`` from the repo root; its
     standard output."""
@@ -2050,7 +2044,6 @@ def phase_pipeline(pt_main):
     errors, and the matcher's syndromes/s; (d) ``concat`` and ``evaluate``
     on those files: the counts add up and each failure count equals a
     recount from the arrays."""
-    gm = _gen_module()
     fresh = not Path(native._lib_path()).exists()
     t0 = time.perf_counter()
     native.build_library()
@@ -2103,13 +2096,17 @@ def phase_pipeline(pt_main):
         check(np.array_equal(ds.distributions,
                              res.distribution.astype(np.float32)),
               "the CLI's PTEQ distributions differ from the direct call's")
-        gm.stage_timer = StageTimer()
+        # the stages are the recorder's pipeline.* spans, recorded while a
+        # profiler (host activity only) records
+        profiling.reset()
         ladder_window_counts.reset()
-        try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
             ds_in, dt_gen = _sync_time(lambda: generate(None, cfg, m["B"],
                                                         progress=None))
-        finally:
-            stages, gm.stage_timer = gm.stage_timer.times, None
+        stages = {k.split(".", 1)[1]: v["total_ns"] * 1e-9
+                  for k, v in profiling.snapshot()["spans"].items()
+                  if k.startswith("pipeline.")}
         k2, plain = ladder_window_counts.launches, ladder_window_counts.plain_calls
         check(k2 > 0 and plain == 0, f"generate: {k2} K2 launches, {plain} "
                                      f"plain calls")
@@ -2129,7 +2126,8 @@ def phase_pipeline(pt_main):
             f"generate {m['B'] / dt_gen:.1f} syn/s ({dt_gen:.3f} s, {k2} K2 "
             f"launches, no plain call) against the direct call's "
             f"{m['B'] / dt_direct:.1f} ({dt_direct:.3f} s, {k2_direct}); host "
-            f"ms by stage: {split}; the pipeline adds {host * 1e3:.1f} ms; "
+            f"ms by stage (under a host profiler): {split}; the pipeline "
+            f"adds {host * 1e3:.1f} ms; "
             f"success {res_a.success_rate:.4f}")
         # (b) PTDC at the JAX pipeline's defaults through the CLI
         mb = PIPE_PTDC

@@ -73,6 +73,7 @@ from ..ops.ladder_window import (
 )
 from ..ops.metropolis import _log_uniform
 from ..ops.pauli import make_hash_mults, pack_key
+from ..utils import profiling
 from ..utils.checkpoint import CheckpointManager
 from ..utils.metrics import effective_sample_size
 from .convergence import EnergyHistory
@@ -398,47 +399,65 @@ def pteq_run(
     to the result, weighting each unique shortest chain by
     exp(-shortest_beta * n_eff) (decoders_biasednoise.py:163-169)."""
     device = resolve_device(device)
-    if not isinstance(init_states, torch.Tensor):
-        init_states = torch.as_tensor(np.asarray(init_states, np.uint8))
-    B = init_states.shape[0]
-    bl = np.asarray(beta_ladder)
-    Nc = bl.shape[0]
-    K = spec.n_classes
-    top_exact = bool(np.allclose(bl[-1], 0.0, atol=1e-9))
-    eq_b = bool(
-        np.array_equal(bl[:, 0], bl[:, 1])
-        and np.array_equal(bl[:, 1], bl[:, 2])
-        and np.allclose(energy_weights, (1.0, 1.0, 1.0))
-    )
-    window_fn = _get_window_fn(spec, Nc, cfg, track_shortest, top_exact, eq_b)
-
     C = cfg.energy_chunk
     if cfg.window % C != 0:
         raise ValueError(
             f"window ({cfg.window}) must be divisible by energy_chunk ({C})"
         )
-    ls = init_ladder(spec, init_states.to(device), Nc)
-    eq_count = torch.zeros((B, K), dtype=torch.int32, device=device)
-    since_burn = torch.zeros((B,), dtype=torch.int32, device=device)
-    betas = torch.as_tensor(bl, dtype=torch.float32, device=device)
-    weights = np.asarray(energy_weights, np.float32)
-    gen = torch.Generator().manual_seed(int(seed))
+    # spans of this call (utils/profiling.py; recorded under a profiler)
+    span, call = profiling.span, profiling.new_call()
+    profiling.count("pteq.decodes")
+    with span("pteq.start", call):
+        if not isinstance(init_states, torch.Tensor):
+            init_states = torch.as_tensor(np.asarray(init_states, np.uint8))
+        B = init_states.shape[0]
+        bl = np.asarray(beta_ladder)
+        Nc = bl.shape[0]
+        K = spec.n_classes
+        top_exact = bool(np.allclose(bl[-1], 0.0, atol=1e-9))
+        eq_b = bool(
+            np.array_equal(bl[:, 0], bl[:, 1])
+            and np.array_equal(bl[:, 1], bl[:, 2])
+            and np.allclose(energy_weights, (1.0, 1.0, 1.0))
+        )
+        window_fn = _get_window_fn(spec, Nc, cfg, track_shortest, top_exact,
+                                   eq_b)
+        ls = init_ladder(spec, init_states.to(device), Nc)
+        eq_count = torch.zeros((B, K), dtype=torch.int32, device=device)
+        since_burn = torch.zeros((B,), dtype=torch.int32, device=device)
+        betas = torch.as_tensor(bl, dtype=torch.float32, device=device)
+        weights = np.asarray(energy_weights, np.float32)
+        gen = torch.Generator().manual_seed(int(seed))
 
-    # host automaton state; device arrays and the per-element automaton
-    # arrays live in *row* space (the current device batch of size Br),
-    # ``rows`` maps each row to its syndrome index (-1 = padding)
-    Br = B
-    # shortest-chain tracking: the running state lives on the device; rows
-    # are flushed into these host arrays (original syndrome order) when
-    # they leave the batch or the run ends
-    sh = None
+        # host automaton state; device arrays and the per-element automaton
+        # arrays live in *row* space (the current device batch of size Br),
+        # ``rows`` maps each row to its syndrome index (-1 = padding)
+        Br = B
+        # shortest-chain tracking: the running state lives on the device;
+        # rows are flushed into these host arrays (original syndrome order)
+        # when they leave the batch or the run ends
+        sh = None
+        if track_shortest:
+            sh = init_shortest(B, K, cfg.shortest_unique_cap, device)
+            sh_val_h = np.full((B, K), np.inf)
+            sh_cnt_h = np.zeros((B, K), dtype=np.int64)
+            sh_nuq_h = np.zeros((B, K), dtype=np.int64)
+            sh_ovf_h = np.zeros((B, K), dtype=bool)
+
+        rows = np.arange(B)
+        buckets = []
+        hist = EnergyHistory(B, max_rows=cfg.cum_rows_cap)
+        burn_start = np.full(B, -1, dtype=np.int64)  # first post-burn step
+        conv_start = np.zeros(B, dtype=np.int64)  # tops0 at start of streak
+        in_streak = np.zeros(B, dtype=bool)
+        converged = np.zeros(B, dtype=bool)
+        snap_distr = np.zeros((B, K), dtype=np.float64)
+        snap_steps = np.zeros(B, dtype=np.int64)
+        snap_tops = np.zeros(B, dtype=np.int64)
+        steps_done = 0
+        n_windows = max(1, cfg.max_steps // cfg.window)
+
     if track_shortest:
-        sh = init_shortest(B, K, cfg.shortest_unique_cap, device)
-        sh_val_h = np.full((B, K), np.inf)
-        sh_cnt_h = np.zeros((B, K), dtype=np.int64)
-        sh_nuq_h = np.zeros((B, K), dtype=np.int64)
-        sh_ovf_h = np.zeros((B, K), dtype=bool)
-
         def finalize_sh(row_sel):
             """Flush the device's shortest stats of batch rows ``row_sel``
             into the host arrays."""
@@ -454,19 +473,6 @@ def pteq_run(
             sh_cnt_h[orig[ok]] = fc[ok]
             sh_nuq_h[orig[ok]] = fn_[ok]
             sh_ovf_h[orig[ok]] = fo[ok]
-
-    rows = np.arange(B)
-    buckets = []
-    hist = EnergyHistory(B, max_rows=cfg.cum_rows_cap)
-    burn_start = np.full(B, -1, dtype=np.int64)  # first post-burn step idx
-    conv_start = np.zeros(B, dtype=np.int64)  # tops0 at start of streak
-    in_streak = np.zeros(B, dtype=bool)
-    converged = np.zeros(B, dtype=bool)
-    snap_distr = np.zeros((B, K), dtype=np.float64)
-    snap_steps = np.zeros(B, dtype=np.int64)
-    snap_tops = np.zeros(B, dtype=np.int64)
-    steps_done = 0
-    n_windows = max(1, cfg.max_steps // cfg.window)
 
     def log_window(w, energies, tops_now, swap_window, W):
         """The JAX package's ``pteq_window`` record (pteq.py:610-632)."""
@@ -586,7 +592,8 @@ def pteq_run(
                             sh_nuq_h=sh_nuq_h, sh_ovf_h=sh_ovf_h)
             return tree
 
-        restored, meta = ckpt.restore_latest(snapshot_tree())
+        with span("pteq.checkpoint", call):
+            restored, meta = ckpt.restore_latest(snapshot_tree())
         if restored is not None:
             if tuple(meta.get("sig", ())) != sig:
                 raise ValueError(
@@ -621,62 +628,76 @@ def pteq_run(
                 sh_ovf_h[:] = restored["sh_ovf_h"]
             w0 = int(meta["window_idx"]) + 1
 
+    # one span a phase of each window, so that the trace's idle gaps
+    # between windows are put down to the phase that covered them;
+    # ``_get_window_fn`` and ``_fetch`` stay looked up at call time
     for w in range(w0, n_windows):
-        w_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
-        args = (ls, w_seed, betas, eq_count, since_burn, weights)
-        out = window_fn(*args, sh) if track_shortest else window_fn(*args)
+        with span("pteq.seed", call):
+            w_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
+            args = (ls, w_seed, betas, eq_count, since_burn, weights)
+        with span("pteq.dispatch", call):
+            out = window_fn(*args, sh) if track_shortest else window_fn(*args)
         ls, eq_count, since_burn = out[:3]
         if track_shortest:
             sh = out[8]
-        process_window(w, _fetch(out))
+        with span("pteq.fetch", call):
+            fetch = _fetch(out)
+        with span("pteq.automaton", call):
+            process_window(w, fetch)
+        profiling.count("pteq.windows")
         if converged.all():
             break
-        new_Br = compact_to()
-        if new_Br:
-            do_compact(new_Br)
+        with span("pteq.compact", call):
+            new_Br = compact_to()
+            if new_Br:
+                do_compact(new_Br)
         # after the automaton and compaction, so the snapshot holds the
         # post-compact rows and buckets (JAX pteq.py:760-775)
         if ckpt is not None and (w + 1 - w0) % max(cfg.ckpt_every, 1) == 0:
-            ckpt.save(w, snapshot_tree(), {"sig": sig, "window_idx": w})
+            with span("pteq.checkpoint", call):
+                ckpt.save(w, snapshot_tree(), {"sig": sig, "window_idx": w})
 
-    # unconverged elements: snapshot at the end (the reference's "hit max
-    # steps" semantics, decoders.py:84-87)
-    if not converged.all():
-        ec = eq_count.cpu().numpy()
-        sb = since_burn.cpu().numpy()
-        tops_fin = ls.tops0.cpu().numpy()
-        r_idx = np.nonzero(rows >= 0)[0]
-        orig = rows[r_idx]
-        m = ~converged[orig]
-        r_idx, orig = r_idx[m], orig[m]
-        snap_distr[orig] = ec[r_idx] / np.maximum(sb[r_idx, None], 1)
-        snap_steps[orig] = steps_done
-        snap_tops[orig] = tops_fin[r_idx]
+    with span("pteq.readout", call):
+        # unconverged elements: snapshot at the end (the reference's "hit
+        # max steps" semantics, decoders.py:84-87)
+        if not converged.all():
+            ec = eq_count.cpu().numpy()
+            sb = since_burn.cpu().numpy()
+            tops_fin = ls.tops0.cpu().numpy()
+            r_idx = np.nonzero(rows >= 0)[0]
+            orig = rows[r_idx]
+            m = ~converged[orig]
+            r_idx, orig = r_idx[m], orig[m]
+            snap_distr[orig] = ec[r_idx] / np.maximum(sb[r_idx, None], 1)
+            snap_steps[orig] = steps_done
+            snap_tops[orig] = tops_fin[r_idx]
 
-    sh_boltz = sh_counts = sh_overflow = None
-    if track_shortest:
-        finalize_sh(np.nonzero(rows >= 0)[0])
-        # Boltzmann over unique shortest chains: each unique chain at the
-        # class's shortest n_eff contributes exp(-beta * n_eff)
-        # (decoders_biasednoise.py:163-169; JAX pteq.py:821-842)
-        n_unique = sh_nuq_h.astype(np.float64)
-        with np.errstate(invalid="ignore"):
-            logw = -shortest_beta * np.where(np.isfinite(sh_val_h), sh_val_h,
-                                             np.inf)
-            # a row with no finite weight gives NaN and then 0, as the JAX
-            # package's nanmax does
-            top = np.max(np.where(np.isfinite(logw), logw, -np.inf), axis=1,
-                         keepdims=True)
-            w_ = n_unique * np.exp(logw - top)
-        w_ = np.where(np.isfinite(w_), w_, 0.0)
-        tot = w_.sum(axis=1, keepdims=True)
-        sh_boltz = np.where(tot > 0, w_ / np.maximum(tot, 1e-300) * 100, 0.0)
-        ctot = sh_cnt_h.sum(axis=1, keepdims=True)
-        sh_counts = np.where(ctot > 0, sh_cnt_h / np.maximum(ctot, 1) * 100,
-                             0.0)
-        sh_overflow = sh_ovf_h
+        sh_boltz = sh_counts = sh_overflow = None
+        if track_shortest:
+            finalize_sh(np.nonzero(rows >= 0)[0])
+            # Boltzmann over unique shortest chains: each unique chain at
+            # the class's shortest n_eff contributes exp(-beta * n_eff)
+            # (decoders_biasednoise.py:163-169; JAX pteq.py:821-842)
+            n_unique = sh_nuq_h.astype(np.float64)
+            with np.errstate(invalid="ignore"):
+                logw = -shortest_beta * np.where(np.isfinite(sh_val_h),
+                                                 sh_val_h, np.inf)
+                # a row with no finite weight gives NaN and then 0, as the
+                # JAX package's nanmax does
+                top = np.max(np.where(np.isfinite(logw), logw, -np.inf),
+                             axis=1, keepdims=True)
+                w_ = n_unique * np.exp(logw - top)
+            w_ = np.where(np.isfinite(w_), w_, 0.0)
+            tot = w_.sum(axis=1, keepdims=True)
+            sh_boltz = np.where(tot > 0, w_ / np.maximum(tot, 1e-300) * 100,
+                                0.0)
+            ctot = sh_cnt_h.sum(axis=1, keepdims=True)
+            sh_counts = np.where(ctot > 0,
+                                 sh_cnt_h / np.maximum(ctot, 1) * 100, 0.0)
+            sh_overflow = sh_ovf_h
+        distribution = (snap_distr * 100).astype(np.uint8)
     return PTEQResult(
-        distribution=(snap_distr * 100).astype(np.uint8),
+        distribution=distribution,
         converged=converged,
         steps=snap_steps,
         tops0=snap_tops,

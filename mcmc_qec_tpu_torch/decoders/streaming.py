@@ -50,6 +50,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .counting import _first_of_runs
 
 SENTINEL = 0xFFFFFFFF
@@ -240,7 +241,10 @@ class StreamTiming:
     sort-merge, occupancy); the PT samplers' ladder steps add ``sweep``
     and ``exchange`` within ``sample`` (``decoders/ptdc.py``).  Off unless ``enabled``; on a CUDA device it
     records CUDA events around each part (no synchronisation until
-    ``ms()``); elsewhere it records nothing."""
+    ``ms()``); elsewhere it records nothing.  Whether it is on or not,
+    ``streaming_scan`` opens the spans ``stream.sample``,
+    ``stream.conv_mult`` and ``stream.merge`` of ``utils/profiling.py``
+    around the same parts, recorded while a profiler records."""
 
     def __init__(self):
         self.enabled = False
@@ -319,6 +323,7 @@ def streaming_scan(
     half = steps // 2
     st = cm = None
     tm = stream_timing
+    span, call = profiling.span, profiling.new_call()
     # the chain state: a tensor, a tuple of them (a PT ladder's) or
     # anything else (the samples then give the device)
     first = states[0] if isinstance(states, tuple) and states else states
@@ -326,50 +331,56 @@ def streaming_scan(
     for w in range(n_windows):
         s0 = w * window
         s1 = min(steps, s0 + window)
-        a = tm.mark(dev)
-        states, keys, n_xyz = chunk_sampler(states, seeds[s0:s1])
-        if st is None:
-            dev = keys.device
-            st = init_stream_state(R, capacity, nq, dev)
-            if conv_mult:
-                cm = init_conv_mult(R, D, conv_mult_unique_cap, nq, steps,
-                                    dev)
-        b = tm.mark(dev)
+        with span("stream.sample", call):
+            a = tm.mark(dev)
+            states, keys, n_xyz = chunk_sampler(states, seeds[s0:s1])
+            if st is None:
+                dev = keys.device
+                st = init_stream_state(R, capacity, nq, dev)
+                if conv_mult:
+                    cm = init_conv_mult(R, D, conv_mult_unique_cap, nq, steps,
+                                        dev)
+            b = tm.mark(dev)
         tm.add("sample", a, b)
         W = s1 - s0
         n_tot = n_xyz.sum(-1, dtype=torch.int32)  # (R, D, W)
         valid = None
         if cm is not None:
-            cm, valid = _conv_mult_window(cm, keys, n_tot, s0, conv_mult,
-                                          steps)
-            c = tm.mark(dev)
+            with span("stream.conv_mult", call):
+                cm, valid = _conv_mult_window(cm, keys, n_tot, s0, conv_mult,
+                                              steps)
+                c = tm.mark(dev)
             tm.add("conv_mult", b, c)
             b = c
-        rank = rank_fn(n_xyz)  # (R, D, W) f32
-        S = D * W
-        fk = _pack(keys)
-        if valid is not None:
-            fk = torch.where(valid, fk, _SENTINEL_KEY)
-            rank = torch.where(valid, rank, torch.inf)
-        key, r, disc, ovf, mk = _merge_row(st.key, st.r, fk.reshape(R, S),
-                                           rank.reshape(R, S))
-        n_unique = st.n_unique + disc
-        m_n = st.m_n
-        if track_occupancy:
-            # occupancy: bincount every valid observation by total length
-            idx = n_tot.to(torch.int64).reshape(R, S)
-            ones = (torch.ones_like(idx, dtype=torch.int32) if valid is None
-                    else valid.reshape(R, S).to(torch.int32))
+        with span("stream.merge", call):
+            rank = rank_fn(n_xyz)  # (R, D, W) f32
+            S = D * W
+            fk = _pack(keys)
             if valid is not None:
-                idx = torch.where(valid.reshape(R, S), idx, nq + 1)
-            m_n = m_n.scatter_add(-1, idx, ones)
-        at_half = (w + 1) * window >= half
-        was_before = w * window < half
-        n_half = n_unique if (at_half and was_before) else st.n_unique_half
-        st = StreamState(key=key, r=r, m_n=m_n, n_unique=n_unique,
-                         n_unique_half=n_half, overflow=st.overflow | ovf,
-                         max_kept=mk)
-        tm.add("merge", b, tm.mark(dev))
+                fk = torch.where(valid, fk, _SENTINEL_KEY)
+                rank = torch.where(valid, rank, torch.inf)
+            key, r, disc, ovf, mk = _merge_row(st.key, st.r,
+                                               fk.reshape(R, S),
+                                               rank.reshape(R, S))
+            n_unique = st.n_unique + disc
+            m_n = st.m_n
+            if track_occupancy:
+                # occupancy: bincount every valid observation by total length
+                idx = n_tot.to(torch.int64).reshape(R, S)
+                ones = (torch.ones_like(idx, dtype=torch.int32)
+                        if valid is None
+                        else valid.reshape(R, S).to(torch.int32))
+                if valid is not None:
+                    idx = torch.where(valid.reshape(R, S), idx, nq + 1)
+                m_n = m_n.scatter_add(-1, idx, ones)
+            at_half = (w + 1) * window >= half
+            was_before = w * window < half
+            n_half = n_unique if (at_half and was_before) else st.n_unique_half
+            st = StreamState(key=key, r=r, m_n=m_n, n_unique=n_unique,
+                             n_unique_half=n_half, overflow=st.overflow | ovf,
+                             max_kept=mk)
+            end = tm.mark(dev)
+        tm.add("merge", b, end)
         tm.windows += 1
     return states, st, cm
 

@@ -75,7 +75,7 @@ def make_dense_sweep(spec: CodeSpec, n_sweeps: int = 1):
             lu = torch.as_tensor(logu, dtype=torch.float32,
                                  device=states.device)
             lu = lu.reshape(1, n_colors, N, stab_width(spec))
-            sweep_counts.add_plain()
+            sweep_counts.add_plain(N)
             out = sweep_reference(spec, flat, seed, b, 1, logu=lu)
         return out.reshape(states.shape)
 

@@ -119,28 +119,34 @@ WindowOut = Tuple[torch.Tensor, ...]
 
 
 class KernelCounter:
-    """How often a kernel wrapper launched its kernel and how often it ran
-    the plain version instead (CPU tensors).  The wrappers count through
-    ``add_launch`` and ``add_plain``, under a lock: the shards of
-    ``parallel.map_shards`` launch from one host thread each."""
+    """How often a kernel wrapper launched its kernel, how often it ran
+    the plain version instead (CPU tensors), and the batch rows of those
+    calls summed (``rows``: a window's syndrome rows, a sweep's chains).
+    The wrappers count through ``add_launch`` and ``add_plain``, under a
+    lock: the shards of ``parallel.map_shards`` launch from one host thread
+    each."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.launches = 0
         self.plain_calls = 0
+        self.rows = 0
 
-    def add_launch(self) -> None:
+    def add_launch(self, rows: int = 0) -> None:
         with self._lock:
             self.launches += 1
+            self.rows += rows
 
-    def add_plain(self) -> None:
+    def add_plain(self, rows: int = 0) -> None:
         with self._lock:
             self.plain_calls += 1
+            self.rows += rows
 
     def reset(self) -> None:
         with self._lock:
             self.launches = 0
             self.plain_calls = 0
+            self.rows = 0
 
 
 # the ladder-window wrapper's counts (every function ``make_ladder_window``
@@ -1150,7 +1156,7 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
             f"ladder_window kernel launch failed: cudaError {err} "
             f"(B={B}, Nc={Nc}, nq={nq}, nw={offs['nw']}, {shape})"
         )
-    ladder_window_counts.add_launch()
+    ladder_window_counts.add_launch(B)
     return out
 
 
@@ -1225,7 +1231,7 @@ def make_ladder_window(
                            seed, betas, weights, fixed=fixed,
                            device_tables=device_tables, **kw)
         if state.device.type == "cpu":
-            ladder_window_counts.add_plain()
+            ladder_window_counts.add_plain(state.shape[0])
             return ladder_window_reference(
                 spec, state, flag, tops0, eq_count, since_burn, seed, betas,
                 weights, rng=rng, **kw,

@@ -573,7 +573,7 @@ def _launch(spec: CodeSpec, states: torch.Tensor, betas, *, steps: int,
             f"sweep kernel launch failed: cudaError {err} (B={B}, nq={nq}, "
             f"steps={steps}, iters={iters}, record={record}, {plan})"
         )
-    sweep_counts.add_launch()
+    sweep_counts.add_launch(B)
     return (out, keys, counts) if record else out
 
 
@@ -596,7 +596,7 @@ def make_sweep(spec: CodeSpec, n_sweeps: int, equal_betas: bool = False):
                            equal_betas=equal_betas, seed=seed,
                            device_tables=device_tables)
         if states.device.type == "cpu":
-            sweep_counts.add_plain()
+            sweep_counts.add_plain(states.shape[0])
             return sweep_reference(spec, states, seed, betas, n_sweeps,
                                    equal_betas)
         raise ValueError(f"no sweep for device {states.device}")
@@ -629,7 +629,7 @@ def make_recording_sweep(spec: CodeSpec, steps: int, iters_per_step: int = 1,
                            iters=iters_per_step, equal_betas=equal_betas,
                            seeds=seeds, device_tables=device_tables)
         if states.device.type == "cpu":
-            sweep_counts.add_plain()
+            sweep_counts.add_plain(states.shape[0])
             return sample_reference(spec, states, seeds, betas,
                                     iters_per_step, equal_betas)
         raise ValueError(f"no sweep for device {states.device}")

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
+
 # a rank that never joins fails the run after this long instead of hanging it
 JOIN_TIMEOUT = datetime.timedelta(seconds=120)
 
@@ -109,10 +111,15 @@ def host_shard(n_total: int) -> slice:
 
 
 def _gather(local: np.ndarray) -> list:
-    """Every rank's ``local`` (equal shapes and dtypes), in rank order."""
+    """Every rank's ``local`` (equal shapes and dtypes), in rank order;
+    the span ``multihost.allgather`` and the counter
+    ``multihost.allgather_bytes`` (the bytes every rank's slot holds,
+    summed) while a profiler records."""
     t = torch.from_numpy(np.ascontiguousarray(local))
     out = [torch.empty_like(t) for _ in range(_world())]
-    dist.all_gather(out, t)
+    with profiling.span("multihost.allgather"):
+        dist.all_gather(out, t)
+    profiling.count("multihost.allgather_bytes", t.nbytes * len(out))
     return [o.numpy() for o in out]
 
 

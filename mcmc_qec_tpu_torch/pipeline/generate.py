@@ -21,7 +21,6 @@ once, and the distributions come back once.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import shutil
 import time
@@ -56,16 +55,9 @@ from ..models.noise import (
 )
 from ..ops.engines import resolve_device
 from ..ops.pauli import random_logical
-from ..utils.profiling import StageTimer
+from ..utils import profiling
 from .config import RunConfig
 from .dataset import Dataset
-
-# host wall time of the pipeline's stages, summed over batches: None (off)
-# or a ``StageTimer``.  Stages: sample (the device draw), to_host (the
-# states' one copy to the host, which waits for the draw), truth,
-# warm_start, decode (the decoder call, its result on the host), decide,
-# save.
-stage_timer: Optional[StageTimer] = None
 
 # decoders whose init is one (B, nq) state per syndrome: the matcher's
 # (B, 4, nq) class seeds do not fit them
@@ -73,9 +65,12 @@ _PTEQ_METHODS = ("PTEQ", "PTEQ_with_shortest")
 
 
 def _stage(name: str):
-    if stage_timer is None:
-        return contextlib.nullcontext()
-    return stage_timer.stage(name)
+    """The span ``pipeline.<name>`` of the recorder (``utils/profiling.py``,
+    recorded while a profiler records).  Stages: sample (the device draw),
+    to_host (the states' one copy to the host, which waits for the draw),
+    truth, warm_start, decode (the decoder call, its result on the host),
+    decide, save."""
+    return profiling.span(f"pipeline.{name}")
 
 
 def error_seed(seed: int, done: int) -> int:
