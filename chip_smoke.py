@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds both kernels from mcmc_qec_tpu_torch/csrc with nvcc (one process per
+Builds the kernels from mcmc_qec_tpu_torch/csrc with nvcc (one process per
 source, started together), then drives each ported path and holds each
 kernel against its plain PyTorch version on the card:
 
@@ -41,6 +41,14 @@ kernel against its plain PyTorch version on the card:
   with its device-time split, peak memory and overflow bound, and one of
   its window launches against the plain sampler; PTEQ with per-window
   metrics against the same decode without them.
+- The stream merge (csrc/stream_merge.cu, one launch a stream window)
+  against the plain merge, ``decoders/streaming.py::_merge_row``, all five
+  outputs bit for bit, on adversarial windows from an empty buffer to an
+  overflowing one (duplicates, integer ties, dead and invalid candidates,
+  -0.0, C < S and C > S, a partial window, the largest shape it admits);
+  the streamed STDC, STRC, PTDC and PTRC decodes through it against the
+  plain merge, equal bit for bit; the STDC bench cell's merge timed
+  against the plain merge, with its share of the card's memory rate.
 - K1 at a row of betas per chain, the PT ladder step's launch: kernel vs
   plain version (toric d=5 at 327,680 chains, planar d=3 ragged, toric
   d=13 and d=19), and one row per chain equal to the shared row; PTDC and
@@ -170,6 +178,7 @@ from mcmc_qec_tpu_torch.decoders.stdc import (
     _get_stdc_stream_fn,
     _pick_stream_window,
 )
+import mcmc_qec_tpu_torch.decoders.streaming as streaming_mod
 from mcmc_qec_tpu_torch.decoders.streaming import (
     STREAM_BYTES_PER_SAMPLE,
     should_stream,
@@ -236,6 +245,11 @@ from mcmc_qec_tpu_torch.utils.roofline import (
     philox_blocks_per_sweep,
     popc_per_sweep,
 )
+from mcmc_qec_tpu_torch.ops.stream_merge import (
+    merge_kernel_fits,
+    merge_window,
+    stream_merge_counts,
+)
 from mcmc_qec_tpu_torch.ops.sweep import (
     make_recording_sweep,
     make_sweep,
@@ -244,7 +258,7 @@ from mcmc_qec_tpu_torch.ops.sweep import (
     sweep_reference,
 )
 
-KERNELS = ("ladder_window", "sweep")
+KERNELS = ("ladder_window", "sweep", "stream_merge")
 ROOT = Path(__file__).resolve().parent
 H2H_CACHE = ROOT / "examples" / "h2h_ref_cache_r5.npz"
 OUT_NAMES = ("state", "flag", "tops0", "eq_count", "since_burn", "energies",
@@ -1541,6 +1555,297 @@ def phase_stream_parity():
           f"p_sampling={ps} droplets={D} steps={steps}, {n_win} windows of "
           f"{W} (last {steps - (n_win - 1) * W}), capacity {cap}: "
           + "; ".join(lines), flush=True)
+
+
+# the stream merge kernel (csrc/stream_merge.cu) against the plain merge:
+# (name, rows, slots C, candidates S a row, rank kind, distinct chains a
+# row's pool, windows merged in turn from an empty buffer)
+MERGE_CASES = (
+    ("duplicates", 64, 4096, 4096, "weighted", 1500, 4),
+    ("integer ranks, many ties", 64, 2048, 1024, "integer", 3000, 4),
+    ("+inf, -inf, NaN and invalid", 64, 4096, 4096, "dead", 3000, 3),
+    ("-0.0 beside +0.0", 64, 1024, 4096, "zeros", 2000, 3),
+    ("C < S, overflowing", 64, 512, 4096, "weighted", 20000, 4),
+    ("C > S", 64, 4096, 1024, "weighted", 20000, 5),
+    ("partial last window (S = 4 x 265)", 64, 4096, 1060, "weighted", 20000,
+     3),
+    ("one candidate, one slot", 64, 1, 1, "integer", 3, 4),
+    ("PTDC across rungs (S = 5120)", 64, 4096, 5120, "weighted", 30000, 3),
+    ("largest admitted S and C", 8, 65535, 8192, "weighted", 40000, 3),
+)
+# the STDC cell's merge (port_bench stdc_toric5.p010_b1024): toric d=5,
+# B=1024 x 16 classes, 4 droplets x 1024 steps a window, 4096 slots; the
+# bytes a window must move: the candidates' key halves and ranks (20 B) and
+# the buffer read and written (12 B a slot each way)
+MERGE_CELL = dict(d=5, B=1024, p=0.1, p_sampling=0.25, droplets=4,
+                  steps=15625, capacity=4096, timed_window=8)
+
+
+def _merge_inputs(R, S, kind, n_pool, pool_seed, w):
+    """One window of candidates: key halves (R, S, 2) int64, ranks (R, S)
+    f32 and a valid mask (R, S) or None, drawn from a pool of ``n_pool``
+    chains a row (the same pool every window, so later windows meet chains
+    the buffer holds); a chain's rank is a function of the chain."""
+    g = torch.Generator(device="cuda").manual_seed(pool_seed)
+    halves = torch.randint(0, 2**32, (R, n_pool, 2), generator=g,
+                           device="cuda", dtype=torch.int64)
+    if kind == "integer":
+        rank = torch.randint(0, 21, (R, n_pool), generator=g,
+                             device="cuda").float()
+    elif kind == "zeros":
+        vals = torch.tensor([-0.0, 0.0, 1.0, 2.0], device="cuda")
+        rank = vals[torch.randint(0, 4, (R, n_pool), generator=g,
+                                  device="cuda")]
+    else:
+        n = torch.randint(0, 60, (R, n_pool, 3), generator=g, device="cuda")
+        b = torch.tensor([1.0986123, 0.70710677, 1.3862944], device="cuda")
+        rank = (n[..., 0] * b[0] + n[..., 1] * b[1]) + n[..., 2] * b[2]
+        if kind == "dead":
+            pick = torch.randint(0, 8, (R, n_pool), generator=g,
+                                 device="cuda")
+            rank = torch.where(pick == 0, torch.inf, rank)
+            rank = torch.where(pick == 1, -torch.inf, rank)
+            rank = torch.where(pick == 2, torch.nan, rank)
+    g.manual_seed(pool_seed * 1000 + w)
+    pick = torch.randint(0, n_pool, (R, S), generator=g, device="cuda")
+    valid = None
+    if kind == "dead":
+        valid = torch.rand((R, S), generator=g, device="cuda") > 0.2
+    return (halves.gather(1, pick[..., None].expand(R, S, 2)),
+            rank.float().gather(1, pick), valid)
+
+
+def _plain_merge(key, r, halves, rank, valid):
+    """The plain merge as ``streaming_scan`` calls it."""
+    R = key.shape[0]
+    fk = streaming_mod._pack(halves)
+    if valid is not None:
+        fk = torch.where(valid, fk, streaming_mod._SENTINEL_KEY)
+        rank = torch.where(valid, rank, torch.inf)
+    return streaming_mod._merge_row(key, r, fk.reshape(R, -1),
+                                    rank.reshape(R, -1))
+
+
+def _merge_mismatch(kern, plain) -> int:
+    """Rows where any of the five outputs differ in any bit."""
+    bad = None
+    for a, b in zip(kern, plain):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        d = a != b
+        d = d.reshape(d.shape[0], -1).any(-1)
+        bad = d if bad is None else bad | d
+    return int(bad.sum())
+
+
+def _max_abs_diff(a, b) -> float:
+    """The largest absolute difference of two float arrays of one shape, 0
+    where they hold the same value (two +inf included)."""
+    a, b = (torch.as_tensor(x).cpu().double() for x in (a, b))
+    d = (a - b).abs().masked_fill(a == b, 0.0)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _merge_err(kern, plain) -> float:
+    """The largest absolute difference of the buffer's ranks and of
+    ``max_kept`` between two merges of one window."""
+    return max(_max_abs_diff(kern[1], plain[1]),
+               _max_abs_diff(kern[4], plain[4]))
+
+
+def _force_plain_merge():
+    """Context: ``streaming_scan`` takes the plain merge on the card."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        fits = streaming_mod.merge_kernel_fits
+        streaming_mod.merge_kernel_fits = lambda C, S: False
+        try:
+            yield
+        finally:
+            streaming_mod.merge_kernel_fits = fits
+
+    return ctx()
+
+
+def _decode_pair(tag, fn, windows):
+    """``fn()`` through the merge kernel and through the plain merge: the
+    results equal bit for bit, every window merged by the kernel (and none
+    by the plain merge) on the first, none on the second."""
+    stream_merge_counts.reset()
+    kern = fn()
+    k_launch, k_plain = (stream_merge_counts.launches,
+                         stream_merge_counts.plain_calls)
+    stream_merge_counts.reset()
+    with _force_plain_merge():
+        plain = fn()
+    p_launch = stream_merge_counts.launches
+    check(k_launch == windows and k_plain == 0,
+          f"{tag}: {k_launch} merge launches and {k_plain} plain merges, not "
+          f"{windows} and 0")
+    check(p_launch == 0, f"{tag}: {p_launch} merge launches on the plain path")
+    kern, plain = (np.asarray(x) for x in (kern, plain))
+    check(kern.shape == plain.shape and kern.tobytes() == plain.tobytes(),
+          f"{tag}: the kernel's decode differs from the plain merge's")
+    return f"{tag} equal ({windows} launches)"
+
+
+def _cell_merge_inputs(spec, m):
+    """The STDC cell's decode through the merge kernel and through the
+    plain merge, with the stream timing on: ({part: device ms}, windows,
+    the same of the plain decode, the inputs of window ``timed_window``,
+    the kernel's launches in the decode, the decodes' largest absolute
+    difference).  Every window of the kernel's decode is one launch."""
+    gen = torch.Generator(device="cuda").manual_seed(2031)
+    states = sample_depolarizing(gen, spec, m["p"], (m["B"],), device="cuda")
+    kw = dict(droplets=m["droplets"], steps=m["steps"], seed=5,
+              stream="auto", stream_capacity=m["capacity"], device="cuda")
+    seen, win = {}, [0]
+    merge = streaming_mod.merge_window
+
+    def capture(key, r, halves, rank, valid):
+        if win[0] == m["timed_window"]:
+            seen.update(key=key.clone(), r=r.clone(), halves=halves.clone(),
+                        rank=rank.clone())
+        win[0] += 1
+        return merge(key, r, halves, rank, valid)
+
+    stream_timing.enabled = True
+    try:
+        stream_timing.reset()
+        streaming_mod.merge_window = capture
+        stream_merge_counts.reset()
+        out = STDC(spec, states, m["p"], m["p_sampling"], **kw)
+        streaming_mod.merge_window = merge
+        split, windows = stream_timing.ms(), stream_timing.windows
+        launches, plain_calls = (stream_merge_counts.launches,
+                                 stream_merge_counts.plain_calls)
+        stream_timing.reset()
+        with _force_plain_merge():
+            plain = STDC(spec, states, m["p"], m["p_sampling"], **kw)
+        split_p, windows_p = stream_timing.ms(), stream_timing.windows
+    finally:
+        streaming_mod.merge_window = merge
+        stream_timing.enabled = False
+    check(launches == windows and plain_calls == 0,
+          f"the STDC cell's decode: {launches} merge launches and "
+          f"{plain_calls} plain merges over {windows} windows")
+    out, plain = np.asarray(out), np.asarray(plain)
+    check(out.tobytes() == plain.tobytes(),
+          "the STDC cell's decode differs between the merge kernel and the "
+          "plain merge")
+    return (split, windows, split_p, windows_p, seen, launches,
+            _max_abs_diff(out, plain))
+
+
+def phase_stream_merge():
+    """The stream merge kernel (csrc/stream_merge.cu) against the plain
+    merge (``decoders/streaming.py::_merge_row``), all five outputs bit for
+    bit, over MERGE_CASES, each from an empty buffer through windows that
+    fill it and overflow it: heavy duplication, integer ranks with many
+    ties, dead candidates (+inf, -inf, NaN, an invalid mask), -0.0 beside
+    +0.0, C < S and C > S, the cell's partial last window, PTDC's 5120
+    candidates, the largest shape ``merge_kernel_fits`` admits.  Then the
+    streamed STDC (the cell's window and a partial one, an overflowing
+    capacity, conv_mult), STRC, PTDC and PTRC at toric d=5 and STDC at
+    toric d=9's default window through the kernel against the plain merge,
+    equal bit for bit; the STDC cell's decode both ways with the merge's
+    device ms a window; and one merge at the cell's shape (window
+    MERGE_CELL["timed_window"]) timed against the plain merge, with its
+    share of the card's memory rate and its launch."""
+    lines, err = [], 0.0
+    for case, (name, R, C, S, kind, n_pool, n_win) in enumerate(MERGE_CASES):
+        check(merge_kernel_fits(C, S), f"{name}: C={C} S={S} not admitted")
+        key = torch.full((R, C), streaming_mod._SENTINEL_KEY,
+                         dtype=torch.int64, device="cuda")
+        r = torch.full((R, C), torch.inf, device="cuda")
+        stats = []
+        for w in range(n_win):
+            halves, rank, valid = _merge_inputs(R, S, kind, n_pool,
+                                                2030 + case, w)
+            kern = merge_window(key, r, halves, rank, valid)
+            plain = _plain_merge(key, r, halves, rank, valid)
+            torch.cuda.synchronize()
+            bad = _merge_mismatch(kern, plain)
+            check(bad == 0, f"{name}, window {w}: {bad} of {R} rows differ "
+                            f"from the plain merge")
+            err = max(err, _merge_err(kern, plain))
+            key, r = plain[0], plain[1]
+            stats.append(f"{int(plain[2].sum())}/{int(plain[3].sum())}")
+        lines.append(f"{name} (R={R} C={C} S={S}; new/overflowed rows a "
+                     f"window {' '.join(stats)})")
+    print(f"phase 15b merge kernel vs plain merge, all five outputs equal: "
+          + "; ".join(lines), flush=True)
+
+    spec5, spec9 = get_spec("toric", 5), get_spec("toric", 9)
+    gen = torch.Generator(device="cuda").manual_seed(2032)
+    st5 = sample_depolarizing(gen, spec5, 0.1, (256,), device="cuda")
+    st9 = sample_depolarizing(gen, spec9, 0.1, (32,), device="cuda")
+    kw = dict(droplets=4, steps=3000, seed=7, stream=True, device="cuda")
+    decodes = [
+        _decode_pair("STDC B=256 4 x 3000 (windows 1024, 1024, 952)",
+                     lambda: STDC(spec5, st5, 0.1, 0.25, **kw), 3),
+        _decode_pair("STDC capacity 512 (overflowing)",
+                     lambda: STDC(spec5, st5, 0.1, 0.25, stream_capacity=512,
+                                  **kw), 3),
+        _decode_pair("STDC conv_mult=2.0 B=128",
+                     lambda: STDC(spec5, st5[:128], 0.1, 0.25, conv_mult=2.0,
+                                  **kw), 3),
+        _decode_pair("STRC B=256 4 x 3000",
+                     lambda: STRC(spec5, st5, 0.1, 0.25, **kw), 3),
+        _decode_pair("PTDC B=64 4 droplets x 5 rungs, 3125 steps a rung "
+                     "(S=5120)",
+                     lambda: PTDC(spec5, st5[:64], 0.1, steps=15625, seed=7,
+                                  droplets=4, Nc=5, stream=True,
+                                  device="cuda"), 13),
+        _decode_pair("PTRC B=64 (S=1024 a rung, C=2048)",
+                     lambda: PTRC(spec5, st5[:64], 0.1, steps=15625, seed=7,
+                                  droplets=4, Nc=5, stream=True,
+                                  device="cuda"), 13),
+        _decode_pair("STDC toric d=9 B=32 10 x 20000 (49 windows of 409, "
+                     "S=4090)",
+                     lambda: STDC(spec9, st9, 0.1, 0.25, droplets=10,
+                                  steps=20000, seed=7, stream=True,
+                                  device="cuda"), 49),
+    ]
+    print("phase 15b streamed decodes, merge kernel vs plain merge: "
+          + "; ".join(decodes), flush=True)
+
+    m = MERGE_CELL
+    (split, windows, split_p, windows_p, seen, launches,
+     decode_err) = _cell_merge_inputs(spec5, m)
+    key, r, halves, rank = (seen[k] for k in ("key", "r", "halves", "rank"))
+    R, C = key.shape
+    S = halves[0].numel() // 2
+    kern = merge_window(key, r, halves, rank)
+    plain = _plain_merge(key, r, halves, rank, None)
+    torch.cuda.synchronize()
+    bad = _merge_mismatch(kern, plain)
+    check(bad == 0, f"the cell's window {m['timed_window']}: {bad} rows "
+                    f"differ")
+    err = max(err, _merge_err(kern, plain), decode_err)
+    ms = _time_ms(lambda: merge_window(key, r, halves, rank), 5)
+    plain_ms = _time_ms(lambda: _plain_merge(key, r, halves, rank, None), 3)
+    n_bytes = R * S * 20 + 2 * R * C * 12
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 15b the STDC cell (toric d=5 B={m['B']} x 16 classes, "
+          f"{m['droplets']} droplets, {m['steps']} steps, capacity "
+          f"{m['capacity']}): decode equal both ways, {launches} merge "
+          f"launches in {windows} windows; merge device ms a window: kernel "
+          f"{split.get('merge', 0.0) / windows:.3f}, plain "
+          f"{split_p.get('merge', 0.0) / windows_p:.3f} (sampling "
+          f"{split.get('sample', 0.0) / windows:.3f}, {windows} windows); "
+          f"window {m['timed_window']} alone (R={R} C={C} S={S}, "
+          f"{int(plain[2].sum())} new chains, {int(plain[3].sum())} rows "
+          f"overflowed): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"outputs equal; {n_bytes / 1e9:.3f} GB a window, bound "
+          f"{bound:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+          f"{100 * bound / ms:.1f}% of the memory rate; largest absolute "
+          f"difference of ranks, max_kept and percentages {err!r}",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound,
+                bound_by="bytes", launches=launches)
 
 
 def _window_launch(spec, R, W, ps):
@@ -3714,6 +4019,8 @@ def main() -> int:
         gen = phase_general_timing()
         phase = "streamed vs materialised STDC/STRC"
         phase_stream_parity()
+        phase = "stream merge kernel vs plain merge"
+        merge = phase_stream_merge()
         phase = "STDC at the reference budget, streamed"
         k1_win = phase_stream_main_path()
         phase = "sweep kernel at per-chain betas vs plain"
@@ -3837,6 +4144,19 @@ def main() -> int:
         "plain_ms": k2_study["plain_ms"],
         "bound_ms": k2_study["bound_ms"],
         "bound_by": k2_study["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "stream_merge",
+        "instantiation": "stream_merge_kernel<512>",
+        "route": "cuda",
+        "source": "mcmc_qec_tpu_torch/csrc/stream_merge.cu",
+        "replaces": None,
+        "launches": merge["launches"],
+        "max_abs_err": merge["err"],
+        "ms": merge["ms"],
+        "plain_ms": merge["plain_ms"],
+        "bound_ms": merge["bound_ms"],
+        "bound_by": merge["bound_by"],
         "library_ms": None,
     }] + [{
         "name": e["name"],

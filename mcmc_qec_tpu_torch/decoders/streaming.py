@@ -40,6 +40,13 @@ JAX ``_merge_row`` makes two ``lax.sort``s, by (k1, k2) to find duplicates
 and by (r, k1, k2) to rank; here one stable sort by key marks duplicates,
 the dead entries become (SENTINEL, SENTINEL, +inf), and one stable sort by
 r of the key-ordered row orders it by (r, key), as the second sort does.
+That is the plain version, which CPU tensors take.  On a CUDA device
+``streaming_scan`` merges each window with one launch of
+``ops/stream_merge.py::merge_window`` instead, equal bit for bit: it keeps
+one copy of each of the window's chains, sorts by (r, key) only those that
+can still take a slot, and merges them with the buffer, which is in (r,
+key) order already; shapes that ``merge_kernel_fits`` refuses keep the
+plain version.
 """
 
 from __future__ import annotations
@@ -50,6 +57,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..ops.stream_merge import (merge_kernel_fits, merge_window,
+                                stream_merge_counts)
 from ..utils import profiling
 from .counting import _first_of_runs
 
@@ -237,9 +246,10 @@ def _conv_mult_window(cm: ConvMultState, keys: torch.Tensor, n: torch.Tensor,
 class StreamTiming:
     """Device time of ``streaming_scan``'s parts, summed over windows:
     ``sample`` (the chunk sampler, one sweep-kernel launch a window),
-    ``conv_mult`` (the early-stop automaton) and ``merge`` (rank, sentinel,
-    sort-merge, occupancy); the PT samplers' ladder steps add ``sweep``
-    and ``exchange`` within ``sample`` (``decoders/ptdc.py``).  Off unless ``enabled``; on a CUDA device it
+    ``conv_mult`` (the early-stop automaton) and ``merge`` (rank, the
+    merge kernel or the plain sort-merge, occupancy); the PT samplers'
+    ladder steps add ``sweep`` and ``exchange`` within ``sample``
+    (``decoders/ptdc.py``).  Off unless ``enabled``; on a CUDA device it
     records CUDA events around each part (no synchronisation until
     ``ms()``); elsewhere it records nothing.  Whether it is on or not,
     ``streaming_scan`` opens the spans ``stream.sample``,
@@ -307,7 +317,10 @@ def streaming_scan(
     ladder's tuple of tensors).
     Droplets are independent chains feeding the same row buffer: the
     droplet fan-in of STDC/STRC, or ladder rungs for PTDC.  ``rank_fn``
-    maps n_xyz (..., 3) to the f32 rank (...).
+    maps n_xyz (..., 3) to the f32 rank (...).  Every window adds one to
+    the recorder's counter ``stream.windows``, and one merged by the
+    kernel (a CUDA tensor of a shape ``merge_kernel_fits`` admits) one to
+    ``stream.merge_kernel``.
 
     Returns (states, StreamState, ConvMultState or None).  The
     ConvMultState (None when ``conv_mult`` is 0) carries ``kovf``, the
@@ -343,7 +356,9 @@ def streaming_scan(
             b = tm.mark(dev)
         tm.add("sample", a, b)
         W = s1 - s0
-        n_tot = n_xyz.sum(-1, dtype=torch.int32)  # (R, D, W)
+        # (R, D, W) total lengths, for the automaton and the occupancy only
+        n_tot = (n_xyz.sum(-1, dtype=torch.int32)
+                 if cm is not None or track_occupancy else None)
         valid = None
         if cm is not None:
             with span("stream.conv_mult", call):
@@ -355,13 +370,20 @@ def streaming_scan(
         with span("stream.merge", call):
             rank = rank_fn(n_xyz)  # (R, D, W) f32
             S = D * W
-            fk = _pack(keys)
-            if valid is not None:
-                fk = torch.where(valid, fk, _SENTINEL_KEY)
-                rank = torch.where(valid, rank, torch.inf)
-            key, r, disc, ovf, mk = _merge_row(st.key, st.r,
-                                               fk.reshape(R, S),
-                                               rank.reshape(R, S))
+            if keys.device.type == "cuda" and merge_kernel_fits(capacity, S):
+                key, r, disc, ovf, mk = merge_window(st.key, st.r, keys, rank,
+                                                     valid)
+                profiling.count("stream.merge_kernel")
+            else:
+                fk = _pack(keys)
+                if valid is not None:
+                    fk = torch.where(valid, fk, _SENTINEL_KEY)
+                    rank = torch.where(valid, rank, torch.inf)
+                key, r, disc, ovf, mk = _merge_row(st.key, st.r,
+                                                   fk.reshape(R, S),
+                                                   rank.reshape(R, S))
+                stream_merge_counts.add_plain(R)
+            profiling.count("stream.windows")
             n_unique = st.n_unique + disc
             m_n = st.m_n
             if track_occupancy:

@@ -20,7 +20,13 @@ STRC's percentages are equal and STDC's agree to float32 rounding of the
 Z sums (1e-3 percentage points).
 """
 
+import inspect
+import os
+import re
+import subprocess
+import sys
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,13 +41,17 @@ from mcmc_qec_tpu.models import get_spec as jax_get_spec
 from mcmc_qec_tpu.models import np_to_class as jax_np_to_class
 from mcmc_qec_tpu.models.noise import sample_depolarizing as jax_sample_depolarizing
 from mcmc_qec_tpu_torch.convert import spec_from_jax
-from mcmc_qec_tpu_torch.decoders import STDC, STRC
+from mcmc_qec_tpu_torch.decoders import PTDC, PTRC, STDC, STRC
 from mcmc_qec_tpu_torch.decoders import counting as tc
 from mcmc_qec_tpu_torch.decoders import streaming as ts
-from mcmc_qec_tpu_torch.decoders.stdc import _get_stdc_fn, _get_stdc_stream_fn
+from mcmc_qec_tpu_torch.decoders.stdc import (_get_stdc_fn,
+                                              _get_stdc_stream_fn,
+                                              _pick_stream_window)
 from mcmc_qec_tpu_torch.decoders.strc import _warn_occupancy_truncation
 from mcmc_qec_tpu_torch.mcmc.ladder import betas_depolarizing
 from mcmc_qec_tpu_torch.ops import sweep_counts
+from mcmc_qec_tpu_torch.ops import stream_merge as sm
+from mcmc_qec_tpu_torch.ops.ladder_window import SMEM_LIMIT
 
 from reference_oracles import exact_class_posterior
 
@@ -395,3 +405,333 @@ def test_decoders_warn_on_small_buffers():
         STDC(spec, s, 0.1, 0.25, **kw)
     with pytest.warns(RuntimeWarning, match="stream_capacity=4"):
         STRC(spec, s, 0.1, 0.25, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The stream merge kernel's algorithm (csrc/stream_merge.cu), step for step
+# in plain torch, against the plain merge (_merge_row)
+# ---------------------------------------------------------------------------
+
+_DEAD = 2**32  # a dead item's rank order: above every finite rank's
+
+
+def _rank_order(r):
+    """csrc/stream_merge.cu::rank_order: f32 -> int64 in [0, 2**32),
+    order-preserving, -0.0 as +0.0."""
+    b = r.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = torch.where(b == 2**31, 0, b)
+    return torch.where(b >= 2**31, b ^ 0xFFFFFFFF, b | 2**31)
+
+
+def _lex_order(fields):
+    """The permutation that sorts the items by their fields, the first
+    most significant (stable sorts, least significant first)."""
+    idx = torch.arange(fields[0].shape[0])
+    for f in reversed(fields):
+        idx = idx[torch.sort(f[idx], stable=True).indices]
+    return idx
+
+
+def _above(a, b):
+    """Items a (fields of (n,)) lexicographically above the one item b."""
+    (ao, ak, ab), (bo, bk, bb) = a, b
+    return (ao > bo) | ((ao == bo) & ((ak > bk) | ((ak == bk) & (ab > bb))))
+
+
+def _kernel_model(key, r, halves, rank, valid):
+    """The kernel, one row (one block) at a time: (key, r, disc,
+    overflowed, max_kept) of the window (halves (R, S, 2), rank (R, S),
+    valid (R, S) or None) merged into the buffer (key, r)."""
+    R, C = key.shape
+    S = halves.shape[1]
+    T = sm.sort_items(S) // sm.ITEMS_PER_THREAD  # threads of a block
+    outs = [[] for _ in range(5)]
+    for row in range(R):
+        # 1. the candidates as items (rank order, key, rank bits); dead ones
+        #    (a rank not finite, an invalid step) are out
+        rk = rank[row]
+        dead = ~torch.isfinite(rk)
+        if valid is not None:
+            dead |= ~valid[row]
+        order = _rank_order(rk)
+        ckey = ts._pack(halves[row])
+        bits = rk.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        # 2. one copy of each chain; with a full buffer, a copy above its
+        #    last entry (the tail) is new and only counted
+        live = torch.nonzero(~dead)[:, 0]
+        o = torch.sort(ckey[live], stable=True).indices
+        first = torch.ones(len(o), dtype=torch.bool)
+        first[1:] = ckey[live][o][1:] != ckey[live][o][:-1]
+        rep = live[o][first]
+        last_r = r[row, C - 1:]
+        full = bool(torch.isfinite(last_r))
+        tail = torch.zeros(len(rep), dtype=torch.bool)
+        if full:
+            last = (_rank_order(last_r), key[row, C - 1:],
+                    last_r.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+            tail = _above((order[rep], ckey[rep], bits[rep]), last)
+        n_tail_new = int(tail.sum())
+        hd = rep[~tail]
+        # 3. the head sorted by (rank, key), padded with dead items to the
+        #    least of T, 2T, 4T, 8T that holds it
+        M = next(T * k for k in (1, 2, 4, 8) if len(hd) <= T * k)
+        pad = M - len(hd)
+        o = _lex_order((order[hd], ckey[hd], bits[hd]))
+        order = torch.cat([order[hd][o], torch.full((pad,), _DEAD)])
+        ckey = torch.cat([ckey[hd][o], torch.full((pad,), ts._SENTINEL_KEY)])
+        bits = torch.cat([bits[hd][o], torch.full((pad,), 0xFFFFFFFF)])
+        dead = torch.arange(M) >= len(hd)
+        # 4. each finite buffer entry's lower bound p among the sorted head
+        fin = torch.isfinite(r[row])
+        nb = int(fin.sum())
+        assert bool(fin[:nb].all()), "finite entries are the buffer's prefix"
+        b_order = _rank_order(r[row, :nb])
+        b_key = key[row, :nb]
+        b_bits = r[row, :nb].view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        u = [torch.cat([a, b]) for a, b in ((order, b_order), (ckey, b_key),
+                                            (bits, b_bits))]
+        ou = _lex_order(u)
+        su = [f[ou] for f in u]
+        step = torch.ones(len(ou), dtype=torch.bool)
+        step[1:] = ((su[0][1:] != su[0][:-1]) | (su[1][1:] != su[1][:-1])
+                    | (su[2][1:] != su[2][:-1]))
+        dense = torch.empty(len(ou), dtype=torch.int64)
+        dense[ou] = torch.cumsum(step.to(torch.int64), 0)
+        p = torch.searchsorted(dense[:M], dense[M:])
+        has = p < M
+        at = p.clamp(max=M - 1)
+        inbuf = has & ~dead[at] & (ckey[at] == b_key)
+        cnt = torch.zeros(M, dtype=torch.int64)
+        cnt.scatter_add_(0, p[has], torch.full_like(p[has], 1 << 16))
+        cnt.scatter_add_(0, p[inbuf], torch.ones_like(p[inbuf]))
+        # 5. new in the head: alive, not in the buffer; one scan of the
+        #    packed (buffer entries at p, new at p)
+        fresh = ~dead & ((cnt & 1) == 0)
+        incl = torch.cumsum((cnt & 0xFFFF0000) | fresh.to(torch.int64), 0)
+        total = int(incl[-1])
+        assert total < 2**32, "the packed scan fits its 32-bit word"
+        n_head_new = total & 0xFFFF
+        n_new = n_head_new + n_tail_new
+        n_all = nb + n_new
+        # 6. slots: a new head candidate's, a buffer entry's
+        slot_c = (incl & 0xFFFF) - 1 + (incl >> 16)
+        excl = (incl & 0xFFFF) - fresh.to(torch.int64)
+        slot_b = torch.arange(nb) + torch.where(has, excl[at], n_head_new)
+        k_out = torch.full((C,), ts._SENTINEL_KEY, dtype=torch.int64)
+        r_out = torch.full((C,), 0x7F800000, dtype=torch.int64)
+        for slot, kk, rb, keep in ((slot_c, ckey, bits, fresh),
+                                   (slot_b, b_key, b_bits,
+                                    torch.ones(nb, dtype=torch.bool))):
+            w = keep & (slot < C)
+            assert not bool(((k_out[slot[w]] != ts._SENTINEL_KEY)).any())
+            k_out[slot[w]] = kk[w]
+            r_out[slot[w]] = rb[w]
+        r_f = torch.as_tensor(r_out.numpy().astype(np.uint32).view(np.float32))
+        outs[0].append(k_out)
+        outs[1].append(r_f)
+        outs[2].append(n_new)
+        outs[3].append(n_all > C)
+        outs[4].append(r_f[C - 1] if n_all >= C else torch.tensor(torch.inf))
+    return (torch.stack(outs[0]), torch.stack(outs[1]),
+            torch.tensor(outs[2], dtype=torch.int32),
+            torch.tensor(outs[3], dtype=torch.bool),
+            torch.stack([torch.as_tensor(x, dtype=torch.float32)
+                         for x in outs[4]]))
+
+
+def _plain_merge(key, r, halves, rank, valid):
+    """The plain merge as ``streaming_scan`` calls it."""
+    R = key.shape[0]
+    fk = ts._pack(halves)
+    if valid is not None:
+        fk = torch.where(valid, fk, ts._SENTINEL_KEY)
+        rank = torch.where(valid, rank, torch.inf)
+    return ts._merge_row(key, r, fk.reshape(R, -1), rank.reshape(R, -1))
+
+
+def _window(rng, R, S, kind, pool):
+    """A window drawn from each row's pool (halves (R, n, 2), ranks (R, n)):
+    (halves (R, S, 2), ranks (R, S), valid (R, S) or None)."""
+    ph, pr = pool
+    pick = torch.as_tensor(rng.randint(0, ph.shape[1], size=(R, S)))
+    valid = (torch.as_tensor(rng.rand(R, S) > 0.2) if kind == "dead"
+             else None)
+    return (ph.gather(1, pick[..., None].expand(R, S, 2)),
+            pr.gather(1, pick), valid)
+
+
+def _pool(rng, R, n, kind):
+    """Each row's chains: key halves in [0, 2**32) and a rank a chain."""
+    halves = torch.as_tensor(rng.randint(0, 2**32, size=(R, n, 2),
+                                         dtype=np.int64))
+    if kind == "integer":
+        rank = rng.randint(0, 6, size=(R, n)).astype(np.float32)
+    elif kind == "zeros":
+        rank = np.array([-0.0, 0.0, 1.0, 2.0], np.float32)[
+            rng.randint(0, 4, size=(R, n))]
+    else:
+        nx = rng.randint(0, 30, size=(R, n, 3)).astype(np.float32)
+        b = np.array(GENERAL, np.float32)
+        rank = (nx[..., 0] * b[0] + nx[..., 1] * b[1]) + nx[..., 2] * b[2]
+        if kind == "dead":
+            pick = rng.randint(0, 8, size=(R, n))
+            rank = np.where(pick == 0, np.inf, rank)
+            rank = np.where(pick == 1, -np.inf, rank)
+            rank = np.where(pick == 2, np.nan, rank)
+    return halves, torch.as_tensor(np.asarray(rank, np.float32))
+
+
+# (R, C, S, rank kind, chains in a row's pool, windows from an empty buffer)
+MERGE_MODEL_CASES = {
+    "duplicates": (3, 64, 256, "weighted", 40, 4),
+    "integer-ties": (3, 96, 200, "integer", 150, 4),
+    "dead-and-invalid": (3, 128, 256, "dead", 120, 3),
+    "negative-zero": (3, 32, 128, "zeros", 60, 3),
+    "full-overflowing": (2, 16, 256, "weighted", 1000, 4),
+    "C-above-S": (2, 300, 64, "weighted", 1000, 5),
+    "partial-last-window": (2, 4096, 4 * 265, "weighted", 3000, 2),
+    "one-slot": (4, 1, 1, "integer", 3, 4),
+    "largest-admitted": (1, sm.MAX_CAPACITY, sm.MAX_ITEMS, "weighted",
+                         20000, 2),
+}
+
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", list(MERGE_MODEL_CASES))
+def test_merge_kernel_algorithm_equals_merge_row(case):
+    """The kernel's algorithm (one copy of each chain; with a full buffer
+    the copies above its last entry only counted; one (rank, key) sort of
+    the rest; a binary search of each buffer entry among them; one packed
+    scan; the slots) gives _merge_row's five outputs bit for bit, window
+    after window from an empty buffer."""
+    R, C, S, kind, n_pool, n_win = MERGE_MODEL_CASES[case]
+    assert sm.merge_kernel_fits(C, S)
+    rng = np.random.RandomState(sorted(MERGE_MODEL_CASES).index(case))
+    pool = _pool(rng, R, n_pool, kind)
+    st = ts.init_stream_state(R, C, 4)
+    key, r = st.key, st.r
+    seen_overflow = False
+    for w in range(n_win):
+        halves, rank, valid = _window(rng, R, S, kind, pool)
+        want = _plain_merge(key, r, halves, rank, valid)
+        got = _kernel_model(key, r, halves, rank, valid)
+        for name, a, b in zip(("key", "r", "disc", "overflowed", "max_kept"),
+                              got, want):
+            assert a.dtype == b.dtype and _bits_equal(a, b), (case, w, name)
+        key, r = want[0], want[1]
+        seen_overflow |= bool(want[3].any())
+    if case in ("full-overflowing", "one-slot"):
+        assert seen_overflow
+    if case == "negative-zero":
+        assert bool((r.view(torch.int32) == -2**31).any()), "a -0.0 kept"
+
+
+def _default(fn, name):
+    return inspect.signature(fn).parameters[name].default
+
+
+def test_merge_kernel_fits_admits_every_default_shape():
+    """``merge_kernel_fits`` at its limits, and the default shapes of the
+    four streamed decoders: STDC and STRC at the reference's 10 droplets
+    and the upstream pipeline's 4 (``_pick_stream_window``), PTDC across
+    the rungs and PTRC a rung at toric d=5 (window 256, Nc=d)."""
+    assert sm.merge_kernel_fits(sm.MAX_CAPACITY, sm.MAX_ITEMS)
+    assert sm.merge_kernel_fits(1, 1)
+    assert not sm.merge_kernel_fits(sm.MAX_CAPACITY + 1, 1)
+    assert not sm.merge_kernel_fits(1, sm.MAX_ITEMS + 1)
+    assert not sm.merge_kernel_fits(0, 1) and not sm.merge_kernel_fits(1, 0)
+    assert sm.sort_items(1) == sm.MIN_ITEMS
+    assert sm.sort_items(4096) == 4096 and sm.sort_items(4097) == 8192
+    for fn in (STDC, STRC):
+        C = _default(fn, "stream_capacity")
+        for D, steps in ((_default(fn, "droplets"), _default(fn, "steps")),
+                         (4, 5 * 5**5)):
+            S = D * _pick_stream_window(D, steps)
+            assert S <= 4096 and sm.merge_kernel_fits(min(C, D * steps), S)
+    d, Nc, D = 5, 5, _default(PTDC, "droplets")
+    W = _default(PTDC, "stream_window")
+    assert _default(PTRC, "stream_window") == W == 256
+    assert sm.merge_kernel_fits(_default(PTDC, "stream_capacity"), D * Nc * W)
+    assert sm.merge_kernel_fits(_default(PTRC, "stream_capacity"),
+                                _default(PTRC, "droplets") * W)
+
+
+def test_cpu_tensors_take_the_plain_merge():
+    """On the CPU every window goes through _merge_row: no launch, one
+    plain merge a window, and the recorder's counters stay off outside a
+    trace."""
+    keys, nxyz = _random_stream(np.random.RandomState(9), 2, 2, 40, 30)
+    sm.stream_merge_counts.reset()
+    _port_scan(keys, nxyz, 40, 16, 64, GENERAL, 30, 0.0, 64, False)
+    assert sm.stream_merge_counts.launches == 0
+    assert sm.stream_merge_counts.plain_calls == 3
+    assert sm.stream_merge_counts.rows == 3 * 2
+    with pytest.raises(ValueError, match="CUDA"):
+        sm.merge_window(torch.zeros((2, 4), dtype=torch.int64),
+                        torch.zeros((2, 4)), torch.zeros((2, 3, 2),
+                                                         dtype=torch.int64),
+                        torch.zeros((2, 3)))
+
+
+def test_stream_merge_imports_without_nvcc():
+    """Importing ops/stream_merge.py (and the stream scan that calls it)
+    and asking it for shapes compiles nothing: the library is built at the
+    first launch only.  A fresh interpreter whose builder refuses to run."""
+    code = """
+import mcmc_qec_tpu_torch.ops._build as b
+def refuse(*a, **k):
+    raise AssertionError("the kernel was built")
+b.build = b.load = b._nvcc = refuse
+import mcmc_qec_tpu_torch.decoders.streaming
+import mcmc_qec_tpu_torch.ops.stream_merge as m
+assert m.merge_kernel_fits(4096, 4096) and m.sort_items(5120) == 8192
+assert m._library.cache_info().currsize == 0
+"""
+    env = dict(os.environ, CUDA_HOME="/nonexistent", PATH="/usr/bin:/bin")
+    res = subprocess.run([sys.executable, "-c", code], env=env, timeout=120,
+                         capture_output=True, text=True,
+                         cwd=str(Path(__file__).resolve().parent.parent))
+    assert res.returncode == 0, res.stderr
+
+
+def _c_struct_fields(src: str, struct: str):
+    """(C type, name) of each field of ``struct`` in ``src``, in order."""
+    body = re.search(r"struct %s \{(.*?)\n\};" % struct, src, re.S)[1]
+    out = []
+    for line in body.splitlines():
+        line = line.split("//")[0].strip()
+        if line:
+            m = re.match(r"(const )?(\w+)(\*?) (\w+);", line)
+            out.append((m[2] + m[3], m[4]))
+    return out
+
+
+def test_merge_kernel_interface_matches_the_wrapper():
+    """csrc/stream_merge.cu's structs field for field against the ctypes
+    structs of ops/stream_merge.py, and its constants against the
+    wrapper's and the stream scan's."""
+    src = (Path(sm.__file__).resolve().parent.parent / "csrc"
+           / "stream_merge.cu").read_text()
+    params = _c_struct_fields(src, "MergeParams")
+    assert [n for _, n in params] == [n for n, _ in sm._Params._fields_]
+    assert all(c == "int32_t" for c, _ in params)
+    bufs = _c_struct_fields(src, "MergeBuffers")
+    assert [n for _, n in bufs] == [n for n, _ in sm._Buffers._fields_]
+    assert all(c.endswith("*") for c, _ in bufs)
+
+    def const(name):
+        return int(re.search(r"constexpr \w+ %s = (0x[0-9A-F]+|\d+)" % name,
+                             src)[1], 0)
+
+    assert const("kItemsPerThread") == sm.ITEMS_PER_THREAD
+    assert const("kMaxCapacity") == sm.MAX_CAPACITY
+    assert const("kSentinelKey") == ts._SENTINEL_KEY
+    for items in (1024, 2048, 4096, 8192):
+        assert f"case {items}: return mqt::launch<{items // 8}>" in src
+    assert (f"static_assert(smem <= {SMEM_LIMIT // 1024} * 1024"
+            in src), "the launch no longer bounds a block's shared memory"
