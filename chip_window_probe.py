@@ -53,6 +53,15 @@ change parent`` compares two commits on one card.  Per root it prints:
 
 Each time is CUDA events around 2-5 launches after a warm-up, in ms.
 Needs a CUDA device; imports no jax.
+
+    python3 chip_window_probe.py --forms FAMILY D B ITERS P
+
+times K2's two forms alone, each forced, on one production window (W=600,
+C=12, Nc=D rungs of ``beta_ladder_depolarizing(P, D)``, a zero top rung)
+at ``ITERS`` sweeps a step, in this checkout, and says whether every
+output of the two is equal (the shape ``window_form`` decides between,
+e.g. ``--forms toric 13 512 10 0.19``, the threshold study's window at
+the upstream's iters).
 """
 
 from __future__ import annotations
@@ -432,9 +441,64 @@ def one(root: str) -> int:
     return 0
 
 
+def forms(family: str, d: int, B: int, iters: int, p: float) -> int:
+    """Both forms of K2 on one production window at this shape: the launch
+    of each, its time, and whether their outputs are equal."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False", flush=True)
+        return 1
+    import mcmc_qec_tpu_torch.ops.ladder_window as lw
+    from mcmc_qec_tpu_torch.mcmc.ladder import (beta_ladder_depolarizing,
+                                                 init_ladder)
+    from mcmc_qec_tpu_torch.models import get_spec
+    from mcmc_qec_tpu_torch.models.noise import sample_depolarizing
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"{card.stdout.strip()} | torch {torch.__version__}", flush=True)
+    spec = get_spec(family, d)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ls = init_ladder(spec, sample_depolarizing(gen, spec, p, (B,),
+                                               device="cuda"), d)
+    state = (ls.state, ls.flag, ls.tops0,
+             torch.zeros((B, spec.n_classes), dtype=torch.int32, device="cuda"),
+             torch.zeros((B,), dtype=torch.int32, device="cuda"))
+    betas = torch.as_tensor(beta_ladder_depolarizing(p, d), dtype=torch.float32,
+                            device="cuda")
+    w = np.ones(3, np.float32)
+    pick, outs = lw.window_form, {}
+    for form in ("registers", "large"):
+        lw.window_form = lambda *args: form
+        try:
+            shape, n = lw.launch_plan(spec, B, d, iters, True)
+            fn = lw.make_ladder_window(spec, d, 600, iters, 0.5, 2, 12,
+                                       top_exact=True, equal_betas=True)
+            outs[form] = fn(*state, 3, betas, w)
+            ms = _time_ms(lambda: fn(*state, 3, betas, w), 2)
+        finally:
+            lw.window_form = pick
+        print(f"K2 {form}, {family} d={d} B={B} Nc={d} iters={iters} W=600: "
+              f"{ms:.4f} ms; L={shape.lanes}, {shape.threads} threads and "
+              f"{shape.groups_per_block} syndromes a block, {shape.smem} B of "
+              f"shared memory, {n} block(s) an SM by occupancy, "
+              f"{lw.resident_rows(shape, n, lw._sm_count(torch.device('cuda')))}"
+              f" rows at once", flush=True)
+    same = [torch.equal(a, b) for a, b in zip(outs["registers"], outs["large"])]
+    print(f"K2 both forms, {family} d={d} B={B} iters={iters}: outputs "
+          f"{'equal' if all(same) else 'DIFFER'} ({sum(same)} of {len(same)} "
+          f"equal); window_form picks {pick(spec, d, True, iters)}", flush=True)
+    return 0 if all(same) else 1
+
+
 def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--one":
         return one(argv[1])
+    if len(argv) == 6 and argv[0] == "--forms":
+        return forms(argv[1], int(argv[2]), int(argv[3]), int(argv[4]),
+                     float(argv[5]))
     if len(argv) < 2:
         print(__doc__)
         return 2

@@ -67,6 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.base import CodeSpec
+from ..utils import profiling
 from .dense_sweep import _color_tables
 from .philox import MASK32, philox4x32
 
@@ -1061,24 +1062,61 @@ def _layout_fields(spec: CodeSpec, B: int, Nc: int, iters: int,
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(layout: tuple, device: torch.device) -> int:
+    """Blocks of the launch ``layout`` (``_layout_fields``' fields but the
+    batch, as sorted items) one SM of ``device`` holds at once: the
+    occupancy calculator's answer for the built kernel's registers, threads
+    and shared memory; asked once a shape."""
+    from . import _build
+
+    fn = _build.load("ladder_window").mqt_ladder_window_resident_blocks
+    fn.argtypes = [ctypes.POINTER(_Params)]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        n = fn(ctypes.byref(_Params(**dict(layout))))
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed for {dict(layout)}")
+    return n
+
+
+def _shape_key(layout: dict) -> tuple:
+    return tuple(sorted((k, v) for k, v in layout.items() if k != "B"))
+
+
 def launch_plan(spec: CodeSpec, B: int, Nc: int, iters: int,
                 equal_betas: bool, device="cuda"):
     """(BlockShape, blocks of it one SM holds at once) of a window launch
     at this shape on a CUDA ``device``, in the form ``window_form`` picks:
     the occupancy calculator's answer for the built kernel's registers,
     threads and shared memory."""
-    from . import _build
-
     device = torch.device(device)
     shape, layout = _layout_fields(spec, B, Nc, iters, equal_betas, device)
-    fn = _build.load("ladder_window").mqt_ladder_window_resident_blocks
-    fn.argtypes = [ctypes.POINTER(_Params)]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        n = fn(ctypes.byref(_Params(**layout)))
-    if n < 0:
-        raise RuntimeError(f"occupancy query failed for {shape}")
-    return shape, n
+    return shape, _resident_blocks(_shape_key(layout), device)
+
+
+def resident_rows(shape: BlockShape, blocks_per_sm: int, n_sm: int) -> int:
+    """Syndrome rows a window launch of ``shape`` runs on the card at once:
+    its groups a block, times the blocks an SM holds, times the SMs.  A
+    launch of B rows runs in about B over this many waves."""
+    return shape.groups_per_block * blocks_per_sm * n_sm
+
+
+def _record_launch(shape: BlockShape, layout: dict, device: torch.device,
+                   B: int) -> None:
+    """The recorder's counters of one launch (``utils/profiling.py``, only
+    while it records): ``k2.form.registers`` or ``k2.form.large``, one a
+    launch; ``k2.resident_rows``, the rows its shape holds at once
+    (``resident_rows``), and ``k2.waves_micro``, its rows over those in
+    millionths of a wave, each summed over launches.  Off, the read of the
+    recorder's flag is all it costs."""
+    if not profiling.recording():
+        return
+    profiling.count("k2.form.large" if layout["wide"] else "k2.form.registers")
+    held = resident_rows(shape, _resident_blocks(_shape_key(layout), device),
+                         _sm_count(device))
+    profiling.count("k2.resident_rows", held)
+    profiling.count("k2.waves_micro", round(1e6 * B / held))
 
 
 def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
@@ -1157,6 +1195,7 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
             f"(B={B}, Nc={Nc}, nq={nq}, nw={offs['nw']}, {shape})"
         )
     ladder_window_counts.add_launch(B)
+    _record_launch(shape, layout, device, B)
     return out
 
 

@@ -12,7 +12,7 @@ of the port's layers: the pipeline's stages (``pipeline.*``), PTEQ's
 window loop (``pteq.*``), the stream scan (``stream.*``) and the rank
 gathers (``multihost.*``).  It records only while a ``torch.profiler``
 records (``device_trace`` is one), in any thread of the process; otherwise
-a span costs the read of one flag (``_recording``).  While it records, a
+a span costs the read of one flag (``recording``).  While it records, a
 span is also a host range of the profiler's trace, on the trace's clock, so
 the trace's idle gaps can be put down to the span that covered them.
 """
@@ -148,7 +148,7 @@ def _trace_range(name: str, call: Optional[int]):
     return _FastRange(name) if call is None else _FastRange(name, (call,))
 
 
-def _recording() -> bool:
+def recording() -> bool:
     """Whether a ``torch.profiler`` records: the flag it sets for the whole
     process while it traces.  ``torch.autograd._profiler_enabled()``
     answers for the calling thread only, and the shards of
@@ -186,12 +186,12 @@ class Recorder:
         return next(self._calls)
 
     def span(self, name: str, call: Optional[int] = None):
-        if not _recording():
+        if not recording():
             return _OFF
         return _Span(self, name, call)
 
     def count(self, name: str, n: int = 1) -> None:
-        if not _recording():
+        if not recording():
             return
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + int(n)
