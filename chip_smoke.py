@@ -3153,7 +3153,8 @@ def phase_large_codes():
         worst_k2 = max(worst_k2, compare_window(
             family, d, Nc, B, W, 2, 4, 0.15, rng, 600 + i, branch, exchange,
             traces=traces, both_swaps=rng == "philox"))
-        names_k2.add(_k2_form_name(get_spec(family, d), Nc, BRANCHES[branch][1]))
+        names_k2.add(_k2_form_name(get_spec(family, d), Nc, BRANCHES[branch][1],
+                                   B))
     general = betas_xyz(0.05, 0.02, 0.1)
     worst_k1, n_k1, names_k1 = 0.0, 0, set()
     for i, (family, d, B) in enumerate(LARGE_K1):
@@ -3228,7 +3229,7 @@ def phase_large_codes():
     t = time_window(spec, states, m["d"], beta_ladder_alpha(pz_tilde, alpha,
                                                             m["d"]),
                     (alpha, alpha, 1.0), False, LARGE_TIMED_W, 41)
-    name = _k2_form_name(spec, m["d"], False)
+    name = _k2_form_name(spec, m["d"], False, m["B"])
     lines.append(
         f"PTEQ_alpha {m['family']} d={m['d']} Nc={m['d']} eta={m['eta']} "
         f"p={m['p']} B={m['B']} max_steps={m['max_steps']} (window {res.window}): "
@@ -3260,8 +3261,9 @@ def phase_large_codes():
         if rec < LARGE_MIN_RECOVERED:
             fails.append(f"{tag}: recovered {rec:.4f} < {LARGE_MIN_RECOVERED}")
         windows = -(-int(res.steps.max()) // PROD["window"])
-        form = lw.window_form(spec, m["d"], True, PROD["iters"])
-        name = (f"K2 {_k2_form_name(spec, m['d'], True)} ({form}) {k2} "
+        form = lw.window_form(spec, m["d"], True, PROD["iters"], m["B"],
+                              _n_sm())
+        name = (f"K2 {_k2_form_name(spec, m['d'], True, m['B'])} ({form}) {k2} "
                 f"launches" if fused else
                 f"K1 {_k1_name(spec, False, False)} {k1} launches")
         decodes[(m["family"], m["d"])] = dict(seconds=dt, launches=k2,
@@ -3286,7 +3288,8 @@ def phase_large_codes():
             f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}); launch {launch_line(spec, m['B'], m['d'], True)}")
         entries.append(dict(t, name=f"ladder_window_{m['family']}_d{m['d']}",
-                            instantiation=_k2_form_name(spec, m["d"], True),
+                            instantiation=_k2_form_name(spec, m["d"], True,
+                                                        m["B"]),
                             launches=k2, source="ladder_window.cu"))
 
     # STDC at rotated d=19 through K1's recording sampler
@@ -3337,8 +3340,8 @@ def phase_large_codes():
     # only K2's large variant holds
     m = LARGE_FALLBACK
     spec = fb_spec
-    check(lw.window_form(spec, m["d"], False, PROD["iters"]) == "large",
-          "xzzx d=31 at 31 rungs is not the large variant's ladder")
+    check(lw.window_forms(spec, m["d"], False, PROD["iters"]) == ("large",),
+          "xzzx d=31 at 31 rungs is not the large variant's ladder alone")
     gen = torch.Generator(device="cuda").manual_seed(2044)
     states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
     cfg = PTEQConfig(max_steps=m["max_steps"], window=m["window"],
@@ -3658,10 +3661,16 @@ def _k2_wide_name(spec, equal_betas):
     return f"wide<{'true' if equal_betas else 'false'}> at {offs['nw']} words"
 
 
-def _k2_form_name(spec, Nc, equal_betas):
+def _n_sm() -> int:
+    """The card's SMs, which ``window_form`` counts waves over."""
+    return lw._sm_count(torch.device("cuda"))
+
+
+def _k2_form_name(spec, Nc, equal_betas, B):
     """The K2 instantiation ``window_form`` picks for Nc rungs of ``spec``
-    at PROD's sweeps a step."""
-    if lw.window_form(spec, Nc, equal_betas, PROD["iters"]) == "large":
+    over B rows at PROD's sweeps a step."""
+    if lw.window_form(spec, Nc, equal_betas, PROD["iters"], B,
+                      _n_sm()) == "large":
         return _k2_wide_name(spec, equal_betas)
     return _k2_name(spec, equal_betas)
 
@@ -3698,7 +3707,7 @@ def phase_window_above_16_words(built, unfused_s):
             enumerate(WIDE_K2):
         spec = get_spec(family, d)
         eq = BRANCHES[branch][1]
-        check(lw.window_form(spec, Nc, eq, 2) == "large",
+        check(lw.window_form(spec, Nc, eq, 2, B, _n_sm()) == "large",
               f"{family} d={d} Nc={Nc}: not the large variant's ladder")
         worst = max(worst, compare_window(
             family, d, Nc, B, W, 2, 4, 0.15, rng, 1300 + i, branch, exchange,
@@ -3838,7 +3847,7 @@ def phase_window_above_16_words(built, unfused_s):
     args = (ls.state, ls.flag, ls.tops0, *zeros, 4, betas, np.ones(3, np.float32))
     fn = make_ladder_window(spec, m["d"], PROD["window"], PROD["iters"], 0.5, 2,
                             PROD["energy_chunk"], **PROD_BRANCH)
-    pick = lw.window_form(spec, m["d"], True, PROD["iters"])
+    pick = lw.window_form(spec, m["d"], True, PROD["iters"], m["B"], _n_sm())
     timed = {}
     for form in ("registers", "large"):
         with _window_form(form):
@@ -3872,7 +3881,7 @@ def phase_window_forms(built, decodes, wide_k2):
             enumerate(FORMS_K2):
         spec = get_spec(family, d)
         eq = BRANCHES[branch][1]
-        check(lw.window_form(spec, Nc, eq, PROD["iters"]) == "large",
+        check(lw.window_form(spec, Nc, eq, PROD["iters"], B, _n_sm()) == "large",
               f"{family} d={d} Nc={Nc}: window_form does not pick the large "
               f"variant")
         outs = []

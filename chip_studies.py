@@ -4,6 +4,7 @@ their fits, and the other studies at their defaults.
     python3 chip_studies.py [--out DIR] [--runs depol,eta10,others]
     python3 chip_studies.py --runs scaling      # on a host with 2+ cards
     python3 chip_studies.py --runs compare --out mcmc_qec_tpu_torch/studies/results
+    python3 chip_studies.py --runs depol --sizes 13   # one column of a grid
 
 Runs ``mcmc_qec_tpu_torch.studies`` at the sizes of the grids the JAX
 package committed under ``examples/``:
@@ -33,6 +34,9 @@ fits each grid (``studies.fss.fit``, 400 bootstrap refits, p0 0.189 and
   there are, its stdout in ``DIR/scaling_bench.txt``;
 - ``compare`` (alone, no card needed): each grid in DIR against the TPU's
   cell by cell (also printed after each grid's fit).
+
+``--sizes`` runs only those columns of the grids (no fit: the scaling fit
+needs every size), e.g. the depolarizing grid's d=13 column alone.
 
 DIR defaults to ``output/studies``.  The first line is each card as
 nvidia-smi names it with its power limit.  Needs a CUDA device, except for
@@ -81,22 +85,22 @@ GRIDS = {
 EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
 
 
-def _cells(grid):
+def _cells(grid, sizes=None):
     if grid == "depol":
-        for d in DEPOL_SIZES:
+        for d in sizes or DEPOL_SIZES:
             cap = ["--cap", str(DEPOL_CAP[d])] if d in DEPOL_CAP else []
             for p in DEPOL_PS:
                 yield d, p, threshold_fit.main, ["collect", *cap]
     else:
-        for d in ETA10_SIZES:
+        for d in sizes or ETA10_SIZES:
             for p in ETA10_PS:
                 yield d, p, threshold_fit_biased.main, ["collect", "--eta",
                                                          "10"]
 
 
-def collect(grid, path):
+def collect(grid, path, sizes=None):
     t0 = time.perf_counter()
-    for d, p, main, head in _cells(grid):
+    for d, p, main, head in _cells(grid, sizes):
         ladder_window_counts.reset()
         main([*head, "--sizes", str(d), "--ps", str(p), "-n", "2048",
               "--batch", "512", "--data", path, "--device", "cuda"])
@@ -159,7 +163,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="output/studies")
     ap.add_argument("--runs", default="depol,eta10,others")
+    ap.add_argument("--sizes", default=None,
+                    help="comma-separated code sizes: the grids' columns to "
+                         "run (default: all of each grid's)")
     args = ap.parse_args(argv)
+    sizes = args.sizes and [int(d) for d in args.sizes.split(",")]
     if args.runs == "compare":
         for grid, g in GRIDS.items():
             compare(grid, os.path.join(args.out, g["file"]))
@@ -183,12 +191,13 @@ def main(argv=None) -> int:
         grid = run
         g = GRIDS[grid]
         path = os.path.join(args.out, g["file"])
-        collect(grid, path)
-        out = fss.fit(types.SimpleNamespace(data=path, boot=400,
-                                            min_converged=0.0,
-                                            correction=False, p0=g["p0"]))
-        with open(path.replace(".json", "_fit.json"), "w") as f:
-            json.dump(out, f, indent=1)
+        collect(grid, path, sizes)
+        if not sizes:  # some columns alone leave the scaling fit nothing to fit
+            out = fss.fit(types.SimpleNamespace(data=path, boot=400,
+                                                min_converged=0.0,
+                                                correction=False, p0=g["p0"]))
+            with open(path.replace(".json", "_fit.json"), "w") as f:
+                json.dump(out, f, indent=1)
         compare(grid, path)
     return 0
 

@@ -29,9 +29,8 @@ change parent`` compares two commits on one card.  Per root it prints:
 - both forms, each forced, on one production window at the 16-word
   shapes (toric d=21 B=64, rotated d=29 B=128) and the 12-word shapes
   (toric d=17 B=64, toric d=19 B=512, rotated d=27 B=128, xzzx d=25 B=512
-  general), and for the record below 12 words (toric d=15 and d=13 and
-  xzzx d=13 at B=512, toric d=5 at B=2048): the measurement
-  ``window_form``'s rule rests on;
+  general), and below 12 words (toric d=15 and d=13 and xzzx d=13 at
+  B=512, toric d=5 at B=2048);
 - two decodes through ``PTEQ``: toric d=23 B=16 cap 1200 and
   ``PTEQ_alpha`` xzzx d=33 eta=10 p=0.20 B=64 cap 12,000 (the smoke
   check's phase 28 (c) inputs), with their window, K2 launches and a
@@ -62,6 +61,14 @@ at ``ITERS`` sweeps a step, in this checkout, and says whether every
 output of the two is equal (the shape ``window_form`` decides between,
 e.g. ``--forms toric 13 512 10 0.19``, the threshold study's window at
 the upstream's iters).
+
+    python3 chip_window_probe.py --grid fit|check [OUT.jsonl]
+
+times both forms the same way over ``GRIDS``' shapes at iters 2 and 10:
+"fit" (toric d = 5 ... 15 at several batches, xzzx and rotated d = 9, 13,
+17 at B=512 in both betas forms) is the measurement ``window_form``'s rule
+rests on, "check" shapes its fit did not see; one JSON record a shape in
+OUT (``chiprun_out/window_forms_<grid>.jsonl``).
 """
 
 from __future__ import annotations
@@ -90,6 +97,17 @@ def _time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def picks(window_form, spec, Nc: int, equal_betas: bool, iters: int, B: int,
+          n_sm: int = 132):
+    """The form ``window_form`` picks for B rows, in a checkout whose rule
+    reads the batch, or the form it picks whatever the batch in one whose
+    rule does not."""
+    try:
+        return window_form(spec, Nc, equal_betas, iters, B, n_sm)
+    except TypeError:
+        return window_form(spec, Nc, equal_betas, iters)
 
 
 def ptxas_lines(log: str):
@@ -281,7 +299,8 @@ def one(root: str) -> int:
               f"W=600 {'equal' if eq else 'general'} betas: register form "
               f"{times['registers']:.4f} ms, large variant "
               f"{times['large']:.4f} ms ({plan(family, d, B, eq, 'large')}); "
-              f"window_form picks {lw.window_form(spec, d, eq, 2)}", flush=True)
+              f"window_form picks {picks(lw.window_form, spec, d, eq, 2, B)}",
+              flush=True)
 
     def digest(res):
         h = hashlib.sha256()
@@ -489,8 +508,141 @@ def forms(family: str, d: int, B: int, iters: int, p: float) -> int:
     same = [torch.equal(a, b) for a, b in zip(outs["registers"], outs["large"])]
     print(f"K2 both forms, {family} d={d} B={B} iters={iters}: outputs "
           f"{'equal' if all(same) else 'DIFFER'} ({sum(same)} of {len(same)} "
-          f"equal); window_form picks {pick(spec, d, True, iters)}", flush=True)
+          f"equal); window_form picks {picks(pick, spec, d, True, iters, B)}",
+          flush=True)
     return 0 if all(same) else 1
+
+
+# (family, d, batches, betas) of ``--grid``, each at iters 2 and 10.  "fit":
+# toric at the depolarizing grid's sizes near its threshold, with the d=5
+# cells' corpus-sized batch and the compacted tails of their decodes; xzzx
+# and rotated at B=512 in both betas forms (general: ``PTEQ_alpha`` at
+# eta=10).  "check": shapes the fit of ``WAVE_COST`` did not see, every
+# other (words, span) of the register instantiations, the study's
+# compacted d=13 batches and batches past a wave
+GRIDS = {
+    "fit": ([("toric", 5, (16, 64, 132, 300, 512, 1024, 2048, 2603), "equal")]
+            + [("toric", d, (64, 132, 512, 2048), "equal")
+               for d in (7, 9, 11, 13, 15)]
+            + [(f, d, (512,), b) for f in ("xzzx", "rotated") for d in (9, 13, 17)
+               for b in ("equal", "general")]),
+    "check": ([("planar", d, (512,), "equal") for d in (9, 11, 13, 15)]
+              + [("rotated", d, (512,), "equal") for d in (11, 15, 19, 21)]
+              + [("xzzx", d, (512,), "general") for d in (11, 15, 19, 21)]
+              + [("xzzx", 17, (132,), "general"),
+                 ("xzzx", 13, (132, 2048), "general"),
+                 ("toric", 13, (128, 256, 1024), "equal"),
+                 ("toric", 5, (4096,), "equal"),
+                 ("toric", 7, (1024, 4096), "equal")]),
+}
+GRID_P = {"toric": 0.19, "planar": 0.19, "rotated": 0.19, "xzzx": 0.276}
+
+
+def grid(name: str, out_path: str) -> int:
+    """Both forms of K2, each forced, on one production window (W=600,
+    C=12, Nc=d, a zero top rung) at every shape of ``GRIDS[name]`` and
+    iters 2 and 10:
+    each form's time, launch and rows held at once (the occupancy
+    calculator's blocks an SM), whether all outputs are equal, and the form
+    ``window_form`` picks; one line a shape, and one JSON record a shape in
+    ``out_path``."""
+    import json
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False", flush=True)
+        return 1
+    import mcmc_qec_tpu_torch.ops.ladder_window as lw
+    from mcmc_qec_tpu_torch.mcmc.ladder import (beta_ladder_alpha,
+                                                 beta_ladder_depolarizing,
+                                                 init_ladder)
+    from mcmc_qec_tpu_torch.models import get_spec
+    from mcmc_qec_tpu_torch.models.noise import (biased_alpha_equivalent,
+                                                 sample_depolarizing)
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"{card.stdout.strip()} | torch {torch.__version__}", flush=True)
+    from mcmc_qec_tpu_torch.ops import _build
+
+    built = _build.build("ladder_window")
+    print(f"K2 build {built.seconds:.1f} s, ptxas: "
+          f"{' | '.join(ptxas_lines(built.log)) or 'reused build'}", flush=True)
+    dev = torch.device("cuda")
+    n_sm = lw._sm_count(dev)
+    pick, bad = lw.window_form, 0
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    with open(out_path, "w") as log:
+        for family, d, batches, kind in GRIDS[name]:
+            spec, p = get_spec(family, d), GRID_P[family]
+            eq = kind == "equal"
+            if eq:
+                betas, w = beta_ladder_depolarizing(p, d), np.ones(3, np.float32)
+            else:
+                pzt, alpha = biased_alpha_equivalent(p, 10.0)
+                betas = beta_ladder_alpha(pzt, alpha, d)
+                w = np.asarray([alpha, alpha, 1.0], np.float32)
+            betas = torch.as_tensor(betas, dtype=torch.float32, device=dev)
+            for B in batches:
+                gen = torch.Generator(device="cuda").manual_seed(5 + B)
+                ls = init_ladder(spec, sample_depolarizing(gen, spec, p, (B,),
+                                                           device="cuda"), d)
+                state = (ls.state, ls.flag, ls.tops0,
+                         torch.zeros((B, spec.n_classes), dtype=torch.int32,
+                                     device=dev),
+                         torch.zeros((B,), dtype=torch.int32, device=dev))
+                for iters in (2, 10):
+                    rec = dict(family=family, d=d, B=B, iters=iters,
+                               betas=kind, nw=lw.kernel_words(spec.nq),
+                               span=lw.spanned_words(spec))
+                    outs = {}
+                    for form in ("registers", "large"):
+                        lw.window_form = lambda *args: form
+                        try:
+                            shape, n = lw.launch_plan(spec, B, d, iters, eq)
+                        except ValueError:  # the form does not hold it
+                            rec[form] = None
+                            lw.window_form = pick
+                            continue
+                        try:
+                            fn = lw.make_ladder_window(
+                                spec, d, 600, iters, 0.5, 2, 12,
+                                top_exact=True, equal_betas=eq)
+                            first = time.perf_counter()
+                            outs[form] = fn(*state, 3, betas, w)
+                            torch.cuda.synchronize()
+                            first = 1e3 * (time.perf_counter() - first)
+                            reps = 1 if first > 250 else min(5, 1 + int(500 / first))
+                            ms = _time_ms(lambda: fn(*state, 3, betas, w), reps)
+                        finally:
+                            lw.window_form = pick
+                        rec[form] = dict(
+                            ms=round(ms, 4), lanes=shape.lanes,
+                            threads=shape.threads,
+                            groups=shape.groups_per_block, smem=shape.smem,
+                            blocks_per_sm=n,
+                            rows_at_once=lw.resident_rows(shape, n, n_sm))
+                    same = [torch.equal(a, b) for a, b in
+                            zip(outs.get("registers", ()), outs["large"])]
+                    bad += not all(same)
+                    rec.update(equal=sum(same), outputs=len(same),
+                               pick=picks(pick, spec, d, eq, iters, B, n_sm))
+                    log.write(json.dumps(rec) + "\n")
+                    log.flush()
+                    said = {f: "does not hold it" if r is None else
+                            f"{r['ms']:.3f} ms ({r['rows_at_once']} rows at "
+                            f"once)" for f, r in rec.items()
+                            if f in ("registers", "large")}
+                    print(f"{family} d={d} ({rec['nw']} words, span "
+                          f"{rec['span']}) B={B} iters={iters} {kind}: "
+                          f"registers {said['registers']}, large "
+                          f"{said['large']}; {sum(same)}/{len(same)} outputs "
+                          f"equal; window_form picks {rec['pick']}",
+                          flush=True)
+    print(f"grid: {bad} shapes with outputs that differ", flush=True)
+    return 1 if bad else 0
 
 
 def main(argv) -> int:
@@ -499,6 +651,9 @@ def main(argv) -> int:
     if len(argv) == 6 and argv[0] == "--forms":
         return forms(argv[1], int(argv[2]), int(argv[3]), int(argv[4]),
                      float(argv[5]))
+    if len(argv) in (2, 3) and argv[0] == "--grid" and argv[1] in GRIDS:
+        return grid(argv[1], argv[2] if len(argv) == 3 else
+                    f"chiprun_out/window_forms_{argv[1]}.jsonl")
     if len(argv) < 2:
         print(__doc__)
         return 2

@@ -9,14 +9,14 @@ window).  ``make_ladder_window`` returns a function with the exact
   first use, ``ops/_build.py``) once per window, or raises;
 - a CPU tensor runs ``ladder_window_reference``, the plain version.
 
-The kernel has two forms, picked from shapes before any launch
+The kernel has two forms, picked at each launch from its shape
 (``window_form``): the register form, each rung's planes in its lanes'
 registers (``KERNEL_SHAPES``, up to 16 words per plane), and the large
 variant, the planes in shared memory at 2 bits a qubit and the word count
 a run-time value, for every ladder the registers cannot hold (codes above
 16 words per plane, up to WIDE_WORDS; groups too large for the register
-form's shared memory) and for the codes where it is the faster form
-(``WIDE_FROM_WORDS``).  Both compute the same function.
+form's shared memory) and for the launches where it is the faster form
+(the waves of each and ``wave_cost``).  Both compute the same function.
 
 Every branch of the TPU kernel is ported:
 
@@ -99,9 +99,20 @@ MAX_THREADS = 512
 # bounds: at most 64 registers a thread) and the warps an SM holds of it
 WIDE_MAX_THREADS = 1024
 WIDE_WARPS_PER_SM = 32
-# codes of this many words per plane or more run the large variant wherever
-# it holds the ladder, though the register form does too (``window_form``)
-WIDE_FROM_WORDS = 12
+# what one SM of the card (Hopper, sm_90) holds of a launch: shared memory,
+# of which the runtime keeps 1 KB a block, and blocks; its registers are
+# counted through each form's launch bounds (``blocks_per_sm``)
+SM_SMEM = 233472
+SMEM_RESERVED = 1024
+SM_BLOCKS = 32
+# how ``window_form`` models a launch's time: a wave of the register form
+# costs a + b * (words per plane) + c * (spanned words per stabilizer)
+# waves of the large variant over the same rows, and a wave that puts r
+# rows on each SM takes r ** ROWS_EXPONENT times as long as one row alone;
+# fitted by least squares to the log of the two forms' time ratio over
+# chip_window_probe.py --grid's 113 pairs
+WAVE_COST = (-0.03, 0.215, 0.135)
+ROWS_EXPONENT = 0.57
 # bits of a qubit index in an entry of ``qubit_table``
 _QUBIT_BITS = 14
 # named barriers a block has for multi-warp groups (id 0 is __syncthreads)
@@ -933,60 +944,177 @@ def wide_block_shape(offs, Nc: int, K: int, B: int, n_sm: int,
     return shape
 
 
-def window_form(spec: CodeSpec, Nc: int, equal_betas: bool,
-                iters: int) -> Optional[str]:
-    """Which form of the window kernel runs a window of ``Nc`` rungs of
-    ``spec``, decided from shapes alone, before any build or launch:
+def blocks_per_sm(shape: BlockShape, max_threads: int) -> int:
+    """Blocks of ``shape`` one SM holds at once, from its shared memory
+    (SM_SMEM, SMEM_RESERVED a block), SM_BLOCKS and its registers: a kernel
+    launched under ``__launch_bounds__(max_threads, 1)`` takes at most the
+    registers of ``max_threads`` threads an SM, so an SM holds ``max_threads
+    // threads`` of its blocks (ptxas gives the register form 122-128
+    registers a thread at MAX_THREADS, the large variant 64 at
+    WIDE_MAX_THREADS).  Where this is more than one wave needs, the
+    occupancy calculator may say fewer (``_resident_blocks``); the waves
+    stay the same."""
+    return min(SM_SMEM // (shape.smem + SMEM_RESERVED),
+               max_threads // shape.threads, SM_BLOCKS)
+
+
+@functools.lru_cache(maxsize=None)
+def window_forms(spec: CodeSpec, Nc: int, equal_betas: bool,
+                 iters: int) -> Tuple[str, ...]:
+    """The forms of the window kernel that hold a window of ``Nc`` rungs of
+    ``spec``, from shapes alone, whatever the batch:
 
     - ``"registers"``: the code has a register instantiation
-      (``has_kernel_shape``) of fewer than WIDE_FROM_WORDS words per plane,
-      one syndrome's Nc x ``lanes_per_rung`` threads fit a block and one
-      group fits 227 KB of shared memory with the tables in device memory;
-    - ``"large"`` failing that: the large variant, the planes in shared
-      memory, takes at most WIDE_WORDS words per plane, Nc <=
-      WIDE_MAX_THREADS rungs (at least one lane a rung) and one group in
-      227 KB with the tables in device memory;
-    - None beyond both, where PTEQ runs the unfused window
-      (decoders/pteq.py::_get_window_fn), as the JAX package does where
-      its fused kernel does not fit (pteq.py:306-309).
+      (``has_kernel_shape``), one syndrome's Nc x ``lanes_per_rung``
+      threads fit a block and one group fits 227 KB of shared memory with
+      the tables in device memory;
+    - ``"large"``: the large variant, the planes in shared memory, takes at
+      most WIDE_WORDS words per plane, Nc <= WIDE_MAX_THREADS rungs (at
+      least one lane a rung) and one group in 227 KB with the tables in
+      device memory.
 
-    The two forms give equal outputs, so the rule moves only time.  It
-    rests on chip_window_probe.py's production windows (W=600, two sweeps
-    a step) in both forms on an NVIDIA H100 80GB HBM3 at 700 W, large
-    variant against register form: at 16 words 37.7 against 319.7 ms
-    (toric d=21, B=64) and 39.5 against 256.1 (rotated d=29, B=128); at 12
-    words 28.2 against 149.2 (toric d=17, B=64), 74.7 against 728.1
-    (toric d=19, B=512), 35.6 against 110.9 (rotated d=27, B=128) and
-    85.7 against 444.8 (xzzx d=25, B=512, general betas).  Below 12 words
-    the forms split: the large variant is faster at toric d=15 and d=13
-    (46.6 against 178.7 and 40.9 against 92.4 at B=512), slower at xzzx
-    d=13 (24.3 against 20.9, B=512) and toric d=5 (21.8 against 7.7,
-    B=2048), the production and study shapes the register form was
-    designed for; ``WIDE_FROM_WORDS`` is where to move that line.
-    ``block_shape`` and ``wide_block_shape`` find a launch at every batch
-    of the form it names."""
+    None of them: PTEQ runs the unfused window
+    (decoders/pteq.py::_get_window_fn), as the JAX package does where its
+    fused kernel does not fit (pteq.py:306-309).  ``block_shape`` and
+    ``wide_block_shape`` find a launch at every batch of each form named."""
     K, nd = spec.n_classes, len(spec.logical_draws)
+    forms = []
     if has_kernel_shape(spec):
         offs = kernel_tables(spec)[2]
         threads = 32 * -(-Nc * lanes_per_rung(offs, Nc) // 32)
-        if offs["nw"] < WIDE_FROM_WORDS and threads <= MAX_THREADS and smem_bytes(
+        if threads <= MAX_THREADS and smem_bytes(
                 offs, Nc, K, 1, equal_betas, iters, nd,
                 tab_in_smem=False) <= SMEM_LIMIT:
-            return "registers"
-    large = (-(-spec.nq // 64) <= WIDE_WORDS and 1 <= Nc <= WIDE_MAX_THREADS
-             and wide_smem_bytes(kernel_tables(spec)[2], Nc, K, 1,
-                                 equal_betas, iters, nd,
-                                 tab_in_smem=False) <= SMEM_LIMIT)
-    return "large" if large else None
+            forms.append("registers")
+    if (-(-spec.nq // 64) <= WIDE_WORDS and 1 <= Nc <= WIDE_MAX_THREADS
+            and wide_smem_bytes(kernel_tables(spec)[2], Nc, K, 1, equal_betas,
+                                iters, nd, tab_in_smem=False) <= SMEM_LIMIT):
+        forms.append("large")
+    return tuple(forms)
+
+
+def wave_cost(offs) -> float:
+    """The register form's time for one wave of rows over the large
+    variant's, at the code's words per plane and spanned words per
+    stabilizer (WAVE_COST): 0.32 at 1 word, 0.89 at 3 words spanning 2,
+    1.16 at 3 words spanning 4, 1.80 at 6 words spanning 4, 2.82 and more
+    from 12 words on."""
+    a, b, c = WAVE_COST
+    return a + b * offs["nw"] + c * offs["span"]
+
+
+@functools.lru_cache(maxsize=4096)
+def window_form(spec: CodeSpec, Nc: int, equal_betas: bool, iters: int,
+                B: int, n_sm: int) -> Optional[str]:
+    """Which form of the window kernel runs a window of ``Nc`` rungs of
+    ``spec`` over ``B`` syndrome rows on a card of ``n_sm`` SMs, decided
+    from shapes alone, before any build or launch: of ``window_forms``, the
+    one of the lower modelled time, or None where neither holds the ladder.
+    The two forms give equal outputs, so the rule moves only time, and the
+    form may change between the windows of one decode as compaction
+    shrinks the batch.
+
+    The model: a launch runs in ceil(B / held) waves, ``held`` the rows its
+    shape holds at once (groups a block x ``blocks_per_sm`` x n_sm, from
+    ``block_shape`` and ``wide_block_shape``); a wave that puts r = min(B,
+    held) / n_sm rows on each SM takes r ** ROWS_EXPONENT times one row's
+    time, as rows hide each other's latency in part; and a wave of the
+    register form costs ``wave_cost`` waves of the large variant, as its
+    lanes each hold and exchange the whole planes while the large
+    variant's touch only their own qubits.  So the register form keeps the
+    codes of 1 and 2 words a plane and those of 3 words spanning 2 while
+    its waves are few; the large variant takes the rest, and every launch
+    at iters=10 whose staged sweep draws leave the register form one group
+    an SM.
+
+    The measurements it rests on (chip_window_probe.py --grid fit and
+    check: one W=600 window, C=12, Nc=d, a zero top rung, both forms each
+    forced on the same inputs, all nine outputs equal at every shape;
+    NVIDIA H100 80GB HBM3 at 700 W, 132 SMs), register form / large variant
+    in ms, e = equal betas, g = general (``PTEQ_alpha``'s at eta=10,
+    p=0.276), toric, planar and rotated at p=0.19:
+
+    ====================  =====  ====================  ====================
+    code (words, span)    B      iters=2               iters=10
+    ====================  =====  ====================  ====================
+    toric d=5 (1, 1)      16     5.58 / 14.48          22.18 / 64.84
+                          512    5.61 / 14.48          22.26 / 65.16
+                          1024   6.20 / 16.50          24.75 / 75.10
+                          2048   7.66 / 21.83          31.45 / 101.09
+                          2603   15.22 / 25.38         62.78 / 117.85
+                          4096   15.39 / 38.14         63.32 / 179.27
+    toric d=7 (2, 2)      64     8.54 / 14.36          37.27 / 66.52
+                          512    9.71 / 16.25          43.14 / 76.31
+                          1024   12.89 / 21.35         118.26 / 102.52
+                          2048   25.33 / 71.55         175.96 / 352.39
+                          4096   51.05 / 108.14        295.95 / 532.82
+    xzzx d=9 (2, 2) e     512    8.66 / 13.97          35.11 / 62.10
+    xzzx d=11 (2, 2) g    512    12.74 / 22.02         110.78 / 102.35
+    rotated d=11 (2, 2)   512    11.15 / 19.78         96.98 / 92.62
+    xzzx d=13 (3, 2) g    132    12.88 / 13.68         55.11 / 59.74
+                          512    20.93 / 24.92         129.91 / 117.54
+                          2048   83.18 / 90.10         519.10 / 442.62
+    xzzx d=13 (3, 2) e    512    19.25 / 22.72         121.18 / 106.90
+    toric d=9 (3, 4)      64     15.99 / 14.72         70.72 / 66.60
+                          512    23.99 / 23.40         220.49 / 112.26
+                          2048   116.20 / 84.57        659.23 / 412.72
+    planar d=9 (3, 4)     512    19.52 / 14.85         91.15 / 69.03
+    xzzx d=15 (4, 2) g    512    30.42 / 28.72         314.09 / 134.57
+    rotated d=15 (4, 2)   512    28.19 / 25.55         276.07 / 121.08
+    toric d=11 (4, 4)     64     24.95 / 16.36         116.49 / 75.80
+                          512    40.17 / 27.09         465.81 / 129.92
+                          2048   202.39 / 100.88       1860.31 / 495.67
+    toric d=13 (6, 4)     64     37.52 / 20.54         178.21 / 95.37
+                          256    51.77 / 30.51         358.98 / 146.69
+                          512    91.53 / 42.80         711.94 / 209.15
+                          1024   184.44 / 66.20        1434.10 / 328.12
+                          2048   366.02 / 131.25       2844.52 / 650.65
+    planar d=13 (6, 4)    512    78.22 / 31.83         606.55 / 153.79
+    xzzx d=17 (6, 2) g    132    28.37 / 20.23         131.46 / 89.45
+                          512    89.64 / 38.91         524.45 / 186.11
+    toric d=15 (8, 4)     512    177.58 / 50.40        (large only) 247.98
+                          2048   714.01 / 160.31       (large only) 794.56
+    xzzx d=21 (8, 2) g    512    130.01 / 62.20        (large only) 300.99
+    toric d=17 (12, 4)    64     149.2 / 28.2          --
+    toric d=19 (12, 4)    512    728.1 / 74.7          --
+    rotated d=27 (12, 2)  128    110.9 / 35.6          --
+    xzzx d=25 (12, 2) g   512    444.8 / 85.7          --
+    toric d=21 (16, 4)    64     319.7 / 37.7          --
+    rotated d=29 (16, 2)  128    256.1 / 39.5          --
+    ====================  =====  ====================  ====================
+
+    Rotated d=9, 13 and 17 read as xzzx codes of the same size and betas
+    within 2%, general betas 6-13% slower than equal ones in both forms,
+    toric d=5 at B=64 to 300 as at B=16 and toric d=7 to d=15 at B=132 as
+    at B=64.  The rule picks the faster form at 112 of the 113 pairs of
+    both grids; at the other, xzzx d=13 at B=2048 and iters=2, the large
+    variant it picks takes 8% longer.  The 12- and 16-word rows are
+    chip_window_probe.py's both-forms line at p=0.05 on the same card
+    model; the rule picks the large variant there at every batch."""
+    forms = window_forms(spec, Nc, equal_betas, iters)
+    if len(forms) < 2:
+        return forms[0] if forms else None
+    offs = kernel_tables(spec)[2]
+    K, nd = spec.n_classes, len(spec.logical_draws)
+    rows = max(B, 1)
+    args = (offs, Nc, K, rows, n_sm, equal_betas, iters, nd)
+
+    def modelled(shape: BlockShape, max_threads: int) -> float:
+        held = resident_rows(shape, blocks_per_sm(shape, max_threads), n_sm)
+        return -(-rows // held) * (min(rows, held) / n_sm) ** ROWS_EXPONENT
+
+    registers = modelled(block_shape(*args), MAX_THREADS) * wave_cost(offs)
+    large = modelled(wide_block_shape(*args), WIDE_MAX_THREADS)
+    return "registers" if registers < large else "large"
 
 
 def window_kernel_fits(spec: CodeSpec, Nc: int, equal_betas: bool,
                        iters: int) -> bool:
     """Whether either form of the window kernel runs a window of ``Nc``
-    rungs of ``spec`` (``window_form`` is not None).  Where it is False,
+    rungs of ``spec`` at any batch (``window_forms``).  Where it is False,
     PTEQ runs the unfused window instead (decoders/pteq.py::_get_window_fn),
     as the JAX package does where its fused kernel does not fit."""
-    return window_form(spec, Nc, equal_betas, iters) is not None
+    return bool(window_forms(spec, Nc, equal_betas, iters))
 
 
 def window_limit(spec: CodeSpec, Nc: int) -> str:
@@ -1034,7 +1162,7 @@ def _layout_fields(spec: CodeSpec, B: int, Nc: int, iters: int,
     """(BlockShape, the ``_Params`` fields that set the kernel's form,
     shape and shared-memory layout) of a window launch on ``device``; a
     ``ValueError`` where no form holds the ladder (``window_form``)."""
-    form = window_form(spec, Nc, equal_betas, iters)
+    form = window_form(spec, Nc, equal_betas, iters, B, _sm_count(device))
     if form is None:
         raise ValueError(window_limit(spec, Nc))
     _, _, offs = kernel_tables(spec)
@@ -1128,7 +1256,7 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
     K = spec.n_classes
     if nq != spec.nq:
         raise ValueError(f"state has {nq} qubits, spec {spec.nq}")
-    if window_form(spec, Nc, equal_betas, iters) is None:
+    if not window_kernel_fits(spec, Nc, equal_betas, iters):
         raise ValueError(window_limit(spec, Nc))
     _check(state, "state", (B, Nc, nq), torch.uint8, device)
     _check(flag, "flag", (B, Nc), torch.int32, device)

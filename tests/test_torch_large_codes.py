@@ -3,12 +3,10 @@
 (a) ``KERNEL_SHAPES`` is exactly the list both CUDA sources instantiate
     (the ``MQT_SHAPE`` lines of ``csrc/ladder_window.cu`` and
     ``csrc/sweep.cu``), and every code up to 16 words per plane has one.
-(b) ``window_form`` says exactly where ``block_shape`` finds a launch of
-    the window kernel's register form below WIDE_FROM_WORDS words per
-    plane and, where it does not or from WIDE_FROM_WORDS on,
-    ``wide_block_shape`` one of its large variant (the register form
-    keeping the ladders from WIDE_FROM_WORDS on that only the registers
-    hold);
+(b) ``window_forms`` says exactly where ``block_shape`` finds a launch of
+    the window kernel's register form and ``wide_block_shape`` one of its
+    large variant (from 12 words on no ladder is the register form's
+    alone), and ``window_form`` names one of those at every batch;
     ``window_kernel_fits`` is True exactly where either does.
 (c) PTEQ at rotated d=15 and toric d=21 and PTEQ_alpha at xzzx d=15 decode
     under the default ``engine="auto"`` in the port and in the JAX package
@@ -119,26 +117,28 @@ def test_predicate_is_where_block_shape_finds_a_launch(family, d):
     for Nc in (3, 5, d, 2 * d):
         for eq in (True, False):
             for iters in (1, 2):
-                form = lw.window_form(spec, Nc, eq, iters)
-                assert lw.window_kernel_fits(spec, Nc, eq, iters) == (form is not None)
+                forms = lw.window_forms(spec, Nc, eq, iters)
+                assert lw.window_kernel_fits(spec, Nc, eq, iters) == bool(forms)
                 registers = lw.has_kernel_shape(spec) and launches(
                     lw.block_shape, Nc, eq, iters)
                 large = launches(lw.wide_block_shape, Nc, eq, iters)
-                if registers and offs["nw"] < lw.WIDE_FROM_WORDS:
-                    want = "registers"
-                else:
-                    want = "large" if large else None
-                assert form == want, (Nc, eq, iters)
+                assert forms == ("registers",) * registers + ("large",) * large, (
+                    Nc, eq, iters)
+                for B in (1, 512, 4096):
+                    form = lw.window_form(spec, Nc, eq, iters, B, 132)
+                    assert form in forms if forms else form is None
                 # from 12 words on, the large variant holds every ladder the
                 # register form holds, so no code falls back to registers
-                assert large or not registers or offs["nw"] < lw.WIDE_FROM_WORDS
-    # the register form below 12 words, the large variant from 12 words on
-    assert lw.window_form(get_spec("toric", 15), 15, True, 2) == "registers"
-    assert lw.window_form(get_spec("toric", 19), 19, True, 2) == "large"
-    assert lw.window_form(get_spec("toric", 21), 21, True, 2) == "large"
-    assert lw.window_form(get_spec("xzzx", 29), 29, False, 2) == "large"
-    assert lw.window_form(get_spec("xzzx", 31), 31, False, 2) == "large"
-    assert lw.window_form(get_spec("toric", 23), 4, True, 2) == "large"
+                assert large or not registers or offs["nw"] < 12
+    # the register form at 1 word a plane, the large variant from 8 words on
+    # (toric d=15, B=512: 50.4 against 177.6 ms a window, ``window_form``)
+    assert lw.window_form(get_spec("toric", 5), 5, True, 2, 512, 132) == "registers"
+    assert lw.window_form(get_spec("toric", 15), 15, True, 2, 512, 132) == "large"
+    assert lw.window_form(get_spec("toric", 19), 19, True, 2, 512, 132) == "large"
+    assert lw.window_form(get_spec("toric", 21), 21, True, 2, 512, 132) == "large"
+    assert lw.window_form(get_spec("xzzx", 29), 29, False, 2, 512, 132) == "large"
+    assert lw.window_form(get_spec("xzzx", 31), 31, False, 2, 512, 132) == "large"
+    assert lw.window_form(get_spec("toric", 23), 4, True, 2, 512, 132) == "large"
     assert not lw.window_kernel_fits(get_spec("toric", 5),
                                      lw.WIDE_MAX_THREADS + 1, True, 2)
 

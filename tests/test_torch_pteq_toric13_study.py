@@ -1,8 +1,9 @@
 """The benchmark's PTEQ threshold-study deployment on the CPU (config
 ``port_bench/configs/pteq_toric13_study.json``: toric d=13, Nc=13, iters=10,
 B=512): its plain reference (``port_bench/reference/``) against the port on
-codes of several words a plane, the K2 launch that shape takes, and the
-counters K2's launches record for ``k2.waves_per_launch``."""
+codes of several words a plane, the K2 launch that shape takes (the large
+variant), and the counters K2's launches record for
+``k2.waves_per_launch``."""
 
 import sys
 from pathlib import Path
@@ -121,18 +122,26 @@ def _study_shape(iters):
 
 
 @pytest.mark.parametrize("iters, groups", [(10, 1), (2, 4)])
-def test_study_window_is_the_register_form(iters, groups):
-    """Toric d=13 at Nc=13: the register form <6, 4, true>, 8 lanes a rung
-    and four warps a group; the sweep draws a group stages grow with iters,
-    so that at iters=10 one group fills a block's shared memory."""
+def test_study_window_is_the_large_variant(iters, groups):
+    """Toric d=13 at Nc=13 runs K2's large variant at both iters: a wave of
+    the register form <6, 4, true> (8 lanes a rung, four warps a group)
+    costs 1.8 of the large variant's (``wave_cost``), and the sweep draws
+    a group stages grow with iters, so that at iters=10 one group fills a
+    block's shared memory and 512 rows take it 4 waves to the large
+    variant's one."""
     spec, offs, shape = _study_shape(iters)
-    assert lw.window_form(spec, D, True, iters) == "registers"
+    assert lw.window_forms(spec, D, True, iters) == ("registers", "large")
+    assert lw.window_form(spec, D, True, iters, B, N_SM) == "large"
     assert lw.kernel_shape(spec) == (6, 4)
     assert (shape.lanes, shape.warps_per_group) == (8, 4)
     assert shape.groups_per_block == groups
     assert shape.threads == 128 * groups
     assert shape.smem <= lw.SMEM_LIMIT < shape.smem + lw.group_bytes(
         offs, D, spec.n_classes, True, iters, len(spec.logical_draws))
+    held = lw.resident_rows(shape, lw.blocks_per_sm(shape, lw.MAX_THREADS),
+                            N_SM)
+    assert -(-B // held) == (4 if iters == 10 else 1)
+    assert 1.7 < lw.wave_cost(offs) < 1.9
 
 
 def test_resident_rows_of_the_study_window():

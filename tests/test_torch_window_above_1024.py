@@ -24,10 +24,10 @@ can reach of it.
     before (toric d=23/25, planar d=23-27, rotated and XZZX d=31-37) and
     for the 12- and 16-word codes, where it is the faster form (toric
     d=17-21, planar d=17-22, rotated and XZZX d=23-29), in both betas
-    forms; the register form below 12 words; where it names a form, that
-    form's block shape fits 227 KB and its thread bound at every batch,
-    and the large variant's keeps an SM's syndromes within its resident
-    warps.
+    forms and at every batch; the register form at 1 word; where it names
+    a form, that form's block shape fits 227 KB and its thread bound at
+    every batch, and the large variant's keeps an SM's syndromes within
+    its resident warps.
 (d) The slice as a whole: PTEQ at toric d=23 runs the fused window on the
     CPU (the plain version, one call a window) and calls the true class on
     every row at p=0.02, as the JAX package's PTEQ does on the same
@@ -492,9 +492,9 @@ def test_the_large_variant_holds_every_code_the_jax_package_fuses(family, d):
     offs = lw.kernel_tables(spec)[2]
     K, nd = spec.n_classes, len(spec.logical_draws)
     for eq in (True, False):
-        assert lw.window_form(spec, d, eq, 2) == "large", eq
         assert lw.window_kernel_fits(spec, d, eq, 2)
         for B in (1, 16, 64, 263, 4096):
+            assert lw.window_form(spec, d, eq, 2, B, 132) == "large", (eq, B)
             shape = lw.wide_block_shape(offs, d, K, B, 132, eq, 2, nd)
             L, wpg, gpb = (shape.lanes, shape.warps_per_group,
                            shape.groups_per_block)
@@ -511,14 +511,16 @@ def test_the_large_variant_holds_every_code_the_jax_package_fuses(family, d):
             assert shape.smem == lw.wide_smem_bytes(offs, d, K, gpb, eq, 2,
                                                     nd, shape.tab_in_smem)
             assert shape.smem <= lw.SMEM_LIMIT
-    # below 12 words the register form keeps its ladders
-    assert lw.window_form(get_spec("toric", 15), 15, True, 2) == "registers"
-    assert lw.window_form(get_spec("xzzx", 21), 21, False, 2) == "registers"
+    # below 12 words the batch and the word count decide (``window_form``):
+    # the register form at 1 word, the large variant from 8 words on
+    assert lw.window_form(get_spec("toric", 5), 5, True, 2, 2603, 132) == "registers"
+    assert lw.window_form(get_spec("toric", 15), 15, True, 2, 512, 132) == "large"
+    assert lw.window_form(get_spec("xzzx", 21), 21, False, 2, 512, 132) == "large"
 
 
 @pytest.mark.parametrize("family,d,Nc,want", [
     ("toric", 5, 5, "registers"),
-    ("toric", 15, 15, "registers"),  # 8 words
+    ("toric", 15, 15, "large"),     # 8 words: the faster form at B=512
     ("toric", 19, 19, "large"),     # 12 words: the faster form
     ("xzzx", 31, 31, "large"),      # 16 words, a group too large for registers
     ("xzzx", 31, 5, "large"),       # 16 words: the faster form
@@ -534,7 +536,7 @@ def test_the_large_variant_holds_every_code_the_jax_package_fuses(family, d):
 def test_window_form_at_the_limits(family, d, Nc, want):
     spec = get_spec(family, d)
     for eq in (True, False):
-        assert lw.window_form(spec, Nc, eq, 2) == want
+        assert lw.window_form(spec, Nc, eq, 2, 512, 132) == want
         assert lw.window_kernel_fits(spec, Nc, eq, 2) == (want is not None)
     if want == "large":
         offs = lw.kernel_tables(spec)[2]
@@ -558,7 +560,7 @@ def test_pteq_at_toric_d23_runs_the_fused_window():
     truth = np_eq_class(spec, s)
     kw = dict(Nc=Nc, max_steps=2 * W, window=W, iters=1, energy_chunk=4,
               tops_burn=0)
-    assert lw.window_form(spec, Nc, True, 1) == "large"
+    assert lw.window_form(spec, Nc, True, 1, B, 132) == "large"
     pteq_mod._WINDOW_CACHE.clear()
     lw.ladder_window_counts.reset()
     ours = PTEQ(spec, s, p, PTEQConfig(**kw), device="cpu")
