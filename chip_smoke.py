@@ -201,12 +201,13 @@ from mcmc_qec_tpu_torch.models.noise import (
     sample_xyz,
     xyz_probs_from_biased,
 )
+import mcmc_qec_tpu_torch.ops.kernel_tables as kt
 import mcmc_qec_tpu_torch.ops.ladder_window as lw
 from mcmc_qec_tpu_torch.ops import _build
+from mcmc_qec_tpu_torch.ops.kernel_tables import kernel_tables
 from mcmc_qec_tpu_torch.ops.ladder_window import (
     _N_EXTRA_USES,
     _rng_layout,
-    kernel_tables,
     ladder_window_counts,
     ladder_window_reference,
     launch_plan,
@@ -440,13 +441,12 @@ WIDE_PARENT = {"STDC toric d=25": (2.03, 4), "STDC rotated d=45": (0.35, 1),
 # the plain version: (family, d, Nc, B, W, branch, exchange, traces, rng,
 # lanes per rung or None for the plan's); B=263 leaves a ragged last block
 # (2 syndromes a block on 132 SMs), Nc=3 at 32 and 1 lanes and other
-# counts move the rung masks; xzzx d=31 at 31 rungs reads the narrow
-# entries at 16 words; (c) decodes through the entry points: PTEQ at
-# toric d=23 as phase 27 runs it unfused, and PTEQ_alpha at xzzx d=33 (the
-# biased study's cell, eta=10, p=0.20) at a capped step count, failure
-# held to phase 25's bar; (d) PTEQ at toric d=25, B=128, with one window
-# timed against the bound and the plain version; (e) the large variant at
-# toric d=21 beside the register form <16, 4, true>, for the record
+# counts move the rung masks; xzzx d=31 at 31 rungs is a 16-word code;
+# (c) decodes through the entry points: PTEQ at toric d=23 as phase 27
+# runs it unfused, and PTEQ_alpha at xzzx d=33 (the biased study's cell,
+# eta=10, p=0.20) at a capped step count, failure held to phase 25's bar;
+# (d) PTEQ at toric d=25, B=128, with one window timed against the bound
+# and the plain version
 WIDE_K2 = [
     ("toric", 23, 23, 263, 24, "equal-exact", "sequential", True, "philox", None),
     ("toric", 23, 23, 64, 24, "general-mh", "even_odd", False, "philox", None),
@@ -466,12 +466,11 @@ WIDE_K2 = [
 WIDE_K2_ALPHA = dict(family="xzzx", d=33, eta=10.0, p=0.20, B=64,
                      max_steps=12000)
 WIDE_K2_TIMED = dict(family="toric", d=25, p=0.05, B=128, max_steps=1200)
-WIDE_K2_RECORD = dict(family="toric", d=21, p=0.05, B=64)
 # the redesigned large variant (phase 29), which ``window_form`` gives the
-# 12- and 16-word codes: (a) every output equal to the plain version's and
-# to the register form's on the same inputs (family, d, Nc, B, W, branch,
-# exchange, traces, rng, lanes per rung of the large variant or None for
-# the plan's; B=263 puts two syndromes on an SM); (b) phase 25's PTEQ at
+# 12- and 16-word codes, which have no register build: (a) every output
+# equal to the plain version's (family, d, Nc, B, W, branch, exchange,
+# traces, rng, lanes per rung or None for the plan's; B=263 puts two
+# syndromes on an SM); (b) phase 25's PTEQ at
 # toric d=21, B=64, through the form ``window_form`` picks; (c) W=60
 # windows against their bounds: phase 28's at toric d=23 B=16, xzzx d=33
 # B=64 and toric d=25 B=128, and a PTEQ window at toric d=25 B=1024 (four
@@ -659,11 +658,10 @@ def branch_ladder(branch, p, Nc):
 
 def compare_window(family, d, Nc, B, W, iters, C, p, rng, seed,
                    branch="equal-exact", exchange="sequential", traces=False,
-                   both_swaps=True, lanes=None, form=None, out=None):
+                   both_swaps=True, lanes=None, form=None):
     """Kernel vs plain version on the card, same inputs and draws; returns
     the largest absolute difference over all outputs.  ``lanes`` overrides
-    the lanes per rung, ``form`` the form ``window_form`` picks; the
-    kernel's outputs are appended to ``out`` where it is a list."""
+    the lanes per rung, ``form`` the form ``window_form`` picks."""
     spec = get_spec(family, d)
     inputs = _ladder_inputs(spec, B, Nc, seed, "cuda")
     ladder, weights = branch_ladder(branch, p, Nc)
@@ -683,8 +681,6 @@ def compare_window(family, d, Nc, B, W, iters, C, p, rng, seed,
         torch.cuda.synchronize()
     finally:
         lw.lanes_per_rung, lw.wide_lanes = default_lanes
-    if out is not None:
-        out.append(kern)
     plain = ladder_window_reference(
         spec, *inputs, seed, betas, w, window=W, iters=iters, p_logical=0.5,
         tops_burn=2, energy_chunk=C, rng=rng, **kw)
@@ -1219,11 +1215,12 @@ def phase_branch_parity() -> float:
     """K2's other branches, kernel vs plain version on the card: every
     combination of sweep form and mix kind with both exchange schedules,
     at xzzx d=5 (1 word per plane; Philox and zero draws), xzzx d=13 (3),
-    toric d=13 (6) and toric d=19 (12 words; tables in device memory),
-    traces on in half the cases of each.  Toric d=19 runs the register
-    form by name (``window_form`` gives 12-word codes the large variant,
-    phase 29), so its 12-word instantiation stays held to the plain
-    version."""
+    toric d=9 (3, spanning 4) and toric d=11 (4), traces on in half the
+    cases of each, in the register form by name (``window_form`` gives
+    some of these launches the large variant), so that the register builds
+    of 3 and 4 words stay held to the plain version; and xzzx d=13 at 32
+    rungs and 10 sweeps a step, whose tables leave no room beside its
+    group and are read from device memory."""
     worst, n = 0.0, 0
     for i, (branch, exchange) in enumerate(COMBOS):
         for rng in ("philox", "zeros"):
@@ -1231,31 +1228,37 @@ def phase_branch_parity() -> float:
                 "xzzx", 5, 5, 256, 48, 2, 12, 0.15, rng, 300 + i, branch,
                 exchange, traces=i % 2 == 0, both_swaps=rng == "philox"))
             n += 1
-    for family, d, B, W in (("xzzx", 13, 256, 24), ("toric", 13, 128, 12),
-                            ("toric", 19, 64, 8)):
+    for family, d, B, W in (("xzzx", 13, 256, 24), ("toric", 9, 128, 12),
+                            ("toric", 11, 64, 8)):
         for i, (branch, exchange) in enumerate(COMBOS):
             worst = max(worst, compare_window(
                 family, d, d, B, W, 2, 4, 0.15, "philox", 400 + i, branch,
                 exchange, traces=i % 2 == 0, form="registers"))
             n += 1
     # xzzx d=13's four-warp groups with a ragged last block (B=263: 2 per
-    # block), and toric d=19 with 25 rungs, whose tables leave no room for
-    # the group and are read from device memory
+    # block), and xzzx d=13 with 32 rungs at 10 sweeps a step, whose tables
+    # leave no room for the group and are read from device memory
+    spec = get_spec("xzzx", 13)
     for i, (branch, exchange) in enumerate(COMBOS[:2]):
+        shape = lw.block_shape(kernel_tables(spec)[2], 32, spec.n_classes, 16,
+                               _n_sm(), BRANCHES[branch][1], 10,
+                               len(spec.logical_draws))
+        check(not shape.tab_in_smem, f"xzzx d=13 Nc=32 {branch}: tables in "
+              f"shared memory")
         worst = max(worst, compare_window(
             "xzzx", 13, 13, 263, 24, 2, 4, 0.15, "philox", 510 + i, branch,
             exchange, traces=i % 2 == 1))
         worst = max(worst, compare_window(
-            "toric", 19, 25, 16, 8, 2, 4, 0.15, "philox", 520 + i, branch,
+            "xzzx", 13, 32, 16, 8, 10, 4, 0.15, "philox", 520 + i, branch,
             exchange, traces=i % 2 == 0, form="registers"))
         n += 2
     print(f"phase 11 window kernel vs plain, other branches: {n} cases "
           f"(general/exact, general/Metropolis and equal/exact mix x "
           f"sequential and even_odd exchange; xzzx d=5 Philox and zeros, "
-          f"xzzx d=13, toric d=13, toric d=19 Philox; words per plane "
-          f"1/3/6/12; xzzx d=13 B=263 ragged; toric d=19 Nc=25, its tables "
-          f"in device memory): all outputs equal, traces included, max abs "
-          f"err {worst}", flush=True)
+          f"xzzx d=13, toric d=9, toric d=11 Philox; words per plane "
+          f"1/3/3/4; xzzx d=13 B=263 ragged; xzzx d=13 Nc=32 iters=10, its "
+          f"tables in device memory): all outputs equal, traces included, "
+          f"max abs err {worst}", flush=True)
     return worst
 
 
@@ -2927,7 +2930,7 @@ def _k1_name(spec, equal_betas, record):
     offs = kernel_tables(spec)[2]
     flags = (f"{'true' if equal_betas else 'false'}, "
              f"{'true' if record else 'false'}>")
-    if lw.is_wide(spec):
+    if kt.is_wide(spec):
         return f"wide<{flags} at {offs['nw']} words"
     return f"<{offs['nw']}, {offs['span']}, {flags}"
 
@@ -3413,7 +3416,7 @@ def compare_wide(family, d, B, seed):
     every state, key and count equal.  Returns (cases, lane counts, largest
     absolute difference)."""
     spec = get_spec(family, d)
-    check(lw.is_wide(spec), f"{family} d={d} is not above 16 words")
+    check(kt.is_wide(spec), f"{family} d={d} is not above 16 words")
     states = _random_states(spec, B, seed)
     rng = np.random.RandomState(seed)
     forms = [("equal", True, torch.full((3,), 0.9, device="cuda")),
@@ -3663,7 +3666,7 @@ def _k2_wide_name(spec, equal_betas):
 
 def _n_sm() -> int:
     """The card's SMs, which ``window_form`` counts waves over."""
-    return lw._sm_count(torch.device("cuda"))
+    return kt._sm_count(torch.device("cuda"))
 
 
 def _k2_form_name(spec, Nc, equal_betas, B):
@@ -3676,9 +3679,9 @@ def _k2_form_name(spec, Nc, equal_betas, B):
 
 
 class _window_form:
-    """Run K2 in ``form`` where both forms hold the ladder (parity and the
-    record of both forms only): ``window_form``'s choice is replaced while
-    the block runs; None keeps it."""
+    """Run K2 in ``form`` where that form is built and holds the ladder
+    (parity only): ``window_form``'s choice is replaced while the block
+    runs; None keeps it."""
 
     def __init__(self, form):
         self.form = form
@@ -3700,8 +3703,7 @@ def phase_window_above_16_words(built, unfused_s):
     launch a window, no K1) against phase 27's unfused decode
     (``unfused_s`` seconds) and PTEQ_alpha at xzzx d=33; (d) PTEQ at
     toric d=25, B=128, and one window against its bound and the plain
-    version; (e) the large variant at toric d=21 beside the register form.
-    Returns the kernels line's entries."""
+    version.  Returns the kernels line's entries."""
     worst, names = 0.0, set()
     for i, (family, d, Nc, B, W, branch, exchange, traces, rng, lanes) in \
             enumerate(WIDE_K2):
@@ -3833,34 +3835,6 @@ def phase_window_above_16_words(built, unfused_s):
                         instantiation=name, launches=k2,
                         source="ladder_window.cu"))
 
-    # (e) for the record: both forms at toric d=21, B=64, one production
-    # window each on the same inputs, outputs equal
-    m = WIDE_K2_RECORD
-    spec = get_spec(m["family"], m["d"])
-    gen = torch.Generator(device="cuda").manual_seed(2093)
-    states = sample_depolarizing(gen, spec, m["p"], (m["B"],))
-    ls = init_ladder(spec, states, m["d"])
-    zeros = (torch.zeros((m["B"], spec.n_classes), dtype=torch.int32, device="cuda"),
-             torch.zeros((m["B"],), dtype=torch.int32, device="cuda"))
-    betas = torch.as_tensor(beta_ladder_depolarizing(m["p"], m["d"]),
-                            dtype=torch.float32, device="cuda")
-    args = (ls.state, ls.flag, ls.tops0, *zeros, 4, betas, np.ones(3, np.float32))
-    fn = make_ladder_window(spec, m["d"], PROD["window"], PROD["iters"], 0.5, 2,
-                            PROD["energy_chunk"], **PROD_BRANCH)
-    pick = lw.window_form(spec, m["d"], True, PROD["iters"], m["B"], _n_sm())
-    timed = {}
-    for form in ("registers", "large"):
-        with _window_form(form):
-            out = fn(*args)
-            timed[form] = (out, _time_ms(lambda: fn(*args), 3))
-    err = compare_outputs(f"toric d={m['d']} large vs registers",
-                          timed["large"][0], timed["registers"][0],
-                          PROD["window"], both_swaps=False)
-    print(f"phase 28 (e) toric d={m['d']} B={m['B']} Nc={m['d']} W="
-          f"{PROD['window']}: large variant {_k2_wide_name(spec, True)} "
-          f"{timed['large'][1]:.3f} ms, register form {_k2_name(spec, True)} "
-          f"{timed['registers'][1]:.3f} ms; all outputs equal, max abs err "
-          f"{err}; window_form picks {pick}", flush=True)
     check(not fails, "; ".join(fails))
     for e in entries:
         e["err"] = max(e["err"], worst)
@@ -3869,9 +3843,9 @@ def phase_window_above_16_words(built, unfused_s):
 
 def phase_window_forms(built, decodes, wide_k2):
     """The redesigned large variant on the card (FORMS_K2, WIDE_K2_BATCH
-    above): (a) at the 12- and 16-word codes, where ``window_form`` now
-    picks it, every output equal to the plain version's and to the
-    register form's on the same inputs; its registers and spills; (b)
+    above): (a) at the 12- and 16-word codes, which have no register build
+    and where ``window_form`` picks it, every output equal to the plain
+    version's; its registers and spills; (b)
     phase 25's PTEQ at toric d=21 (``decodes``): form, launches, seconds;
     (c) W=60 windows against their bounds, phase 28's (``wide_k2``) and
     one of a PTEQ decode at toric d=25 B=1024.  Returns the kernels line's
@@ -3884,22 +3858,16 @@ def phase_window_forms(built, decodes, wide_k2):
         check(lw.window_form(spec, Nc, eq, PROD["iters"], B, _n_sm()) == "large",
               f"{family} d={d} Nc={Nc}: window_form does not pick the large "
               f"variant")
-        outs = []
-        for form, ln in (("large", lanes), ("registers", None)):
-            worst = max(worst, compare_window(
-                family, d, Nc, B, W, 2, 4, 0.15, rng, 2900 + i, branch,
-                exchange, traces=traces, both_swaps=rng == "philox",
-                lanes=ln, form=form, out=outs))
-        worst = max(worst, compare_outputs(
-            f"{family} d={d} Nc={Nc} large vs registers", outs[0], outs[1], W,
-            both_swaps=False))
-        names.add(f"{_k2_wide_name(spec, eq)} beside {_k2_name(spec, eq)}")
+        worst = max(worst, compare_window(
+            family, d, Nc, B, W, 2, 4, 0.15, rng, 2900 + i, branch, exchange,
+            traces=traces, both_swaps=rng == "philox", lanes=lanes))
+        names.add(_k2_wide_name(spec, eq))
     regs = [ln for ln in ptxas_summary(built["ladder_window"].log) if "wide" in ln]
     check(not built["ladder_window"].seconds
           or (regs and all(ln.endswith(" 0 bytes spilled") for ln in regs)),
           f"the large variant spills, or its build printed no summary: {regs}")
-    print(f"phase 29 (a) large variant vs plain and vs the register form at "
-          f"12 and 16 words: {len(FORMS_K2)} cases ("
+    print(f"phase 29 (a) large variant vs plain at 12 and 16 words: "
+          f"{len(FORMS_K2)} cases ("
           + "; ".join(f"{f} d={d} Nc={n} B={b} W={w} {br} {ex} traces={tr} "
                       f"{rg} lanes={ln or 'plan'}"
                       for f, d, n, b, w, br, ex, tr, rg, ln in FORMS_K2)

@@ -16,8 +16,8 @@ change parent`` compares two commits on one card.  Per root it prints:
   instructions), and the registers and spilled bytes of each instantiation
   of both kernels' large variants (ptxas);
 - K2's register form: one production window (W=600, iters=2, C=12, zero
-  top rung) at the smoke check's shapes: toric d=5 B=2048, toric d=13
-  B=512, xzzx d=13 B=512 (general betas) and toric d=21 B=64;
+  top rung) at toric d=5 B=2048, xzzx d=13 B=512 (general betas) and
+  toric d=11 B=512 (4 words, the most a register build holds);
 - K2's large variant (``ops/ladder_window.py::window_form``): one W=60
   window at toric d=23 B=16, toric d=25 B=128 and B=1024, xzzx d=33 B=64
   (general betas) and rotated d=37 B=128, each with its launch (lanes per
@@ -26,11 +26,9 @@ change parent`` compares two commits on one card.  Per root it prints:
   2 sweeps a step, and, where the root has the qubit table, with that
   table in device memory instead of shared memory and at other lane
   counts (8, 16, 32 at B=128; 2, 4, 8 at B=1024);
-- both forms, each forced, on one production window at the 16-word
-  shapes (toric d=21 B=64, rotated d=29 B=128) and the 12-word shapes
-  (toric d=17 B=64, toric d=19 B=512, rotated d=27 B=128, xzzx d=25 B=512
-  general), and below 12 words (toric d=15 and d=13 and xzzx d=13 at
-  B=512, toric d=5 at B=2048);
+- both forms, each forced, on one production window at toric d=11 and
+  d=9 and xzzx d=13 at B=512 and toric d=5 at B=2048 (the shapes with a
+  register build, ``WINDOW_SHAPES``);
 - two decodes through ``PTEQ``: toric d=23 B=16 cap 1200 and
   ``PTEQ_alpha`` xzzx d=33 eta=10 p=0.20 B=64 cap 12,000 (the smoke
   check's phase 28 (c) inputs), with their window, K2 launches and a
@@ -59,8 +57,8 @@ times K2's two forms alone, each forced, on one production window (W=600,
 C=12, Nc=D rungs of ``beta_ladder_depolarizing(P, D)``, a zero top rung)
 at ``ITERS`` sweeps a step, in this checkout, and says whether every
 output of the two is equal (the shape ``window_form`` decides between,
-e.g. ``--forms toric 13 512 10 0.19``, the threshold study's window at
-the upstream's iters).
+e.g. ``--forms toric 11 512 10 0.19``); a code without a register build
+(``WINDOW_SHAPES``: 6 words a plane and more) is refused.
 
     python3 chip_window_probe.py --grid fit|check [OUT.jsonl]
 
@@ -69,6 +67,7 @@ times both forms the same way over ``GRIDS``' shapes at iters 2 and 10:
 17 at B=512 in both betas forms) is the measurement ``window_form``'s rule
 rests on, "check" shapes its fit did not see; one JSON record a shape in
 OUT (``chiprun_out/window_forms_<grid>.jsonl``).
+At the shapes without a register build only the large variant runs.
 """
 
 from __future__ import annotations
@@ -231,9 +230,8 @@ def one(root: str) -> int:
                 f"{'shared' if shape.tab_in_smem else 'device'} memory")
 
     for family, d, B, p, eq, reps in (("toric", 5, 2048, 0.15, True, 5),
-                                      ("toric", 13, 512, 0.15, True, 3),
                                       ("xzzx", 13, 512, 0.1, False, 3),
-                                      ("toric", 21, 64, 0.05, True, 2)):
+                                      ("toric", 11, 512, 0.15, True, 3)):
         ms = window(family, d, B, p, 600, reps, eq, form="registers")
         print(f"{tag} K2 register form, {family} d={d} B={B} W=600 "
               f"{'equal' if eq else 'general'} betas: {ms:.4f} ms", flush=True)
@@ -286,10 +284,7 @@ def one(root: str) -> int:
                 print(f"{tag} K2 large variant, toric d=25 B={B} W=60 at {L} "
                       f"lanes a rung: {ms:.4f} ms", flush=True)
 
-    for family, d, B, eq in (("toric", 21, 64, True), ("rotated", 29, 128, True),
-                             ("toric", 17, 64, True), ("toric", 19, 512, True),
-                             ("rotated", 27, 128, True), ("xzzx", 25, 512, False),
-                             ("toric", 15, 512, True), ("toric", 13, 512, True),
+    for family, d, B, eq in (("toric", 11, 512, True), ("toric", 9, 512, True),
                              ("xzzx", 13, 512, False), ("toric", 5, 2048, True)):
         spec = get_spec(family, d)
         words = lw.kernel_words(spec.nq)
@@ -469,16 +464,21 @@ def forms(family: str, d: int, B: int, iters: int, p: float) -> int:
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False", flush=True)
         return 1
+    import mcmc_qec_tpu_torch.ops.kernel_tables as kt
     import mcmc_qec_tpu_torch.ops.ladder_window as lw
     from mcmc_qec_tpu_torch.mcmc.ladder import (beta_ladder_depolarizing,
                                                  init_ladder)
     from mcmc_qec_tpu_torch.models import get_spec
     from mcmc_qec_tpu_torch.models.noise import sample_depolarizing
 
+    spec = get_spec(family, d)
+    if not lw.has_window_shape(spec):
+        print(f"{family} d={d}: {kt.kernel_words(spec.nq)} words a plane, no "
+              f"register build (WINDOW_SHAPES {lw.WINDOW_SHAPES})", flush=True)
+        return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)
     print(f"{card.stdout.strip()} | torch {torch.__version__}", flush=True)
-    spec = get_spec(family, d)
     gen = torch.Generator(device="cuda").manual_seed(5)
     ls = init_ladder(spec, sample_depolarizing(gen, spec, p, (B,),
                                                device="cuda"), d)
@@ -503,7 +503,7 @@ def forms(family: str, d: int, B: int, iters: int, p: float) -> int:
               f"{ms:.4f} ms; L={shape.lanes}, {shape.threads} threads and "
               f"{shape.groups_per_block} syndromes a block, {shape.smem} B of "
               f"shared memory, {n} block(s) an SM by occupancy, "
-              f"{lw.resident_rows(shape, n, lw._sm_count(torch.device('cuda')))}"
+              f"{lw.resident_rows(shape, n, kt._sm_count(torch.device('cuda')))}"
               f" rows at once", flush=True)
     same = [torch.equal(a, b) for a, b in zip(outs["registers"], outs["large"])]
     print(f"K2 both forms, {family} d={d} B={B} iters={iters}: outputs "
@@ -554,6 +554,7 @@ def grid(name: str, out_path: str) -> int:
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False", flush=True)
         return 1
+    import mcmc_qec_tpu_torch.ops.kernel_tables as kt
     import mcmc_qec_tpu_torch.ops.ladder_window as lw
     from mcmc_qec_tpu_torch.mcmc.ladder import (beta_ladder_alpha,
                                                  beta_ladder_depolarizing,
@@ -571,7 +572,7 @@ def grid(name: str, out_path: str) -> int:
     print(f"K2 build {built.seconds:.1f} s, ptxas: "
           f"{' | '.join(ptxas_lines(built.log)) or 'reused build'}", flush=True)
     dev = torch.device("cuda")
-    n_sm = lw._sm_count(dev)
+    n_sm = kt._sm_count(dev)
     pick, bad = lw.window_form, 0
     Path(out_path).parent.mkdir(parents=True, exist_ok=True)
     with open(out_path, "w") as log:
@@ -595,10 +596,13 @@ def grid(name: str, out_path: str) -> int:
                          torch.zeros((B,), dtype=torch.int32, device=dev))
                 for iters in (2, 10):
                     rec = dict(family=family, d=d, B=B, iters=iters,
-                               betas=kind, nw=lw.kernel_words(spec.nq),
-                               span=lw.spanned_words(spec))
+                               betas=kind, nw=kt.kernel_words(spec.nq),
+                               span=kt.spanned_words(spec))
                     outs = {}
                     for form in ("registers", "large"):
+                        if form == "registers" and not lw.has_window_shape(spec):
+                            rec[form] = None  # no register build here
+                            continue
                         lw.window_form = lambda *args: form
                         try:
                             shape, n = lw.launch_plan(spec, B, d, iters, eq)
@@ -631,7 +635,7 @@ def grid(name: str, out_path: str) -> int:
                                pick=picks(pick, spec, d, eq, iters, B, n_sm))
                     log.write(json.dumps(rec) + "\n")
                     log.flush()
-                    said = {f: "does not hold it" if r is None else
+                    said = {f: "not built or does not hold it" if r is None else
                             f"{r['ms']:.3f} ms ({r['rows_at_once']} rows at "
                             f"once)" for f, r in rec.items()
                             if f in ("registers", "large")}

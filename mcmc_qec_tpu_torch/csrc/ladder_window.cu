@@ -64,13 +64,14 @@
 //     rung's lane 0, the trace-mode chain hash over its lanes (component c
 //     on lane c % L).
 // The tables sit in shared memory unless they leave no room for a group,
-// when they are read from device memory (toric d=19 at Nc=25).
+// when they are read from device memory.
 //
 // The large variant (ladder_window_kernel_wide<EQ>) takes the ladders the
-// registers cannot hold: codes above 16 words per plane (toric and planar
-// d >= 23, rotated and XZZX d >= 33, up to 256 words), ladders whose group
-// of published chains and staged draws leaves no room in 227 KB (xzzx d=31
-// at 31 rungs), and, where it is faster, codes the registers hold
+// registers cannot hold: codes of 6 words per plane and more, which have
+// no register instantiation (toric and planar from d=12, rotated and XZZX
+// from d=17, up to 256 words; ops/ladder_window.py::WINDOW_SHAPES),
+// ladders whose group of published chains and staged draws leaves no room
+// in 227 KB, and, where it is faster, codes the registers hold
 // (ops/ladder_window.py::window_form).  The word count is a run-time value.
 // What bounds it is what bounds the register form.  What keeps a kernel of
 // this shape from that bound is latency: with the planes in shared memory,
@@ -79,7 +80,7 @@
 // atomics, and one syndrome of a few warps per SM hides none of it.  The
 // design:
 //   - Per-qubit proposals.  A stabilizer is one 64-bit entry of the qubit
-//     table (ops/ladder_window.py::qubit_table): its (at most four) qubits,
+//     table (ops/kernel_tables.py::qubit_table): its (at most four) qubits,
 //     14 bits each, and their ops, 2 bits each.  A rung's chain sits in a
 //     slot of shared memory with 2 bits a qubit (x, z), 16 qubits a 32-bit
 //     word, so a proposal is one entry and four 32-bit loads, its qubits'
@@ -1180,7 +1181,7 @@ struct Resident {
 };
 
 // Run ``F<NW, S, EQ>`` for the launch's words per plane, spanned words per
-// stabilizer (ops/ladder_window.py::KERNEL_SHAPES; in the large variant,
+// stabilizer (ops/ladder_window.py::WINDOW_SHAPES; in the large variant,
 // NW = kWide and S = 0, any word count up to kWideWords, every stabilizer
 // of at most four qubits) and sweep form, or return ``bad``.
 template <template <int, int, bool> class F, class... A>
@@ -1199,14 +1200,6 @@ int dispatch(const WindowParams& P, int bad, A... args) {
   MQT_SHAPE(3, 4)
   MQT_SHAPE(4, 2)
   MQT_SHAPE(4, 4)
-  MQT_SHAPE(6, 2)
-  MQT_SHAPE(6, 4)
-  MQT_SHAPE(8, 2)
-  MQT_SHAPE(8, 4)
-  MQT_SHAPE(12, 2)
-  MQT_SHAPE(12, 4)
-  MQT_SHAPE(16, 2)
-  MQT_SHAPE(16, 4)
 #undef MQT_SHAPE
   return bad;
 }

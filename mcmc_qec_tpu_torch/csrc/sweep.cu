@@ -45,7 +45,7 @@
 //     (no idle lanes in the small colors, no butterflies); at the main
 //     path's 65,536 chains one lane per chain is fastest.
 //   - Only the words a stabilizer spans (the spanned-word table of
-//     ops/ladder_window.py::kernel_tables): two popcounts a word with equal
+//     ops/kernel_tables.py::kernel_tables): two popcounts a word with equal
 //     betas, four with general betas; up to 16 words per plane (toric d=21,
 //     rotated and XZZX d=31) in registers, the template's NW.
 //   - The recording on the chip: each lane sums m_q * v_q over its share
@@ -66,7 +66,7 @@
 //       * 2 bits a qubit.  Each chain sits in a slot of its warp's shared
 //         memory, 16 qubits a 32-bit word (4 nw + 1 words with a padding
 //         word).  A stabilizer is one 64-bit qubit-table entry
-//         (ops/ladder_window.py::qubit_table), so a proposal is one entry
+//         (ops/kernel_tables.py::qubit_table), so a proposal is one entry
 //         and four 32-bit loads, and its count changes a few popcounts of
 //         its qubits' 8 bits: the register form's integers, so the same
 //         logr and decision (entry_logr, sweep.cuh).
@@ -143,7 +143,7 @@ struct SweepBuffers {
   int64_t* keys;            // (B, steps, 2) the two hashes, in [0, 2**32)
   int32_t* counts;          // (B, steps, 3) X, Y and Z counts
   const uint64_t* qtab;     // (n_stabs,) qubit-table entries, by color (the
-                            // large variant; ops/ladder_window.py::qubit_table)
+                            // large variant; ops/kernel_tables.py::qubit_table)
 };
 
 // Shared memory of one block, in bytes from its base; mirrored by
@@ -152,7 +152,7 @@ struct SweepLayout {
   size_t tab, mults, meta, warps, bytes;
 
   // entries of the kernel's meta: color starts, then a register
-  // instantiation's narrow entries
+  // instantiation's spanned-word entries
   __host__ __device__ static int meta_len(const SweepParams& P) {
     return P.n_colors + 1 + (P.nw > kRegWords ? 0 : P.n_stabs);
   }
@@ -726,7 +726,7 @@ int dispatch_form(const SweepParams& P, A... args) {
 }
 
 // Run ``F<NW, S, EQ, REC>`` for the launch's words per plane and spanned
-// words per stabilizer (ops/ladder_window.py::KERNEL_SHAPES; above 16 words
+// words per stabilizer (ops/sweep.py::SWEEP_SHAPES; above 16 words
 // the large variant, NW = kWide and S = 0, any word count up to kWideWords,
 // every stabilizer of at most four qubits), acceptance form and recording
 // switch, or return ``bad``.

@@ -65,7 +65,7 @@ __device__ __forceinline__ float logr_of(int d0, int tx, int tz, uint32_t sp, fl
 
 // logr of flipping one stabilizer on the planes (X, Z).  ``e`` holds its
 // ``S`` (support, X op, Z op) words on the words ``sp`` lists (packed by
-// ops/ladder_window.py::_pack_span, zero-padded); the words and the op's
+// ops/kernel_tables.py::_pack_span, zero-padded); the words and the op's
 // masks come back in wm, xm, zm for the caller to XOR in if it accepts.
 // Equal betas: the total count changes by popc(new OR plane & supp) -
 // popc(old OR plane & supp) and logr = -(beta * dN)
@@ -131,7 +131,7 @@ __device__ __forceinline__ void apply_flips(uint64_t (&X)[NW], uint64_t (&Z)[NW]
 // ---------------------------------------------------------------------------
 
 // Qubit k (0-3) of a qubit-table entry and the 2-bit ops of all four
-// (ops/ladder_window.py::qubit_table): qubit k in bits 14k..14k+13, its op
+// (ops/kernel_tables.py::qubit_table): qubit k in bits 14k..14k+13, its op
 // (x | z << 1, 0 for no qubit) in bits 56 + 2k and 57 + 2k.
 __device__ __forceinline__ int entry_qubit(uint64_t e, int k) {
   return (int)((e >> (14 * k)) & 0x3FFFu);

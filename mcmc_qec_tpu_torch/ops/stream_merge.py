@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from .ladder_window import KernelCounter, _check
+from .kernel_tables import KernelCounter, _check
 
 # candidates a thread of the kernel sorts (csrc/stream_merge.cu::
 # kItemsPerThread); a block sorts a power of two of them, 1024 to 8192

@@ -69,18 +69,17 @@ import torch
 
 from ..models.base import CodeSpec
 from .dense_sweep import _color_tables
-from .ladder_window import (
+from .kernel_tables import (
+    _DRAW_BUDGET,
     SMEM_LIMIT,
     WIDE_MAX_THREADS,
     WIDE_WARPS_PER_SM,
     WIDE_WORDS,
     KernelCounter,
-    _DRAW_BUDGET,
     _check,
     _draw_words,
     _plain_tables,
     _sm_count,
-    has_kernel_shape,
     is_wide,
     kernel_tables,
     kernel_words,
@@ -91,6 +90,13 @@ from .ladder_window import (
 from .pauli import count_errors_xyz, make_hash_mults, pack_key
 from .philox import MASK32
 
+# (words per plane, spanned-word entries per stabilizer) the register
+# instantiations are built for (csrc/sweep.cu::dispatch): every code up to
+# KERNEL_WORDS[-1] words per plane (nq <= 1024).  A stabilizer spanning 3
+# words is padded to 4 entries; rotated and XZZX codes span at most 2
+# words at every size, toric and planar codes 4 from d=9 on
+SWEEP_SHAPES = ((1, 1), (2, 2), (3, 2), (3, 4), (4, 2), (4, 4), (6, 2), (6, 4),
+                (8, 2), (8, 4), (12, 2), (12, 4), (16, 2), (16, 4))
 # most 64-bit words per bit plane the kernel takes (nq <= 16384: toric and
 # planar d=89, rotated and XZZX d=127), in its large variant above
 # KERNEL_WORDS[-1] (nq > 1024: toric and planar d >= 23, rotated and XZZX
@@ -310,14 +316,22 @@ def _block_bytes(spec: CodeSpec, record: bool, lanes: int,
     return region, in_smem, True, smem(in_smem)
 
 
+def has_sweep_shape(spec: CodeSpec) -> bool:
+    """Whether a register instantiation of the kernel is built for
+    ``spec``: its (words per plane, spanned words per stabilizer) in
+    SWEEP_SHAPES."""
+    if is_wide(spec):
+        return False
+    return (kernel_words(spec.nq), spanned_words(spec)) in SWEEP_SHAPES
+
+
 def _instantiated(spec: CodeSpec) -> bool:
     """Whether the kernel is built for ``spec``'s shape: a register
-    instantiation up to 16 words per plane (``has_kernel_shape``), the large
-    variant up to MAX_WORDS words with 2 or 4 spanned words per
-    stabilizer."""
+    instantiation up to 16 words per plane (``has_sweep_shape``), the large
+    variant up to MAX_WORDS words."""
     if is_wide(spec):
-        return -(-spec.nq // 64) <= MAX_WORDS and spanned_words(spec) in (2, 4)
-    return has_kernel_shape(spec)
+        return -(-spec.nq // 64) <= MAX_WORDS
+    return has_sweep_shape(spec)
 
 
 def sweep_kernel_fits(spec: CodeSpec, record: bool) -> bool:
@@ -515,7 +529,7 @@ def _host_tables(spec: CodeSpec):
     """(spanned-word table (n_stabs * span * 3,) int64 or None, meta (int32),
     hash multipliers (nq, 2) int32 bit patterns, qubit table (n_stabs,)
     int64 or None) the kernel reads: a register instantiation the
-    spanned-word table and a meta of color starts and narrow spanned-word
+    spanned-word table and a meta of color starts and spanned-word
     entries; the large variant the qubit table and the color starts."""
     tab, meta, offs = kernel_tables(spec)
     n_c, m = offs["n_colors"], offs["m_span"]

@@ -6,7 +6,7 @@ sweep kernel's matrix-unit FLOPs.  The port's kernels do no matrix
 products, so this module counts what bounds them on the card instead: the
 bytes a launch must move, its 32-bit popcounts, its Philox blocks and its
 other 32-bit multiplies.  The counts are read from the code and the
-kernels' own tables (``ops/ladder_window.py::kernel_tables``), so a bound
+kernels' own tables (``ops/kernel_tables.py::kernel_tables``), so a bound
 counts the work of every code size.  ``bound_ms`` turns them into milliseconds
 at the rates below and the SM count and clock of the card, which the
 caller reads from the card.
@@ -39,7 +39,7 @@ from __future__ import annotations
 from typing import Tuple
 
 from ..models.base import CodeSpec
-from ..ops.ladder_window import kernel_tables, kernel_words, unpack_span
+from ..ops.kernel_tables import kernel_tables, kernel_words
 
 HBM_BYTES_PER_S = 3.35e12
 POPC_PER_CLK_SM = 16
@@ -66,16 +66,6 @@ def philox_blocks_per_sweep(spec: CodeSpec) -> int:
     """Philox blocks one chain draws in one sweep: one per four stabilizers
     of each color (the tables' ``n_blk``)."""
     return kernel_tables(spec)[2]["n_blk"]
-
-
-def spanned_word_count(spec: CodeSpec) -> int:
-    """Words the stabilizers' supports span, summed over the stabilizers,
-    from the spanned-word table (its wide entries above 16 words)."""
-    _, meta, offs = kernel_tables(spec)
-    m, mw, n = offs["m_span"], offs["m_wide"], spec.n_stabs
-    return sum(len(unpack_span(int(meta[m + s]),
-                               None if mw is None else int(meta[mw + s]) & 0xFFFFFFFF)[0])
-               for s in range(n))
 
 
 def popc_per_sweep(spec: CodeSpec, equal_betas: bool) -> int:

@@ -2,11 +2,7 @@
 large variant (csrc/sweep.cu::sweep_kernel_wide, above 16 words per plane)
 through what the CPU can reach of it.
 
-(a) The wide spanned-word entries (ops/ladder_window.py::kernel_tables,
-    ``_pack_span``/``unpack_span``) round-trip and list exactly the words
-    each stabilizer's support spans, computed from the spec, at toric
-    d=23, 33 and 45, planar d=23, rotated and XZZX d=33 and 63.
-(b) A numpy emulation of the large variant, lane by lane, through the
+(a) A numpy emulation of the large variant, lane by lane, through the
     qubit table only (unpack by 32-qubit ballots into slots of 2 bits a
     qubit; per color each lane's Philox blocks, the next block's states
     loaded before the current block is decided, then its accepted flips
@@ -16,17 +12,17 @@ through what the CPU can reach of it.
     lanes: toric d=23 and rotated d=33, equal and general betas, a shared
     row and a row per chain; toric d=45 with counts past 1023; a step that
     accepts no flip; and zero betas, where every proposal accepts.
-(c) ``sweep_reference`` with injected uniforms equals
+(b) ``sweep_reference`` with injected uniforms equals
     ``make_pallas_sweep(..., interpret=True)`` bit for bit at toric d=23
     and rotated d=33 in both branches, and the port's ``make_dense_sweep``
     equals the JAX one on the same injected uniforms.
-(d) The slice as a whole: STDC at toric d=23, p=0.02, on the same 8
+(c) The slice as a whole: STDC at toric d=23, p=0.02, on the same 8
     syndromes through both packages (each recovers at least 7 and they
     agree on at least 7 argmaxes); PTEQ at toric d=23 with
     ``engine="sweep"`` runs the unfused window (one sweep call a ladder
     step, no window-kernel call) and its window keeps every rung's
     syndrome.
-(e) ``sweep_kernel_fits`` is exactly where ``sweep_plan`` finds a launch,
+(d) ``sweep_kernel_fits`` is exactly where ``sweep_plan`` finds a launch,
     for every family up to the limit (256 words per plane) and past it;
     the large variant's launch (``wide_block``) stays within 1024 threads
     and 227 KB a block and spreads the batch over the SMs in whole waves;
@@ -50,6 +46,7 @@ from mcmc_qec_tpu.models import get_spec as jax_get_spec
 from mcmc_qec_tpu.ops.dense_sweep import make_dense_sweep as jax_dense_sweep
 from mcmc_qec_tpu.ops.pallas_sweep import make_pallas_sweep
 import mcmc_qec_tpu_torch.decoders.pteq as pteq_mod
+import mcmc_qec_tpu_torch.ops.kernel_tables as kt
 import mcmc_qec_tpu_torch.ops.ladder_window as lw
 import mcmc_qec_tpu_torch.ops.sweep as sw
 from mcmc_qec_tpu_torch.convert import spec_from_jax
@@ -62,8 +59,6 @@ from mcmc_qec_tpu_torch.ops.philox import MASK32
 
 from test_torch_sweep import _pallas_logu
 
-WIDE = [("toric", 23), ("toric", 33), ("toric", 45), ("planar", 23),
-        ("rotated", 33), ("rotated", 63), ("xzzx", 33), ("xzzx", 63)]
 EMULATED = [("toric", 23), ("rotated", 33)]
 # the largest distance of each family the card takes (nq <= 16384)
 LARGEST = {"toric": 89, "planar": 89, "rotated": 127, "xzzx": 127}
@@ -83,64 +78,8 @@ def _states(spec, B, seed, p=0.3):
     return (s * spec.valid_mask).astype(np.uint8)
 
 
-def _table_order(spec):
-    """The stabilizers in the tables' order (by color)."""
-    return [int(s) for color in spec.color_stabs for s in color
-            if s < spec.n_stabs]
-
-
 # ---------------------------------------------------------------------------
-# (a) the wide spanned-word entries
-# ---------------------------------------------------------------------------
-
-
-def test_pack_span_is_narrow_up_to_16_words_and_wide_above():
-    v, w = lw._pack_span([3, 15], 2, 1, 16)
-    assert v == 2 | 2 << 4 | 1 << 8 | 3 << 12 | 15 << 16  # the form K2 reads
-    assert w == 3 | 15 << 8
-    assert lw.unpack_span(v) == lw.unpack_span(v, w) == ([3, 15], 2, 1)
-    v, w = lw._pack_span([16, 17, 62, 63], 4, 0, 64)
-    assert v == 4 | 4 << 4  # no 4-bit index above 16 words
-    assert lw.unpack_span(v, w) == ([16, 17, 62, 63], 4, 0)
-    v, w = lw._pack_span([255], 1, 1, 256)
-    assert lw.unpack_span(v, w)[0] == [255] and w == 255
-    with pytest.raises(ValueError, match="below 256"):
-        lw._pack_span([256], 1, 1, 257)
-
-
-@pytest.mark.parametrize("family,d", WIDE, ids=[f"{f}-{d}" for f, d in WIDE])
-def test_wide_entries_list_the_spanned_words(family, d):
-    spec = get_spec(family, d)
-    tab, meta, offs = lw.kernel_tables(spec)
-    n, nw, S = spec.n_stabs, offs["nw"], offs["span"]
-    assert nw == -(-spec.nq // 64) > lw.KERNEL_WORDS[-1]
-    assert S == lw.spanned_words(spec) in (2, 4)
-    assert offs["m_wide"] + n == offs["n_meta"] == len(meta)
-    heads = meta[offs["m_span"]: offs["m_span"] + n].astype(np.int64)
-    wides = meta[offs["m_wide"]:].view(np.uint32).astype(np.int64)
-    span = tab[offs["off_span"]:].view(np.uint64).reshape(n, S, 3)
-    one = np.uint64(1)
-    for i, s in enumerate(_table_order(spec)):
-        ops = spec.stab_ops[s].astype(np.int64)
-        qs = spec.stab_qubits[s][ops != 0]
-        ops = ops[ops != 0]
-        xq = qs[((ops & 1) ^ (ops >> 1)) == 1]  # qubits the op flips in X
-        zq = qs[(ops >> 1) == 1]
-        words = sorted({int(q) // 64 for q in qs})
-        got = lw.unpack_span(int(heads[i]), int(wides[i]))
-        assert got == (words, len(xq), len(zq)), (i, s)
-        assert heads[i] >> 12 == 0
-        assert lw._pack_span(words, len(xq), len(zq), nw) == (heads[i], wides[i])
-        for m, w in enumerate(words):
-            want = [np.bitwise_or.reduce([one << np.uint64(q % 64) for q in g
-                                          if q // 64 == w] or [np.uint64(0)])
-                    for g in (qs, xq, zq)]
-            np.testing.assert_array_equal(span[i, m], want)
-        assert not span[i, len(words):].any()
-
-
-# ---------------------------------------------------------------------------
-# (b) a numpy emulation of the large variant against sweep_reference
+# (a) a numpy emulation of the large variant against sweep_reference
 # ---------------------------------------------------------------------------
 
 
@@ -160,7 +99,7 @@ def _unpack_slots(spec, states):
     """The kernel's unpack into slots of 2 bits a qubit: per 32-qubit chunk
     k, the ballots of the X and Z bits spread into slot words 2k and 2k +
     1 (16 qubits each; 4 nw words a chain)."""
-    nw = lw.kernel_words(spec.nq)
+    nw = kt.kernel_words(spec.nq)
     v = np.zeros((states.shape[0], 64 * nw), np.uint32)
     v[:, : spec.nq] = states & 3
     shifts = np.arange(32, dtype=np.uint32)
@@ -185,7 +124,7 @@ def _unpack(spec, states):
     and Z bits are the 32-bit halves 2w, 2w + 1 of plane word w (the
     window kernel's model, tests/test_torch_window_above_1024.py, reads its
     slots from them)."""
-    nw = lw.kernel_words(spec.nq)
+    nw = kt.kernel_words(spec.nq)
     v = np.zeros((states.shape[0], 64 * nw), np.uint32)
     v[:, : spec.nq] = states
     shifts = np.arange(32, dtype=np.uint32)
@@ -242,8 +181,8 @@ class _Emulated:
 
     def __init__(self, spec, states, betas, equal_betas, lanes):
         self.spec, self.eq, self.L = spec, equal_betas, lanes
-        self.qt = lw.qubit_table(spec).view(np.uint64)
-        tab, meta, offs = lw.kernel_tables(spec)
+        self.qt = kt.qubit_table(spec).view(np.uint64)
+        tab, meta, offs = kt.kernel_tables(spec)
         self.starts = [int(v) for v in meta[: offs["n_colors"] + 1]]
         self.W = _unpack_slots(spec, states)
         B = len(states)
@@ -325,7 +264,7 @@ def _log_uniforms(spec, seed, n_sweeps, B):
     (n_sweeps, B, n_colors, 4 * blocks)."""
     n_colors = len(spec.color_stabs)
     n_blocks = -(-sw.stab_width(spec) // 4)
-    bits = lw._draw_words(seed & MASK32, (seed >> 32) & MASK32, 0, n_sweeps, B,
+    bits = kt._draw_words(seed & MASK32, (seed >> 32) & MASK32, 0, n_sweeps, B,
                           0, n_colors, n_blocks, None, "cpu") >> 8
     return torch.log(bits.to(torch.float32) * torch.tensor(2.0 ** -24)
                      + torch.tensor(1e-12)).numpy()
@@ -455,7 +394,7 @@ def test_emulated_recording_at_zero_betas_accepts_every_proposal(lanes):
 
 
 # ---------------------------------------------------------------------------
-# (c) against the JAX package
+# (b) against the JAX package
 # ---------------------------------------------------------------------------
 
 
@@ -502,7 +441,7 @@ def test_dense_sweep_equals_jax_above_1024_qubits():
 
 
 # ---------------------------------------------------------------------------
-# (d) the slice as a whole
+# (c) the slice as a whole
 # ---------------------------------------------------------------------------
 
 
@@ -551,7 +490,7 @@ def test_pteq_at_toric_d23_runs_the_unfused_window():
 
 
 # ---------------------------------------------------------------------------
-# (e) the predicate, the limit and no fallback
+# (d) the predicate, the limit and no fallback
 # ---------------------------------------------------------------------------
 
 
@@ -570,7 +509,7 @@ def test_predicate_is_where_sweep_plan_finds_a_launch(family):
                 except ValueError:
                     continue
                 launches.append(L)
-                assert plan.smem <= lw.SMEM_LIMIT
+                assert plan.smem <= kt.SMEM_LIMIT
             assert fits == bool(launches) == (d <= top), (d, record)
             if fits:  # every lane count from the fewest up
                 least = sw.least_lanes(spec, record)
@@ -593,26 +532,26 @@ def test_large_variant_plan_fills_the_card_in_whole_waves(family, record):
                  get_spec("toric", 45)):
         least = sw.least_lanes(spec, record)
         chain = 4 * sw.plane_words(spec) + record * sw.tile_bytes(sw.TILE_STEPS, True)
-        cap = (lw.SMEM_LIMIT - sw.sweep_smem_bytes(spec, 0, False, False, 0)) // chain
+        cap = (kt.SMEM_LIMIT - sw.sweep_smem_bytes(spec, 0, False, False, 0)) // chain
         for B in BATCHES:
             L, warps = sw.wide_block(spec, record, B, N_SM)
             plan = sw.sweep_plan(spec, record, L, warps)
             assert plan.lanes == L
-            assert plan.threads == 32 * warps <= lw.WIDE_MAX_THREADS
-            assert warps <= lw.WIDE_WARPS_PER_SM
-            assert plan.smem <= lw.SMEM_LIMIT and L >= least
+            assert plan.threads == 32 * warps <= kt.WIDE_MAX_THREADS
+            assert warps <= kt.WIDE_WARPS_PER_SM
+            assert plan.smem <= kt.SMEM_LIMIT and L >= least
             blocks = -(-B // plan.chains_per_block)
             assert blocks * plan.chains_per_block >= B
             waves = -(-(-(-B // N_SM)) // cap)
             assert blocks <= N_SM * waves, (spec.nq, B, blocks, waves)
             if L < 32:  # twice the lanes would pass 32 warps a block
-                assert -(-plan.chains_per_block * 2 * L // 32) > lw.WIDE_WARPS_PER_SM or (
+                assert -(-plan.chains_per_block * 2 * L // 32) > kt.WIDE_WARPS_PER_SM or (
                     2 * L >= 2 * -(-sw.stab_width(spec) // 4))
         for L in (1, 2, 4, 8, 16, 32):  # lanes given: a launch at every count
             if L >= least:
                 plan = sw.sweep_plan(spec, record, *sw.wide_block(
                     spec, record, 40960, N_SM, lanes=L))
-                assert plan.lanes == L and plan.smem <= lw.SMEM_LIMIT
+                assert plan.lanes == L and plan.smem <= kt.SMEM_LIMIT
 
 
 def test_large_variant_plans_at_the_measured_shapes():

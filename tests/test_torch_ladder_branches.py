@@ -23,6 +23,7 @@ import torch
 import jax.numpy as jnp
 
 import mcmc_qec_tpu.ops.pallas_ladder as pallas_ladder
+import mcmc_qec_tpu_torch.ops.kernel_tables as kt
 import mcmc_qec_tpu_torch.ops.ladder_window as lw
 from mcmc_qec_tpu.models import get_spec as jax_get_spec
 from mcmc_qec_tpu_torch.convert import ladder_state_from_numpy, spec_from_jax
@@ -156,7 +157,7 @@ def test_metropolis_mix_matches_pallas_with_fixed_draws(family, monkeypatch):
 
 def test_fixed_word_draws_and_rng_validation():
     """An integer rng makes every draw that word; other values raise."""
-    words = lw._draw_words(1, 2, 0, 2, 3, 0, 2, 2, FIXED_WORD, "cpu")
+    words = kt._draw_words(1, 2, 0, 2, 3, 0, 2, 2, FIXED_WORD, "cpu")
     assert words.shape == (2, 3, 2, 8) and bool((words == FIXED_WORD).all())
     spec = get_spec("toric", 3)
     for bad in ("threefry", -1, 1 << 32, True):
@@ -174,10 +175,10 @@ def test_kernel_words_and_threads(family, d, nw, lanes):
     the widest color, at most 8), and a group of Nc * lanes threads padded
     to whole warps within the block's thread bound."""
     spec = get_spec(family, d)
-    assert lw.kernel_words(spec.nq) == nw
-    _, _, offs = lw.kernel_tables(spec)
+    assert kt.kernel_words(spec.nq) == nw
+    _, _, offs = kt.kernel_tables(spec)
     assert offs["nw"] == nw
-    assert lw.lanes_per_rung(offs, d) == lanes
+    assert kt.lanes_per_rung(offs, d) == lanes
     shape = lw.block_shape(offs, d, spec.n_classes, 2048, 132, True, 2,
                            len(spec.logical_draws))
     assert shape.lanes == lanes
@@ -195,7 +196,7 @@ def test_block_shape_fits_shared_memory():
                                     ("toric", 13, 13, True), ("toric", 19, 19, True),
                                     ("toric", 19, 25, False)):
         spec = get_spec(family, d)
-        _, _, offs = lw.kernel_tables(spec)
+        _, _, offs = kt.kernel_tables(spec)
         nd = len(spec.logical_draws)
         for eq in (True, False):
             shape = lw.block_shape(offs, Nc, spec.n_classes, 2048, 132, eq, 2, nd)
@@ -203,10 +204,10 @@ def test_block_shape_fits_shared_memory():
             assert 1 <= shape.groups_per_block and shape.threads <= lw.MAX_THREADS
             assert shape.smem == lw.smem_bytes(
                 offs, Nc, spec.n_classes, shape.groups_per_block,
-                eq, 2, nd, want_tab) <= lw.SMEM_LIMIT
+                eq, 2, nd, want_tab) <= kt.SMEM_LIMIT
     # the production shape: one warp per syndrome, 16 syndromes per block
     spec = get_spec("toric", 5)
-    offs = lw.kernel_tables(spec)[2]
+    offs = kt.kernel_tables(spec)[2]
     shape = lw.block_shape(offs, 5, 16, 2048, 132, True, 2, 2)
     assert shape[:5] == (4, 1, 16, 512, True)
 

@@ -17,6 +17,7 @@ on the CPU for every family and size it is built for.
 import numpy as np
 import pytest
 
+import mcmc_qec_tpu_torch.ops.kernel_tables as kt
 import mcmc_qec_tpu_torch.ops.ladder_window as lw
 from mcmc_qec_tpu_torch.models import get_spec
 
@@ -35,7 +36,7 @@ def _popc(a: np.ndarray) -> np.ndarray:
 
 def _tables(family, d):
     spec = get_spec(family, d)
-    tab, meta, offs = lw.kernel_tables(spec)
+    tab, meta, offs = kt.kernel_tables(spec)
     tab = tab.view(np.uint64)
     nw = offs["nw"]
     dense = tab[: offs["off_draw"]].reshape(spec.n_stabs, 3, nw)
@@ -62,7 +63,7 @@ def test_spanned_word_table(family, d):
     nw, S = offs["nw"], offs["span"]
     assert 1 <= S <= 4
     for s in range(spec.n_stabs):
-        words, cx, cz = lw.unpack_span(int(packed[s]))
+        words, cx, cz = kt.unpack_span(int(packed[s]))
         assert words == [w for w in range(nw) if dense[s, 0, w]]
         assert len(words) <= S
         for m, w in enumerate(words):
@@ -133,7 +134,7 @@ def test_block_shape_within_the_card(family, d):
             for eq in (True, False):
                 shape = lw.block_shape(offs, Nc, K, B, N_SM, eq, 2, nd)
                 L = shape.lanes
-                assert L == lw.lanes_per_rung(offs, Nc) and L & (L - 1) == 0
+                assert L == kt.lanes_per_rung(offs, Nc) and L & (L - 1) == 0
                 # one warp per syndrome exactly where its lanes fit one
                 assert (shape.warps_per_group == 1) == (Nc * L <= 32)
                 assert shape.warps_per_group == -(-Nc * L // 32)
@@ -144,7 +145,7 @@ def test_block_shape_within_the_card(family, d):
                 assert shape.threads == 32 * shape.warps_per_group * gpb
                 assert shape.threads <= lw.MAX_THREADS
                 fits = lw.smem_bytes(offs, Nc, K, 1, eq, 2, nd, True)
-                assert shape.tab_in_smem == (fits <= lw.SMEM_LIMIT)
+                assert shape.tab_in_smem == (fits <= kt.SMEM_LIMIT)
                 assert shape.smem == lw.smem_bytes(offs, Nc, K, gpb, eq, 2, nd,
                                                    shape.tab_in_smem)
-                assert shape.smem <= lw.SMEM_LIMIT
+                assert shape.smem <= kt.SMEM_LIMIT

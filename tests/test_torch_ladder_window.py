@@ -31,9 +31,8 @@ from mcmc_qec_tpu_torch.convert import (
     spec_from_jax,
 )
 from mcmc_qec_tpu_torch.mcmc.ladder import beta_ladder_depolarizing
+from mcmc_qec_tpu_torch.ops.kernel_tables import _draw_words, kernel_tables
 from mcmc_qec_tpu_torch.ops.ladder_window import (
-    _draw_words,
-    kernel_tables,
     ladder_window_counts,
     make_ladder_window,
 )

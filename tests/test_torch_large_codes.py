@@ -1,8 +1,10 @@
 """Codes beyond d=13 in the port, on the CPU.
 
-(a) ``KERNEL_SHAPES`` is exactly the list both CUDA sources instantiate
-    (the ``MQT_SHAPE`` lines of ``csrc/ladder_window.cu`` and
-    ``csrc/sweep.cu``), and every code up to 16 words per plane has one.
+(a) Each CUDA source instantiates exactly its wrapper's list (the
+    ``MQT_SHAPE`` lines of ``csrc/ladder_window.cu``, ``WINDOW_SHAPES``, and
+    of ``csrc/sweep.cu``, ``SWEEP_SHAPES``): the sweep kernel has a
+    register instantiation for every code up to 16 words per plane, the
+    window kernel for every code up to 4.
 (b) ``window_forms`` says exactly where ``block_shape`` finds a launch of
     the window kernel's register form and ``wide_block_shape`` one of its
     large variant (from 12 words on no ladder is the register form's
@@ -37,7 +39,9 @@ import torch
 import mcmc_qec_tpu.decoders as jd
 from mcmc_qec_tpu.models import get_spec as jax_get_spec
 import mcmc_qec_tpu_torch.decoders.pteq as pteq_mod
+import mcmc_qec_tpu_torch.ops.kernel_tables as kt
 import mcmc_qec_tpu_torch.ops.ladder_window as lw
+import mcmc_qec_tpu_torch.ops.sweep as sw
 from mcmc_qec_tpu_torch.decoders import PTEQ, PTEQ_alpha, PTEQConfig
 from mcmc_qec_tpu_torch.models import get_spec, np_eq_class
 
@@ -75,9 +79,14 @@ def test_kernel_shapes_are_the_cuda_dispatch_lists(source):
     body = body.split("#undef MQT_SHAPE")[0]
     got = tuple((int(w), int(s))
                 for w, s in re.findall(r"^\s*MQT_SHAPE\((\d+), (\d+)\)$", body, re.M))
-    assert got == lw.KERNEL_SHAPES
-    assert max(w for w, _ in got) == lw.KERNEL_WORDS[-1] == 16
-    assert {w for w, _ in got} == set(lw.KERNEL_WORDS)
+    if source == "sweep.cu":
+        assert got == sw.SWEEP_SHAPES
+        assert max(w for w, _ in got) == kt.KERNEL_WORDS[-1] == 16
+        assert {w for w, _ in got} == set(kt.KERNEL_WORDS)
+    else:
+        assert got == lw.WINDOW_SHAPES
+        assert {w for w, _ in got} == {1, 2, 3, 4}
+        assert set(got) < set(sw.SWEEP_SHAPES)
 
 
 @pytest.mark.parametrize("family", ["toric", "planar", "rotated", "xzzx"])
@@ -85,17 +94,20 @@ def test_every_code_up_to_1024_qubits_has_an_instantiation(family):
     for d in range(3, 35, 2):
         spec = get_spec(family, d)
         fits = spec.nq <= 1024
-        assert lw.has_kernel_shape(spec) == fits, (family, d)
-        nw, span = lw.kernel_shape(spec)
+        nw, span = kt.kernel_words(spec.nq), kt.spanned_words(spec)
+        assert sw.has_sweep_shape(spec) == fits, (family, d)
+        assert lw.has_window_shape(spec) == (fits and nw <= 4), (family, d)
         if fits:
-            assert (nw, span) in lw.KERNEL_SHAPES
+            assert (nw, span) in sw.SWEEP_SHAPES
         else:  # the large variants' shape: the code's own word count
-            assert nw == -(-spec.nq // 64) > lw.KERNEL_WORDS[-1]
-            assert span in lw.WIDE_SPANS
-    # past the wide entry's 8-bit word index no kernel takes the code
-    with pytest.raises(ValueError, match="nq <= 16384"):
-        lw.kernel_shape(get_spec(family, 91 if family in ("toric", "planar")
-                                 else 129))
+            assert nw == -(-spec.nq // 64) > kt.KERNEL_WORDS[-1]
+            assert span in (2, 4)
+    # past a qubit-table entry's 14-bit qubit index no kernel takes the code
+    big = get_spec(family, 91 if family in ("toric", "planar") else 129)
+    assert not sw.sweep_kernel_fits(big, False)
+    assert not lw.window_kernel_fits(big, 3, True, 2)
+    with pytest.raises(ValueError, match="below 16384"):
+        kt.qubit_table(big)
 
 
 @pytest.mark.parametrize("family,d", [("toric", 5), ("xzzx", 13),
@@ -105,7 +117,7 @@ def test_every_code_up_to_1024_qubits_has_an_instantiation(family):
 def test_predicate_is_where_block_shape_finds_a_launch(family, d):
     spec = get_spec(family, d)
     nd, K = len(spec.logical_draws), spec.n_classes
-    offs = lw.kernel_tables(spec)[2]
+    offs = kt.kernel_tables(spec)[2]
 
     def launches(plan, Nc, eq, iters):
         try:
@@ -119,7 +131,7 @@ def test_predicate_is_where_block_shape_finds_a_launch(family, d):
             for iters in (1, 2):
                 forms = lw.window_forms(spec, Nc, eq, iters)
                 assert lw.window_kernel_fits(spec, Nc, eq, iters) == bool(forms)
-                registers = lw.has_kernel_shape(spec) and launches(
+                registers = lw.has_window_shape(spec) and launches(
                     lw.block_shape, Nc, eq, iters)
                 large = launches(lw.wide_block_shape, Nc, eq, iters)
                 assert forms == ("registers",) * registers + ("large",) * large, (
@@ -127,9 +139,9 @@ def test_predicate_is_where_block_shape_finds_a_launch(family, d):
                 for B in (1, 512, 4096):
                     form = lw.window_form(spec, Nc, eq, iters, B, 132)
                     assert form in forms if forms else form is None
-                # from 12 words on, the large variant holds every ladder the
-                # register form holds, so no code falls back to registers
-                assert large or not registers or offs["nw"] < 12
+                # the register form is built up to 4 words (WINDOW_SHAPES),
+                # so from 6 words on no ladder falls back to it
+                assert large or not registers or offs["nw"] <= 4
     # the register form at 1 word a plane, the large variant from 8 words on
     # (toric d=15, B=512: 50.4 against 177.6 ms a window, ``window_form``)
     assert lw.window_form(get_spec("toric", 5), 5, True, 2, 512, 132) == "registers"
@@ -140,7 +152,7 @@ def test_predicate_is_where_block_shape_finds_a_launch(family, d):
     assert lw.window_form(get_spec("xzzx", 31), 31, False, 2, 512, 132) == "large"
     assert lw.window_form(get_spec("toric", 23), 4, True, 2, 512, 132) == "large"
     assert not lw.window_kernel_fits(get_spec("toric", 5),
-                                     lw.WIDE_MAX_THREADS + 1, True, 2)
+                                     kt.WIDE_MAX_THREADS + 1, True, 2)
 
 
 def _states(spec, B, seed, p=0.02):
@@ -216,7 +228,7 @@ def test_a_code_the_kernel_cannot_hold_falls_back():
     block of the large variant has threads, so neither form of the window
     kernel holds the ladder and PTEQ runs the unfused sweep window."""
     spec = get_spec("toric", 3)
-    Nc = lw.WIDE_MAX_THREADS + 1
+    Nc = kt.WIDE_MAX_THREADS + 1
     assert not lw.window_kernel_fits(spec, Nc, True, 2)
     s = _states(spec, 2, seed=9, p=0.1)
     cfg = PTEQConfig(Nc=Nc, max_steps=24, window=12, iters=2, energy_chunk=12,
@@ -299,7 +311,7 @@ def test_the_card_path_refuses_codes_above_1024_qubits(monkeypatch):
     out = lw._launch(spec, *args, device_tables=tables, **kw)
     assert lw.ladder_window_counts.launches == 1
     P, = fake.params
-    offs = lw.kernel_tables(spec)[2]
+    offs = kt.kernel_tables(spec)[2]
     assert (P["wide"], P["nw"], P["n_tab"], P["n_meta"]) == (
         1, 17, spec.n_stabs, offs["m_span"])
     shape = lw.wide_block_shape(offs, Nc, spec.n_classes, B, 132, True, 1,
@@ -307,11 +319,11 @@ def test_the_card_path_refuses_codes_above_1024_qubits(monkeypatch):
     assert (P["lanes"], P["smem"]) == (shape.lanes, shape.smem)
     assert out[0].shape == (B, Nc, spec.nq)
     _, meta = tables[torch.device("cpu")]
-    assert len(meta) == offs["n_meta"] > offs["m_wide"]
+    assert len(meta) == offs["n_meta"] > offs["m_span"]
     # the qubit table is built for the large variant, which alone reads it
     assert len(tables[torch.device("cpu"), "qubits"]) == spec.n_stabs
     for big, n in ((get_spec("planar", 91), 3),
-                   (get_spec("toric", 5), lw.WIDE_MAX_THREADS + 1)):
+                   (get_spec("toric", 5), kt.WIDE_MAX_THREADS + 1)):
         state = torch.zeros((1, n, big.nq), dtype=torch.uint8)
         with pytest.raises(ValueError, match=f"nq={big.nq}.*nq <= 16384"):
             lw._launch(big, state, *[None] * 7, device_tables={}, **kw)
@@ -333,7 +345,7 @@ def test_the_sweep_kernel_takes_codes_above_1024_qubits(monkeypatch, record):
     import mcmc_qec_tpu_torch.ops.sweep as sw
 
     spec = get_spec("toric", 23)
-    assert sw.sweep_kernel_fits(spec, record) and lw.is_wide(spec)
+    assert sw.sweep_kernel_fits(spec, record) and kt.is_wide(spec)
     fake = RecordingLibrary()
     states = torch.zeros((5, spec.nq), dtype=torch.uint8)
     tables = {}
@@ -347,12 +359,12 @@ def test_the_sweep_kernel_takes_codes_above_1024_qubits(monkeypatch, record):
     assert (P["nw"], P["span"], P["nq"], P["record"]) == (17, 4, 1058, int(record))
     assert (P["lanes"], P["threads"] // 32) == sw.wide_block(spec, record, 5, 132)
     plan = sw.sweep_plan(spec, record, P["lanes"], P["threads"] // 32)
-    assert P["smem"] == plan.smem <= lw.SMEM_LIMIT
-    assert P["threads"] == plan.threads <= lw.WIDE_MAX_THREADS
+    assert P["smem"] == plan.smem <= kt.SMEM_LIMIT
+    assert P["threads"] == plan.threads <= kt.WIDE_MAX_THREADS
     # a chain's slot: 2 bits a qubit, 4 * 17 + 1 words of 32 bits
     assert P["region_bytes"] >= plan.chains_per_warp * 4 * (4 * 17 + 1)
     tab, meta, _, qtab = tables[states.device]
     assert tab is None and len(meta) == len(spec.color_stabs) + 1
-    np.testing.assert_array_equal(qtab.numpy(), lw.qubit_table(spec))
+    np.testing.assert_array_equal(qtab.numpy(), kt.qubit_table(spec))
     if record:
         assert [t.shape for t in out[1:]] == [(5, 3, 2), (5, 3, 3)]

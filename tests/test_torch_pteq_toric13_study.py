@@ -23,6 +23,7 @@ from mcmc_qec_tpu_torch.mcmc.ladder import (  # noqa: E402
     init_ladder,
 )
 from mcmc_qec_tpu_torch.models.toric import toric_spec  # noqa: E402
+from mcmc_qec_tpu_torch.ops import kernel_tables as kt  # noqa: E402
 from mcmc_qec_tpu_torch.ops import ladder_window as lw  # noqa: E402
 from mcmc_qec_tpu_torch.utils import profiling  # noqa: E402
 from port_bench import inputs  # noqa: E402
@@ -57,7 +58,7 @@ def test_reference_window_equals_the_ports_at_toric_7(general):
     from mcmc_qec_tpu_torch.ops.ladder_window import ladder_window_reference
 
     code, spec = codes.toric(7), toric_spec(7)
-    assert lw.kernel_words(spec.nq) == 2
+    assert kt.kernel_words(spec.nq) == 2
     n, Nc = 8, 7
     _, start = inputs.draw_pool(code, 0.19, 1, n, 7, "cpu")
     ls = init_ladder(spec, start[0], Nc)
@@ -114,40 +115,58 @@ def test_host_replay_equals_the_ports_host_loop_at_toric_7():
     np.testing.assert_array_equal(tops, res.tops0)
 
 
-def _study_shape(iters):
-    spec = toric_spec(D)
-    offs = lw.kernel_tables(spec)[2]
-    return spec, offs, lw.block_shape(offs, D, spec.n_classes, B, N_SM, True,
+def _register_shape(iters):
+    """(spec, tables' offsets, the register form's launch of B rows) at
+    Nc=d of toric d=11, the largest toric code with a register build
+    (``<4, 4, true>``)."""
+    spec = toric_spec(11)
+    offs = kt.kernel_tables(spec)[2]
+    return spec, offs, lw.block_shape(offs, 11, spec.n_classes, B, N_SM, True,
                                       iters, len(spec.logical_draws))
 
 
 @pytest.mark.parametrize("iters, groups", [(10, 1), (2, 4)])
 def test_study_window_is_the_large_variant(iters, groups):
-    """Toric d=13 at Nc=13 runs K2's large variant at both iters: a wave of
-    the register form <6, 4, true> (8 lanes a rung, four warps a group)
-    costs 1.8 of the large variant's (``wave_cost``), and the sweep draws
-    a group stages grow with iters, so that at iters=10 one group fills a
+    """Toric d=13 at Nc=13 runs K2's large variant at both iters: its
+    6-word planes have no register build (``WINDOW_SHAPES``), the rule
+    having picked the large variant there at every batch.  The register
+    form at toric d=11, the largest toric code that keeps one (8 lanes a
+    rung, three warps a group), shows why: a wave of it costs 1.37 of the
+    large variant's (1.8 at 6 words, ``wave_cost``), and the sweep draws a
+    group stages grow with iters, so that at iters=10 one group fills a
     block's shared memory and 512 rows take it 4 waves to the large
     variant's one."""
-    spec, offs, shape = _study_shape(iters)
-    assert lw.window_forms(spec, D, True, iters) == ("registers", "large")
+    spec = toric_spec(D)
+    offs = kt.kernel_tables(spec)[2]
+    nd = len(spec.logical_draws)
+    assert (kt.kernel_words(spec.nq), kt.spanned_words(spec)) == (6, 4)
+    assert not lw.has_window_shape(spec)
+    assert lw.window_forms(spec, D, True, iters) == ("large",)
     assert lw.window_form(spec, D, True, iters, B, N_SM) == "large"
-    assert lw.kernel_shape(spec) == (6, 4)
-    assert (shape.lanes, shape.warps_per_group) == (8, 4)
+    assert 1.7 < lw.wave_cost(offs) < 1.9
+    big = lw.wide_block_shape(offs, D, spec.n_classes, B, N_SM, True, iters, nd)
+    assert lw.resident_rows(big, lw.blocks_per_sm(big, kt.WIDE_MAX_THREADS),
+                            N_SM) == 528
+    spec, offs, shape = _register_shape(iters)
+    assert lw.window_forms(spec, 11, True, iters) == ("registers", "large")
+    assert lw.window_form(spec, 11, True, iters, B, N_SM) == "large"
+    assert (shape.lanes, shape.warps_per_group) == (8, 3)
     assert shape.groups_per_block == groups
-    assert shape.threads == 128 * groups
-    assert shape.smem <= lw.SMEM_LIMIT < shape.smem + lw.group_bytes(
-        offs, D, spec.n_classes, True, iters, len(spec.logical_draws))
+    assert shape.threads == 96 * groups
+    group = lw.group_bytes(offs, 11, spec.n_classes, True, iters, nd)
+    assert shape.smem <= kt.SMEM_LIMIT
+    if iters == 10:  # one group fills the block
+        assert shape.smem + group > kt.SMEM_LIMIT
     held = lw.resident_rows(shape, lw.blocks_per_sm(shape, lw.MAX_THREADS),
                             N_SM)
     assert -(-B // held) == (4 if iters == 10 else 1)
-    assert 1.7 < lw.wave_cost(offs) < 1.9
+    assert 1.3 < lw.wave_cost(offs) < 1.4
 
 
 def test_resident_rows_of_the_study_window():
-    _, _, shape = _study_shape(10)
-    assert shape.smem == 227_216
-    # one block of 227,216 B an SM: 132 rows at once, 512 in 3.88 waves
+    _, _, shape = _register_shape(10)
+    assert shape.smem == 141_516
+    # one block of 141,516 B an SM: 132 rows at once, 512 in 3.88 waves
     assert lw.resident_rows(shape, 1, N_SM) == 132
     assert lw.resident_rows(shape._replace(groups_per_block=4), 2, N_SM) == 1056
 

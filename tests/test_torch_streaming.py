@@ -51,7 +51,7 @@ from mcmc_qec_tpu_torch.decoders.strc import _warn_occupancy_truncation
 from mcmc_qec_tpu_torch.mcmc.ladder import betas_depolarizing
 from mcmc_qec_tpu_torch.ops import sweep_counts
 from mcmc_qec_tpu_torch.ops import stream_merge as sm
-from mcmc_qec_tpu_torch.ops.ladder_window import SMEM_LIMIT
+from mcmc_qec_tpu_torch.ops.kernel_tables import SMEM_LIMIT
 
 from reference_oracles import exact_class_posterior
 

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import mcmc_qec_tpu_torch.ops.kernel_tables as kt
 import mcmc_qec_tpu_torch.ops.ladder_window as lw
 import mcmc_qec_tpu_torch.ops.sweep as sw
 from mcmc_qec_tpu_torch.decoders.counting import make_sampler
@@ -110,7 +111,7 @@ def _butterfly(parts, op):
 @pytest.mark.parametrize("family,d", CODES, ids=IDS)
 def test_recording_arithmetic_models_pack_key_and_counts(family, d, lanes):
     spec = get_spec(family, d)
-    nq, nw = spec.nq, lw.kernel_words(spec.nq)
+    nq, nw = spec.nq, kt.kernel_words(spec.nq)
     L = lanes
     R = 16
     states = _states(spec, R, seed=d, p=0.5)
@@ -181,8 +182,8 @@ def test_recording_arithmetic_models_pack_key_and_counts(family, d, lanes):
 @pytest.mark.parametrize("family,d", CODES, ids=IDS)
 def test_sweep_plan(family, d):
     spec = get_spec(family, d)
-    offs = lw.kernel_tables(spec)[2]
-    most = lw.lanes_per_rung(offs, 1)
+    offs = kt.kernel_tables(spec)[2]
+    most = kt.lanes_per_rung(offs, 1)
     want = min(8, -(-offs["w_max"] // 4))
     assert most == 1 << max(0, want - 1).bit_length()  # the next power of two
     # lanes against the batch: the fewest that still give every SM
@@ -225,10 +226,10 @@ def test_sweep_plan(family, d):
                 assert plan.region_bytes >= cpw * tile
             assert plan.region_bytes < cpw * max(spec.nq, tile * record) + 16
             with_tab = sw.sweep_smem_bytes(spec, plan.region_bytes, True)
-            assert plan.tab_in_smem == (sw.MIN_BLOCKS_PER_SM * with_tab <= lw.SMEM_LIMIT)
+            assert plan.tab_in_smem == (sw.MIN_BLOCKS_PER_SM * with_tab <= kt.SMEM_LIMIT)
             assert plan.smem == sw.sweep_smem_bytes(spec, plan.region_bytes,
                                                     plan.tab_in_smem)
-            assert plan.smem <= lw.SMEM_LIMIT
+            assert plan.smem <= kt.SMEM_LIMIT
             # the table part is the spanned-word table, 3 words per entry
             assert with_tab - sw.sweep_smem_bytes(spec, plan.region_bytes, False) == (
                 8 * spec.n_stabs * 3 * offs["span"])

@@ -44,6 +44,7 @@ import mcmc_qec_tpu.decoders as jd
 from mcmc_qec_tpu.models import get_spec as jax_get_spec
 from mcmc_qec_tpu.ops.pallas_ladder import make_pallas_ladder_window
 import mcmc_qec_tpu_torch.decoders.pteq as pteq_mod
+import mcmc_qec_tpu_torch.ops.kernel_tables as kt
 import mcmc_qec_tpu_torch.ops.ladder_window as lw
 from mcmc_qec_tpu_torch.convert import spec_from_jax
 from mcmc_qec_tpu_torch.decoders import PTEQ, PTEQConfig
@@ -139,9 +140,9 @@ def test_qubit_table_holds_each_stabilizers_qubits_and_ops(family, d):
     ``kernel_tables``' color order) with its op on each, as the dense
     support and op masks do, and op 0 (qubit 0) past them."""
     spec = get_spec(family, d)
-    tab, _, offs = lw.kernel_tables(spec)
+    tab, _, offs = kt.kernel_tables(spec)
     dense = tab[: offs["off_draw"]].view(np.uint64).reshape(spec.n_stabs, 3, -1)
-    qt = lw.qubit_table(spec).view(np.uint64)
+    qt = kt.qubit_table(spec).view(np.uint64)
     assert qt.shape == (spec.n_stabs,)
     for s in range(spec.n_stabs):
         e = int(qt[s])
@@ -164,7 +165,7 @@ def test_qubit_table_holds_each_stabilizers_qubits_and_ops(family, d):
 def test_qubit_table_refuses_what_an_entry_cannot_name():
     """Past 2**14 qubits (planar d=91) no entry names a qubit."""
     with pytest.raises(ValueError, match="below 16384"):
-        lw.qubit_table(get_spec("planar", 91))
+        kt.qubit_table(get_spec("planar", 91))
 
 
 def _popc(a):
@@ -238,11 +239,11 @@ def _emulate_large(spec, inputs, seed, betas, weights, *, W, iters, p_logical,
     entry's ops and a few popcounts), then XORs the accepted ops in."""
     state, flag, tops0, eq_count, since = (np.array(a) for a in inputs)
     B, Nc, nq = state.shape
-    tab, meta, offs = lw.kernel_tables(spec)
+    tab, meta, offs = kt.kernel_tables(spec)
     wt = tab[offs["off_draw"]:].view(np.uint64)  # the window kernel's table
     nw, n_colors = offs["nw"], offs["n_colors"]
     base = offs["off_draw"]
-    qt = lw.qubit_table(spec).view(np.uint64)
+    qt = kt.qubit_table(spec).view(np.uint64)
     k4 = np.arange(4, dtype=np.uint64)
     Q = (qt[:, None] >> (np.uint64(14) * k4)) & np.uint64(0x3FFF)  # (n_s, 4)
     O = (qt[:, None] >> (np.uint64(56) + np.uint64(2) * k4)) & np.uint64(3)
@@ -266,7 +267,7 @@ def _emulate_large(spec, inputs, seed, betas, weights, *, W, iters, p_logical,
     esum = np.zeros((B, 1 if equal_betas else 3), np.int64)
     energies = np.zeros((W // C, B), np.float32)
     eq_tr = np.zeros((W, B), np.int32)
-    key_tr = np.zeros((W, B, lw.N_KEY), np.int32)
+    key_tr = np.zeros((W, B, kt.N_KEY), np.int32)
     ev, od = u64(0x55), u64(0xAA)
 
     def gather(s):
@@ -294,9 +295,9 @@ def _emulate_large(spec, inputs, seed, betas, weights, *, W, iters, p_logical,
         return mx, mz
 
     for t in range(W):
-        lu = _log_u(lw._draw_words(k0, k1, t, t + 1, B, 0, G, n_blk, fixed,
+        lu = _log_u(kt._draw_words(k0, k1, t, t + 1, B, 0, G, n_blk, fixed,
                                    "cpu"))[0]  # (B, G, 4 n_blk)
-        extra = lw._draw_words(k0, k1, t, t + 1, B, G, 4, n_xblk, fixed,
+        extra = kt._draw_words(k0, k1, t, t + 1, B, G, 4, n_xblk, fixed,
                                "cpu")[0]  # (B, 4, 4 n_xblk)
         # 1) sweeps
         for it in range(iters):
@@ -414,7 +415,7 @@ def _emulate_large(spec, inputs, seed, betas, weights, *, W, iters, p_logical,
         cls = meta[offs["m_b2e"] + bits]
         eqc[np.arange(B)[burned], cls[burned]] += 1
         eq_tr[t] = cls
-        for c in range(lw.N_KEY):
+        for c in range(kt.N_KEY):
             key = np.zeros(B, np.int64)
             for k in range(6):
                 m = wt[offs["off_key"] - base + (c * 6 + k) * nw + np.arange(nw)]
@@ -489,7 +490,7 @@ def test_emulated_large_variant_equals_the_plain_window(family, d, Nc, lanes,
                          ids=[f"{f}-{d}" for f, d in WIDE_FORM])
 def test_the_large_variant_holds_every_code_the_jax_package_fuses(family, d):
     spec = get_spec(family, d)
-    offs = lw.kernel_tables(spec)[2]
+    offs = kt.kernel_tables(spec)[2]
     K, nd = spec.n_classes, len(spec.logical_draws)
     for eq in (True, False):
         assert lw.window_kernel_fits(spec, d, eq, 2)
@@ -500,17 +501,17 @@ def test_the_large_variant_holds_every_code_the_jax_package_fuses(family, d):
                            shape.groups_per_block)
             assert 1 <= L <= 32 and L & (L - 1) == 0
             assert wpg == -(-d * L // 32)
-            assert shape.threads == 32 * wpg * gpb <= lw.WIDE_MAX_THREADS
+            assert shape.threads == 32 * wpg * gpb <= kt.WIDE_MAX_THREADS
             if wpg > 1:
                 assert gpb <= lw.MAX_NAMED_BARRIERS
             # an SM's syndromes within its resident warps (or one lane a
             # rung), and one syndrome an SM at the most lanes that fit
-            assert L == 1 or gpb * wpg <= lw.WIDE_WARPS_PER_SM
+            assert L == 1 or gpb * wpg <= kt.WIDE_WARPS_PER_SM
             if B <= 132:
-                assert L == (32 if 32 * d <= lw.WIDE_MAX_THREADS else 16)
+                assert L == (32 if 32 * d <= kt.WIDE_MAX_THREADS else 16)
             assert shape.smem == lw.wide_smem_bytes(offs, d, K, gpb, eq, 2,
                                                     nd, shape.tab_in_smem)
-            assert shape.smem <= lw.SMEM_LIMIT
+            assert shape.smem <= kt.SMEM_LIMIT
     # below 12 words the batch and the word count decide (``window_form``):
     # the register form at 1 word, the large variant from 8 words on
     assert lw.window_form(get_spec("toric", 5), 5, True, 2, 2603, 132) == "registers"
@@ -539,11 +540,11 @@ def test_window_form_at_the_limits(family, d, Nc, want):
         assert lw.window_form(spec, Nc, eq, 2, 512, 132) == want
         assert lw.window_kernel_fits(spec, Nc, eq, 2) == (want is not None)
     if want == "large":
-        offs = lw.kernel_tables(spec)[2]
+        offs = kt.kernel_tables(spec)[2]
         shape = lw.wide_block_shape(offs, Nc, spec.n_classes, 512, 132, True,
                                     2, len(spec.logical_draws))
-        assert Nc * shape.lanes <= shape.threads <= lw.WIDE_MAX_THREADS
-        assert shape.smem <= lw.SMEM_LIMIT
+        assert Nc * shape.lanes <= shape.threads <= kt.WIDE_MAX_THREADS
+        assert shape.smem <= kt.SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
