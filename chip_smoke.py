@@ -8,7 +8,8 @@ kernel against its plain PyTorch version on the card:
 
 - K2, the PT window (csrc/ladder_window.cu): kernel vs plain version,
   also with a ragged last block, at 1 to 32 lanes per rung and with
-  multi-warp groups; depolarizing PTEQ at production size through the
+  multi-warp groups, and at iters=10 at the lanes ``window_lanes`` picks
+  and at 8 and 16; depolarizing PTEQ at production size through the
   kernel; the 64 cached head-to-head syndromes against the executing
   reference; one window timed against one of the plain version at the
   main path's shape, outputs equal, with its launch (lanes, threads and
@@ -670,17 +671,18 @@ def compare_window(family, d, Nc, B, W, iters, C, p, rng, seed,
     top_exact, equal_betas = BRANCHES[branch]
     kw = dict(top_exact=top_exact, equal_betas=equal_betas, exchange=exchange,
               track_traces=traces)
-    default_lanes = lw.lanes_per_rung, lw.wide_lanes
+    default_lanes = lw.lanes_per_rung, lw.window_lanes, lw.wide_lanes
     try:
         if lanes is not None:
             lw.lanes_per_rung = lambda offs, Nc: lanes
+            lw.window_lanes = lambda *args: lanes
             lw.wide_lanes = lambda offs, Nc, per_sm: lanes
         with _window_form(form):
             kern = make_ladder_window(spec, Nc, W, iters, 0.5, 2, C, rng=rng,
                                       **kw)(*inputs, seed, betas, w)
         torch.cuda.synchronize()
     finally:
-        lw.lanes_per_rung, lw.wide_lanes = default_lanes
+        lw.lanes_per_rung, lw.window_lanes, lw.wide_lanes = default_lanes
     plain = ladder_window_reference(
         spec, *inputs, seed, betas, w, window=W, iters=iters, p_logical=0.5,
         tops_burn=2, energy_chunk=C, rng=rng, **kw)
@@ -704,11 +706,20 @@ def phase_parity() -> float:
                                           "philox", seed=1235, lanes=lanes))
     worst = max(worst, compare_window("toric", 5, 13, 263, 48, 2, 12, 0.15,
                                       "philox", seed=1236))
+    # the production ladder's iters=10 at the lanes ``window_lanes`` picks
+    # and at 8 and 16 lanes per rung (two- and three-warp groups)
+    for lanes in (None, 8, 16):
+        worst = max(worst, compare_window("toric", 5, 5, 263, 48, 10, 12, 0.15,
+                                          "philox", seed=1237, lanes=lanes))
+    picked = lw.window_lanes(get_spec("toric", 5), 5, True, 10, 263,
+                             torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
     print(f"phase 3 kernel vs plain on the card: toric d=5 Nc=5 B=256 W=48 "
           f"(philox, zeros), planar d=3 (zeros), toric d=5 B=263 (ragged last "
           f"block) at 4 (one warp per syndrome), 1, 2, 8 and 32 lanes per "
-          f"rung, and Nc=13 (two warps, named barriers): all nine outputs "
-          f"equal, max abs err {worst}", flush=True)
+          f"rung, Nc=13 (two warps, named barriers), and iters=10 at the "
+          f"picked lanes (L={picked}), 8 and 16: all nine outputs equal, max "
+          f"abs err {worst}", flush=True)
     return worst
 
 

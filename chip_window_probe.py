@@ -68,6 +68,20 @@ times both forms the same way over ``GRIDS``' shapes at iters 2 and 10:
 rests on, "check" shapes its fit did not see; one JSON record a shape in
 OUT (``chiprun_out/window_forms_<grid>.jsonl``).
 At the shapes without a register build only the large variant runs.
+
+    python3 chip_window_probe.py --lanes [OUT.jsonl]
+
+times K2's register form, forced, at ``lanes_per_rung``'s lanes a rung
+and every power of two above up to 32 (where a block holds the group;
+``window_lanes`` takes 2 or 4 times the default) on one production
+window (W=600, C=12, a zero top rung) over ``LANES_GRID``' shapes at
+iters 10 and 2: toric d=5 at Nc=5, p 0.15 and 0.19, B from 16 to 2603,
+and the other register-form ladders, toric d=7 and xzzx d=13 (general
+betas) at B 132, 512 and 2048; per lane count its time (two passes, the
+lane counts in turn and back), launch and rows held at once, whether every
+output equals the default lanes' output, and the lanes ``window_lanes``
+picks; one JSON record a shape and iters in OUT
+(``chiprun_out/window_lanes.jsonl``).  ``window_lanes``' table rests on it.
 """
 
 from __future__ import annotations
@@ -649,12 +663,145 @@ def grid(name: str, out_path: str) -> int:
     return 1 if bad else 0
 
 
+# (family, d, betas, p values, batches) of ``--lanes``, each at Nc = d and
+# iters 10 and 2: the d=5 cells' ladder over batches up to and past the
+# one-wave edges of 4, 8, 16 and 32 lanes a rung (2112, 1056, 660 and 396
+# rows), then the other register-form ladders
+LANES_GRID = [
+    ("toric", 5, "equal", (0.15, 0.19),
+     (16, 64, 132, 264, 512, 660, 821, 1056, 1500, 2048, 2603)),
+    ("toric", 7, "equal", (0.19,), (132, 512, 2048)),
+    ("xzzx", 13, "general", (0.276,), (132, 512, 2048)),
+]
+
+
+def lanes(out_path: str) -> int:
+    """K2's register form, forced, at the default lanes a rung and every
+    power of two above up to 32 on one production window at every shape of
+    ``LANES_GRID``: each lane count's time, launch and rows held at once,
+    whether all outputs equal the default lanes', and the lanes
+    ``window_lanes`` picks; one line and one JSON record a shape and
+    iters."""
+    import json
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False", flush=True)
+        return 1
+    import mcmc_qec_tpu_torch.ops.kernel_tables as kt
+    import mcmc_qec_tpu_torch.ops.ladder_window as lw
+    from mcmc_qec_tpu_torch.mcmc.ladder import (beta_ladder_alpha,
+                                                 beta_ladder_depolarizing,
+                                                 init_ladder)
+    from mcmc_qec_tpu_torch.models import get_spec
+    from mcmc_qec_tpu_torch.models.noise import (biased_alpha_equivalent,
+                                                 sample_depolarizing)
+    from mcmc_qec_tpu_torch.ops import _build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"{card.stdout.strip()} | torch {torch.__version__}", flush=True)
+    built = _build.build("ladder_window")
+    print(f"K2 build {built.seconds:.1f} s, ptxas: "
+          f"{' | '.join(ptxas_lines(built.log)) or 'reused build'}", flush=True)
+    dev = torch.device("cuda")
+    n_sm = kt._sm_count(dev)
+    form, rule, bad = lw.window_form, lw.window_lanes, 0
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    with open(out_path, "w") as log:
+        for family, d, kind, ps, batches in LANES_GRID:
+            spec, eq = get_spec(family, d), kind == "equal"
+            offs = kt.kernel_tables(spec)[2]
+            base = kt.lanes_per_rung(offs, d)
+            counts = [L for L in (base, 2 * base, 4 * base, 8 * base)
+                      if L <= 32 and 32 * -(-d * L // 32) <= lw.MAX_THREADS]
+            for p in ps:
+                if eq:
+                    betas, w = (beta_ladder_depolarizing(p, d),
+                                np.ones(3, np.float32))
+                else:
+                    pzt, alpha = biased_alpha_equivalent(p, 10.0)
+                    betas = beta_ladder_alpha(pzt, alpha, d)
+                    w = np.asarray([alpha, alpha, 1.0], np.float32)
+                betas = torch.as_tensor(betas, dtype=torch.float32, device=dev)
+                for B in batches:
+                    gen = torch.Generator(device="cuda").manual_seed(7 + B)
+                    ls = init_ladder(spec, sample_depolarizing(
+                        gen, spec, p, (B,), device="cuda"), d)
+                    state = (ls.state, ls.flag, ls.tops0,
+                             torch.zeros((B, spec.n_classes), dtype=torch.int32,
+                                         device=dev),
+                             torch.zeros((B,), dtype=torch.int32, device=dev))
+                    for iters in (10, 2):
+                        fns, rec, outs = {}, {}, {}
+                        lw.window_form = lambda *args: "registers"
+                        try:
+                            for L in counts:
+                                lw.window_lanes = lambda *args, L=L: L
+                                shape, n = lw.launch_plan(spec, B, d, iters, eq)
+                                fn = lw.make_ladder_window(
+                                    spec, d, 600, iters, 0.5, 2, 12,
+                                    top_exact=True, equal_betas=eq)
+                                fns[L] = lambda fn=fn: fn(*state, 3, betas, w)
+                                first = time.perf_counter()
+                                outs[L] = fns[L]()
+                                torch.cuda.synchronize()
+                                first = 1e3 * (time.perf_counter() - first)
+                                held = lw.resident_rows(shape, n, n_sm)
+                                rec[L] = dict(
+                                    reps=1 if first > 250 else
+                                    min(4, 1 + int(300 / first)),
+                                    threads=shape.threads,
+                                    groups=shape.groups_per_block,
+                                    blocks_per_sm=n, rows_at_once=held,
+                                    waves=round(B / held, 4), passes=[])
+                            # two passes, the lane counts in turn and back
+                            for order in (counts, counts[::-1]):
+                                for L in order:
+                                    lw.window_lanes = lambda *args, L=L: L
+                                    rec[L]["passes"].append(round(
+                                        _time_ms(fns[L], rec[L]["reps"]), 4))
+                        finally:
+                            lw.window_form, lw.window_lanes = form, rule
+                        for L in counts:
+                            rec[L]["ms"] = round(sum(rec[L]["passes"]) / 2, 4)
+                            rec[L]["equal"] = sum(torch.equal(a, b) for a, b in
+                                                  zip(outs[L], outs[base]))
+                        same = all(r["equal"] == len(outs[base])
+                                   for r in rec.values())
+                        bad += not same
+                        row = dict(family=family, d=d, Nc=d, p=p, B=B,
+                                   iters=iters, betas=kind, nw=offs["nw"],
+                                   span=offs["span"], default=base,
+                                   lanes={str(L): r for L, r in rec.items()},
+                                   outputs=len(outs[base]), equal=same,
+                                   form=form(spec, d, eq, iters, B, n_sm),
+                                   pick=rule(spec, d, eq, iters, B, n_sm))
+                        log.write(json.dumps(row) + "\n")
+                        log.flush()
+                        said = ", ".join(
+                            f"L={L} {r['ms']:.3f} ms ({r['waves']} waves)"
+                            for L, r in rec.items())
+                        print(f"{family} d={d} Nc={d} p={p} B={B} iters={iters} "
+                              f"{kind}: {said}; outputs "
+                              f"{'equal' if same else 'DIFFER'}; window_lanes "
+                              f"picks {row['pick']}, window_form {row['form']}",
+                              flush=True)
+    print(f"lanes: {bad} shapes with outputs that differ", flush=True)
+    return 1 if bad else 0
+
+
 def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--one":
         return one(argv[1])
     if len(argv) == 6 and argv[0] == "--forms":
         return forms(argv[1], int(argv[2]), int(argv[3]), int(argv[4]),
                      float(argv[5]))
+    if len(argv) in (1, 2) and argv[0] == "--lanes":
+        return lanes(argv[1] if len(argv) == 2 else
+                     "chiprun_out/window_lanes.jsonl")
     if len(argv) in (2, 3) and argv[0] == "--grid" and argv[1] in GRIDS:
         return grid(argv[1], argv[2] if len(argv) == 3 else
                     f"chiprun_out/window_forms_{argv[1]}.jsonl")

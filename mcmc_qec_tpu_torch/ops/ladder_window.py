@@ -17,7 +17,9 @@ a run-time value, for every ladder the registers cannot hold (codes of 6
 words per plane and more, up to WIDE_WORDS; groups too large for the
 register form's shared memory) and for the launches where it is the
 faster form (the waves of each and ``wave_cost``).  Both compute the same
-function.  The tables both kernels read are ``ops/kernel_tables.py``'s.
+function.  A register-form launch that fills less than a wave runs more
+lanes a rung where that was measured faster (``window_lanes``).  The
+tables both kernels read are ``ops/kernel_tables.py``'s.
 
 Every branch of the TPU kernel is ported:
 
@@ -117,6 +119,19 @@ WAVE_COST = (-0.03, 0.215, 0.135)
 ROWS_EXPONENT = 0.57
 # named barriers a block has for multi-warp groups (id 0 is __syncthreads)
 MAX_NAMED_BARRIERS = 15
+# the lanes per rung a register-form launch under a wave widens to
+# (``window_lanes``), per ladder chip_window_probe.py --lanes measured:
+# (words per plane, spanned words per stabilizer, Nc, equal betas, iters)
+# -> ((lanes, the most rows an SM, ceil(B / SMs), at which they were the
+# fastest measured), ...), widest first
+WIDER_LANES = {
+    (1, 1, 5, True, 10): ((16, 4), (8, 8)),  # toric d=5, the d=5 cells
+    (1, 1, 5, True, 2): ((16, 4), (8, 8)),
+    (2, 2, 7, True, 10): ((32, 1),),  # toric d=7
+    (2, 2, 7, True, 2): ((32, 1),),
+    (3, 2, 13, False, 10): ((16, 1),),  # xzzx d=13, general betas
+    (3, 2, 13, False, 2): ((16, 1),),
+}
 # Philox uses per step after the sweeps (gates, draws, exchange, MH accept)
 _N_EXTRA_USES = 4
 
@@ -534,15 +549,16 @@ def _pack_groups(L: int, Nc: int, B: int, n_sm: int, smem,
 
 
 def block_shape(offs, Nc: int, K: int, B: int, n_sm: int, equal_betas: bool,
-                iters: int, n_draws: int) -> BlockShape:
-    """The launch of one window in the register form: ``lanes_per_rung``
-    lanes per rung, packed by ``_pack_groups``, the tables in shared
-    memory when one group fits beside them, else read from device memory
-    (toric d=19: 85 KB of tables fit beside a 19-rung group of 125 KB, not
-    beside a 25-rung one)."""
+                iters: int, n_draws: int, lanes: Optional[int] = None
+                ) -> BlockShape:
+    """The launch of one window in the register form: ``lanes`` lanes per
+    rung (``lanes_per_rung``'s by default), packed by ``_pack_groups``, the
+    tables in shared memory when one group fits beside them, else read
+    from device memory (toric d=19: 85 KB of tables fit beside a 19-rung
+    group of 125 KB, not beside a 25-rung one)."""
     smem = functools.partial(smem_bytes, offs, Nc, K, equal_betas=equal_betas,
                              iters=iters, n_draws=n_draws)
-    return _pack_groups(lanes_per_rung(offs, Nc), Nc, B, n_sm,
+    return _pack_groups(lanes or lanes_per_rung(offs, Nc), Nc, B, n_sm,
                         lambda g, t: smem(g, tab_in_smem=t),
                         smem(1, tab_in_smem=True) <= SMEM_LIMIT,
                         f"Nc={Nc}, {offs['nw']} words per plane")
@@ -760,6 +776,90 @@ def window_form(spec: CodeSpec, Nc: int, equal_betas: bool, iters: int,
     return "registers" if registers < large else "large"
 
 
+@functools.lru_cache(maxsize=4096)
+def window_lanes(spec: CodeSpec, Nc: int, equal_betas: bool, iters: int,
+                 B: int, n_sm: int) -> int:
+    """Lanes per rung of a register-form launch of ``B`` rows, once
+    ``window_form`` has picked that form (from ``block_shape``'s launch at
+    ``lanes_per_rung``'s lanes): wider where the launch fills less than a
+    wave, so that a syndrome's serial step, its draws and its proposals,
+    splits over more threads.
+
+    Of WIDER_LANES' entries for the ladder (words per plane, spanned words,
+    Nc, betas form, iters), widest first, the first at 2 or 4 times
+    ``lanes_per_rung``'s lanes whose measured rows an SM reach ceil(B /
+    n_sm) and whose launch still holds every row at once
+    (``block_shape`` at those lanes, ``blocks_per_sm`` at MAX_THREADS; the
+    named barriers and shared memory bound its groups a block); else
+    ``lanes_per_rung``'s, and always so at one wave or more and at ladders
+    the table does not name.  Draws are keyed by Philox block, step and
+    row, not by thread, so the outputs are the same at every lane count.
+
+    Below a wave a window's time is one syndrome's serial step: its draws
+    (all the group's threads), its proposals (a rung's lanes) and the
+    exchange; more lanes split the first two while the SMs keep warp
+    slots free, until the wider groups hold fewer rows than the batch.
+    The measurements (chip_window_probe.py --lanes: one W=600 window, C=12,
+    Nc=d, a zero top rung, the register form forced at each lane count,
+    all nine outputs equal to the default lanes' at every shape; NVIDIA H100
+    80GB HBM3 at 700 W, 132 SMs), ms at 4, 8, 16 and 32 lanes a rung (8,
+    16 and 32 at d=7 and 13), * where the launch runs more than one wave;
+    toric at p=0.15 (p=0.19 within 0.5%), xzzx at ``PTEQ_alpha``'s general
+    betas, eta=10, p=0.276:
+
+    ===============  ====  ===========================  ===========================
+    ladder           B     iters=10                     iters=2
+    ===============  ====  ===========================  ===========================
+    toric d=5 Nc=5   16    22.37 17.87 16.40 18.14      5.61 4.50 4.16 4.79
+    (1, 1) equal     64    22.39 17.86 16.40 18.17      5.70 4.53 4.17 4.80
+                     132   22.40 17.89 16.43 18.21      5.63 4.54 4.19 4.82
+                     264   22.34 17.89 17.41 19.91      5.68 4.58 4.45 5.24
+                     512   22.47 19.59 19.42 43.85*     5.70 4.94 4.84 11.10*
+                     660   24.82 21.49 21.50 43.86*     6.19 5.29 5.23 11.11*
+                     821   24.88 23.94 42.67* 65.51*    6.20 5.80 10.37* 16.43*
+                     1056  24.90 23.99 42.74* 65.70*    6.21 5.79 10.39* 16.58*
+                     1500  27.94 47.78* 63.94* 87.57*   6.93 11.49* 15.51* 22.07*
+                     2048  31.72 47.87* 85.15* 131.1*   7.75 11.50* 20.59* 32.94*
+                     2603  63.22* 71.62* 85.37* 153.1*  15.32* 17.14* 20.63* 38.45*
+    toric d=7 Nc=7   132   37.55 29.65 28.80            8.59 7.23 7.01
+    (2, 2) equal     512   43.50 45.19 72.14*           9.82 10.39 16.51*
+                     2048  177.45* 180.34* 287.98*      25.58* 40.98* 65.29*
+    xzzx d=13 Nc=13  132   55.06 44.50 49.08            13.06 11.13 11.95
+    (3, 2) general   512   129.86* 121.45* 195.96*      20.96 28.12* 47.24*
+                     2048  519.64* 485.37* 782.80*      83.22* 111.86* 188.41*
+    ===============  ====  ===========================  ===========================
+
+    So at toric d=5 16 lanes up to 4 rows an SM (1.36x at B <= 132, 1.16x
+    at 512), 8 from 5 to 8 (1.15x at 660, 1.04x at 821-1056, where 16
+    lanes need a second wave), 32 nowhere (a rung's 10 proposals a color
+    leave 22 of its lanes idle); at toric d=7 and xzzx d=13 the widest
+    faster count only at one row an SM.  xzzx d=13 at 512 and 2048 rows
+    and iters=10 runs the large variant (``window_form``); 16 lanes there
+    are 7% faster in the same waves, which the rule, keeping the default
+    from one wave on, leaves unused."""
+    offs = kernel_tables(spec)[2]
+    base = lanes_per_rung(offs, Nc)
+    wider = WIDER_LANES.get((offs["nw"], offs["span"], Nc, equal_betas, iters))
+    if not wider:
+        return base
+    rows = max(B, 1)
+    args = (offs, Nc, spec.n_classes, rows, n_sm, equal_betas, iters,
+            len(spec.logical_draws))
+
+    def held(lanes: int) -> int:
+        shape = block_shape(*args, lanes=lanes)
+        return resident_rows(shape, blocks_per_sm(shape, MAX_THREADS), n_sm)
+
+    if rows >= held(base):
+        return base
+    per_sm = -(-rows // n_sm)
+    for lanes, most in wider:
+        if (lanes in (2 * base, 4 * base) and per_sm <= most
+                and held(lanes) >= rows):
+            return lanes
+    return base
+
+
 def window_kernel_fits(spec: CodeSpec, Nc: int, equal_betas: bool,
                        iters: int) -> bool:
     """Whether either form of the window kernel runs a window of ``Nc``
@@ -803,11 +903,15 @@ def _layout_fields(spec: CodeSpec, B: int, Nc: int, iters: int,
         raise ValueError(window_limit(spec, Nc))
     _, _, offs = kernel_tables(spec)
     K, n_draws = spec.n_classes, len(spec.logical_draws)
-    plan = block_shape if form == "registers" else wide_block_shape
-    shape = plan(offs, Nc, K, B, _sm_count(device), equal_betas, iters,
-                 n_draws)
-    base = offs["off_draw"]  # the window kernel's table starts there
+    n_sm = _sm_count(device)
+    args = (offs, Nc, K, B, n_sm, equal_betas, iters, n_draws)
     wide = form == "large"
+    if wide:
+        shape = wide_block_shape(*args)
+    else:
+        shape = block_shape(*args, lanes=window_lanes(
+            spec, Nc, equal_betas, iters, B, n_sm))
+    base = offs["off_draw"]  # the window kernel's table starts there
     return shape, dict(
         B=B, Nc=Nc, nq=spec.nq, nw=offs["nw"], K=K, n_bits=spec.n_class_bits,
         n_colors=offs["n_colors"], n_draws=n_draws, iters=iters,
@@ -870,13 +974,18 @@ def _record_launch(shape: BlockShape, layout: dict, device: torch.device,
                    B: int) -> None:
     """The recorder's counters of one launch (``utils/profiling.py``, only
     while it records): ``k2.form.registers`` or ``k2.form.large``, one a
-    launch; ``k2.resident_rows``, the rows its shape holds at once
-    (``resident_rows``), and ``k2.waves_micro``, its rows over those in
-    millionths of a wave, each summed over launches.  Off, the read of the
-    recorder's flag is all it costs."""
+    launch, and for the register form ``k2.lanes.<L>``, one a launch at L
+    lanes per rung (``window_lanes``); ``k2.resident_rows``, the rows its
+    shape holds at once (``resident_rows``), and ``k2.waves_micro``, its
+    rows over those in millionths of a wave, each summed over launches.
+    Off, the read of the recorder's flag is all it costs."""
     if not profiling.recording():
         return
-    profiling.count("k2.form.large" if layout["wide"] else "k2.form.registers")
+    if layout["wide"]:
+        profiling.count("k2.form.large")
+    else:
+        profiling.count("k2.form.registers")
+        profiling.count(f"k2.lanes.{shape.lanes}")
     held = resident_rows(shape, _resident_blocks(_shape_key(layout), device),
                          _sm_count(device))
     profiling.count("k2.resident_rows", held)
