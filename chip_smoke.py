@@ -132,6 +132,13 @@ kernel against its plain PyTorch version on the card:
   plan's lanes and at 16 and 32; phase 25's PTEQ at toric d=21 through it;
   W=60 windows at toric d=23 B=16, xzzx d=33 B=64 and toric d=25 B=128
   and B=1024 against their bounds.
+- The benchmark's biased-noise cell (port_bench's configuration
+  ``pteq_alpha_xzzx13`` under its traffic ``eta10_p0275_b512``): one
+  request of 512 XZZX d=13 syndromes through ``PTEQ_alpha`` with the
+  recorder on (every launch the large variant with per-Pauli betas), then
+  a window of each form K2 takes as compaction shrinks that batch (the
+  large variant at 512 rows, the register form at 16 lanes a rung at 128)
+  on the cell's ladder against the plain version.
 
 Each phase prints one line; any failed phase exits non-zero.  The line
 before the last is a JSON record of the kernels (launches on the main
@@ -488,6 +495,14 @@ FORMS_K2 = [
     ("xzzx", 25, 25, 64, 24, "general-mh", "even_odd", False, "philox", None),
 ]
 WIDE_K2_BATCH = dict(family="toric", d=25, p=0.05, B=1024, max_steps=600)
+# the benchmark's biased-noise cell (phase 30): port_bench's configuration
+# and traffic files, one request decoded as the cell decodes it; then a
+# W=60 window at each (rows, form, lanes a rung) K2 takes for the cell's
+# ladder at the batches compaction leaves (512 -> 256 -> 128), the large
+# variant at the first, the register form at the last
+ALPHA_CELL = dict(config="pteq_alpha_xzzx13", traffic="eta10_p0275_b512",
+                  seed=2034, W=60, windows=((512, "large", None),
+                                            (128, "registers", 16)))
 # the golden-corpus studies on the card (phase 26): 256 toric d=5
 # syndromes drawn at p=0.15 (not the DRL failure set, which is not in the
 # repository), through studies.golden_replay.run (PTEQ at its production
@@ -3930,6 +3945,93 @@ def phase_window_forms(built, decodes, wide_k2):
     return [entry]
 
 
+def phase_alpha_cell():
+    """The benchmark's biased-noise cell on the card (ALPHA_CELL above): one
+    request at the cell's configuration through ``PTEQ_alpha`` under the
+    recorder, every K2 launch the large variant with per-Pauli betas and
+    512 rows; then one window at each batch of ALPHA_CELL's, in the form
+    and lanes ``window_form`` and ``window_lanes`` pick there, on the
+    cell's ladder and weights, every output equal to the plain version's."""
+    m = ALPHA_CELL
+    cell = json.loads((ROOT / "port_bench" / "configs"
+                       / f"{m['config']}.json").read_text())
+    traffic = json.loads((ROOT / "port_bench" / "traffic"
+                          / f"{m['traffic']}.json").read_text())
+    code, dec = cell["code"], cell["decoder"]
+    spec = get_spec(code["family"], code["size"])
+    p, eta, B = traffic["p"], traffic["eta"], traffic["batch"]
+    px, py, pz = xyz_probs_from_biased(p, eta)
+    pz_tilde, alpha = biased_alpha_equivalent(p, eta)
+    fields = {f.name for f in dataclasses.fields(PTEQConfig)}
+    cfg = PTEQConfig(**{k: v for k, v in dec.items() if k in fields})
+    Nc = cfg.Nc
+    gen = torch.Generator(device="cuda").manual_seed(m["seed"])
+    states = sample_xyz(gen, spec, px, py, pz, (B,), device="cuda")
+    truth = np_eq_class(spec, states.cpu().numpy())
+
+    def decode():
+        return PTEQ_alpha(spec, states, pz_tilde, alpha, cfg, seed=1,
+                          device="cuda")
+
+    decode()  # builds or loads K2
+    profiling.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        res, dt, k2, k2p, k1, k1p = _decode_counts(decode)
+    c = profiling.snapshot()["counters"]
+    profiling.reset()
+    cap = cfg.max_steps // cfg.window
+    check(k2 >= 1 and not (k2p or k1 or k1p) and res.window == "fused",
+          f"{k2} K2 launches, plain {k2p}, K1 {k1}, {k1p}, window "
+          f"{res.window}")
+    check(c.get("k2.betas.general") == k2,
+          f"k2.betas.general {c.get('k2.betas.general')} in {k2} launches")
+    rows = {f: c.get(f"k2.rows.{f}", 0) for f in ("large", "registers")}
+    forms = {f: c.get(f"k2.form.{f}", 0) for f in ("large", "registers")}
+    check(sum(forms.values()) == k2, f"forms {forms} in {k2} launches")
+    check(rows["large"] >= B and forms["large"] >= 1,
+          f"the batch of {B} did not run the large variant: {forms}, {rows}")
+    failure = float(np.mean(res.distribution.argmax(-1) != truth))
+    lines = [f"{code['family']} d={code['size']} Nc={Nc} eta={eta} p={p} "
+             f"(pz_tilde={pz_tilde:.6f}, alpha={alpha:.6f}) B={B} "
+             f"max_steps={cfg.max_steps} eps={cfg.eps} iters={cfg.iters}: "
+             f"{dt:.2f} s, {B / dt:.1f} syn/s, {k2} K2 launches (cap {cap}), "
+             f"forms {forms}, rows {rows}, lanes "
+             f"{ {k: v for k, v in c.items() if k.startswith('k2.lanes.')} }, "
+             f"k2.betas.general {c['k2.betas.general']}, batch sizes after "
+             f"compaction {list(res.buckets)}, converged "
+             f"{res.converged.mean():.4f}, failure {failure:.4f}"]
+
+    ladder = beta_ladder_alpha(pz_tilde, alpha, Nc)
+    betas = torch.as_tensor(ladder, dtype=torch.float32, device="cuda")
+    w = np.asarray((alpha, alpha, 1.0), np.float32)
+    branch = dict(top_exact=True, equal_betas=False)
+    W, worst = m["W"], 0.0
+    for i, (rows_b, form, lanes) in enumerate(m["windows"]):
+        check(lw.window_form(spec, Nc, False, cfg.iters, rows_b, _n_sm())
+              == form, f"{rows_b} rows: window_form does not pick {form}")
+        if lanes is not None:
+            check(lw.window_lanes(spec, Nc, False, cfg.iters, rows_b, _n_sm())
+                  == lanes, f"{rows_b} rows: window_lanes is not {lanes}")
+        inputs = _ladder_inputs(spec, rows_b, Nc, 3000 + i, "cuda")
+        args = (*inputs, 4100 + i, betas, w)
+        kern = make_ladder_window(spec, Nc, W, cfg.iters, cfg.p_logical,
+                                  cfg.tops_burn, cfg.energy_chunk,
+                                  **branch)(*args)
+        plain = ladder_window_reference(
+            spec, *args, window=W, iters=cfg.iters, p_logical=cfg.p_logical,
+            tops_burn=cfg.tops_burn, energy_chunk=cfg.energy_chunk, **branch)
+        worst = max(worst, compare_outputs(
+            f"{m['config']} window of {rows_b} rows ({form})", kern, plain, W))
+        name = (_k2_wide_name(spec, False) if form == "large"
+                else _k2_name(spec, False))
+        lines.append(f"{rows_b} rows: {name} ({form}, lanes "
+                     f"{lanes or 'plan'}), W={W}, all outputs equal to the "
+                     f"plain version")
+    print("phase 30 the benchmark's biased-noise cell: " + "; ".join(lines)
+          + f"; max abs err {worst}", flush=True)
+
+
 def phase_golden():
     """The golden-corpus studies on the card (GOLDEN above), each through
     its ``run`` on syndromes drawn here, so without pandas: golden_replay
@@ -4037,6 +4139,8 @@ def main() -> int:
         wide_k2 = phase_window_above_16_words(built, unfused_s)
         phase = "the redesigned large variant and the choice of form"
         forms = phase_window_forms(built, decodes, wide_k2)
+        phase = "the benchmark's biased-noise cell"
+        phase_alpha_cell()
     except PhaseFailed as e:
         print(f"FAILED phase {phase}: {e}", flush=True)
         return 1

@@ -971,21 +971,25 @@ def resident_rows(shape: BlockShape, blocks_per_sm: int, n_sm: int) -> int:
 
 
 def _record_launch(shape: BlockShape, layout: dict, device: torch.device,
-                   B: int) -> None:
+                   B: int, equal_betas: bool) -> None:
     """The recorder's counters of one launch (``utils/profiling.py``, only
     while it records): ``k2.form.registers`` or ``k2.form.large``, one a
-    launch, and for the register form ``k2.lanes.<L>``, one a launch at L
-    lanes per rung (``window_lanes``); ``k2.resident_rows``, the rows its
-    shape holds at once (``resident_rows``), and ``k2.waves_micro``, its
-    rows over those in millionths of a wave, each summed over launches.
-    Off, the read of the recorder's flag is all it costs."""
+    launch, and ``k2.rows.registers`` or ``k2.rows.large``, its rows; for
+    the register form ``k2.lanes.<L>``, one a launch at L lanes per rung
+    (``window_lanes``); ``k2.betas.general``, one a launch with per-Pauli
+    betas; ``k2.resident_rows``, the rows its shape holds at once
+    (``resident_rows``), and ``k2.waves_micro``, its rows over those in
+    millionths of a wave, each summed over launches.  Off, the read of the
+    recorder's flag is all it costs."""
     if not profiling.recording():
         return
-    if layout["wide"]:
-        profiling.count("k2.form.large")
-    else:
-        profiling.count("k2.form.registers")
+    form = "large" if layout["wide"] else "registers"
+    profiling.count(f"k2.form.{form}")
+    profiling.count(f"k2.rows.{form}", B)
+    if not layout["wide"]:
         profiling.count(f"k2.lanes.{shape.lanes}")
+    if not equal_betas:
+        profiling.count("k2.betas.general")
     held = resident_rows(shape, _resident_blocks(_shape_key(layout), device),
                          _sm_count(device))
     profiling.count("k2.resident_rows", held)
@@ -1068,7 +1072,7 @@ def _launch(spec, state, flag, tops0, eq_count, since_burn, seed, betas,
             f"(B={B}, Nc={Nc}, nq={nq}, nw={offs['nw']}, {shape})"
         )
     ladder_window_counts.add_launch(B)
-    _record_launch(shape, layout, device, B)
+    _record_launch(shape, layout, device, B, equal_betas)
     return out
 
 

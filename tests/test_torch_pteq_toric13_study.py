@@ -186,7 +186,7 @@ def _record(monkeypatch, wide, rows):
     shape = lw.BlockShape(8, 4, 3, 384, True, 1000)
     for b in rows:
         lw._record_launch(shape, dict(B=b, wide=int(wide), nw=6),
-                          torch.device("cpu"), b)
+                          torch.device("cpu"), b, True)
     return asked
 
 

@@ -208,9 +208,9 @@ def test_lanes_counter_under_the_profiler(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]):
         for L in (16, 16, 8, 4):
             shape = lw.BlockShape(L, 1, 1, 32, True, 1000)
-            lw._record_launch(shape, dict(B=128, wide=0), cpu, 128)
+            lw._record_launch(shape, dict(B=128, wide=0), cpu, 128, True)
         lw._record_launch(lw.BlockShape(8, 7, 4, 896, True, 1000),
-                          dict(B=512, wide=1), cpu, 512)
+                          dict(B=512, wide=1), cpu, 512, True)
     c = profiling.snapshot()["counters"]
     profiling.reset()
     lanes = {k: v for k, v in c.items() if k.startswith("k2.lanes.")}
